@@ -1,0 +1,21 @@
+"""The solver backend gate of the provisioning loop.
+
+Port of ``make_solver`` from ``karpenter_tpu/core/provisioner.py``.  The
+provisioning loop itself (windows, actuation) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from karpenter_tpu_torch.solver.torch_backend import TorchSolver
+from karpenter_tpu_torch.solver.types import SolverOptions
+
+
+def make_solver(options: SolverOptions | None = None, device="cuda"):
+    """The solver for ``options``: ``TorchSolver`` on ``device``.
+
+    It is returned UNWRAPPED.  The reference wraps its solver in
+    ``ResilientSolver``, which degrades a failed solve to the host greedy
+    oracle; here that would hide a broken kernel, so the degraded mode
+    waits for a later slice (ROADMAP queue 1, unserved routes of the
+    first slice)."""
+    return TorchSolver(options or SolverOptions(), device=device)

@@ -1,0 +1,159 @@
+"""Decode-side fold: per-group reason words -> per-pod canonical reasons.
+
+The device's static bit is generic — it only sees the packed label row
+(requirements, zone and availability folded into one mask).  Decode
+refines it with the factors the host kept (each group's requirements
+and pinned zone, the catalog availability mask) into the most specific
+static cause:
+
+    requirements   — the label requirements alone match no offering
+    availability   — label matches exist, every one unavailable
+    zone_affinity  — the zone requirement / pin eliminated them all
+    zone_blackout  — zone candidates exist but are all blacked out
+
+then folds the word through the most-specific-wins ladder and assigns
+the reason to each unplaced pod (a group's unplaced pods are the tail
+of its pod_names, as ``decode_plan_entries`` emits them).  Port of
+``karpenter_tpu/explain/decode.py``; pure, it touches no registry.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from karpenter_tpu_torch.explain import BIT, fold_reason, word_for
+from karpenter_tpu_torch.explain.greedy import (
+    label_rows_for, nearest_miss, nearest_miss_index, reason_words,
+)
+
+_STATIC_BIT = 1 << BIT["requirements"]
+_INSUFFICIENT_MASK = (1 << BIT["insufficient_cpu"]) \
+    | (1 << BIT["insufficient_mem"]) \
+    | (1 << BIT["insufficient_accel"]) \
+    | (1 << BIT["insufficient_pods"])
+_AFFINITY_MASK = (1 << BIT["affinity_unsatisfied"]) \
+    | (1 << BIT["spread_bound"])
+
+
+def refine_static(problem, gi: int, word: int) -> int:
+    """Split the device's generic static bit into the most specific
+    cause the encoder-side masks can prove.  Idempotent on words without
+    the static bit."""
+    if not word & _STATIC_BIT:
+        return word
+    g = problem.groups[gi]
+    catalog = problem.catalog
+    if g.requirements is None or catalog.num_offerings == 0:
+        return word
+    from karpenter_tpu_torch.apis.requirements import LABEL_ZONE
+    from karpenter_tpu_torch.solver.encode import (
+        _allowed_mask, _label_compat_noavail,
+    )
+
+    lbl_na = _label_compat_noavail(g.requirements, catalog)
+    avail = catalog.off_avail
+    zone_allowed = _allowed_mask(g.requirements, LABEL_ZONE,
+                                 catalog.zones).copy()
+    if g.pinned_zone is not None:
+        zone_allowed &= np.array([z == g.pinned_zone
+                                  for z in catalog.zones])
+    zone = zone_allowed[catalog.off_zone]
+    if not lbl_na.any():
+        refined = "requirements"
+    elif not (lbl_na & avail).any():
+        refined = "availability"
+    elif not (lbl_na & zone).any():
+        refined = "zone_affinity"
+    elif not (lbl_na & zone & avail).any():
+        refined = "zone_blackout"
+    else:
+        refined = "requirements"
+    return (word & ~_STATIC_BIT) | word_for(refined)
+
+
+def group_miss_counts(problem, plan) -> np.ndarray:
+    """int64 [G] unplaced-per-group derived from the plan's unplaced pod
+    names — the fallback when the caller has no dense unplaced vector."""
+    G = problem.num_groups
+    miss = np.zeros(G, dtype=np.int64)
+    if not plan.unplaced_pods:
+        return miss
+    owner: dict[str, int] = {}
+    for gi, g in enumerate(problem.groups):
+        for pn in g.pod_names:
+            owner[pn] = gi
+    for pn in plan.unplaced_pods:
+        gi = owner.get(pn)
+        if gi is not None:
+            miss[gi] += 1
+    return miss
+
+
+def attach(problem, plan, reason_words_arr=None,
+           miss: np.ndarray | None = None) -> None:
+    """Populate ``plan.unplaced_reasons`` (pod key -> canonical reason),
+    ``plan.unplaced_words`` (pod key -> raw bitmask) and
+    ``plan.unplaced_nearest``.
+
+    ``reason_words_arr`` is the device's [>=G] int32 word vector; groups
+    the device reported no evidence for (word 0 with pods still
+    unplaced, e.g. members a gang drop returned after the kernel ran)
+    fall back to the host oracle, which recomputes from the decode-final
+    unplaced counts."""
+    if not plan.unplaced_pods:
+        plan.unplaced_reasons = {}
+        plan.unplaced_words = {}
+        return
+    G = problem.num_groups
+    if miss is None:
+        miss = group_miss_counts(problem, plan)
+    else:
+        miss = np.asarray(miss[:G], dtype=np.int64)
+    words = None
+    if reason_words_arr is not None:
+        words = np.asarray(reason_words_arr[:G], dtype=np.int64).copy()
+    holes = np.nonzero(miss > 0)[0]
+    # the [G,O] label/deficit tensors are built at most once per fold
+    near_cache: list = []
+
+    def near_pre() -> tuple:
+        if not near_cache:
+            lbl = label_rows_for(problem)
+            near_cache.append((lbl,) + nearest_miss_index(problem, lbl))
+        return near_cache[0]
+
+    if words is None or (words[holes] == 0).any():
+        oracle = reason_words(problem, miss, precomputed=near_pre())
+        if words is None:
+            words = oracle.astype(np.int64)
+        else:
+            fill = (words == 0) & (miss > 0)
+            words[fill] = oracle[fill]
+    reasons: dict[str, str] = {}
+    raw: dict[str, int] = {}
+    nearest: dict[str, dict] = {}
+    for gi in holes.tolist():
+        word = refine_static(problem, gi, int(words[gi]))
+        reason = fold_reason(word)
+        g = problem.groups[gi]
+        m = int(miss[gi])
+        near = None
+        if word & (_INSUFFICIENT_MASK | _STATIC_BIT | _AFFINITY_MASK) \
+                or reason in ("zone_affinity", "zone_blackout",
+                              "availability", "requirements"):
+            near = nearest_miss(problem, gi, precomputed=near_pre())
+        for pn in g.pod_names[len(g.pod_names) - m:]:
+            reasons[pn] = reason
+            raw[pn] = word
+            if near is not None:
+                nearest[pn] = near
+    # pods the encoder rejected never reach the solve: pool taints or
+    # statically-unsatisfiable requirements, recorded at rejection time
+    rej = getattr(problem, "rejected_reasons", None) or {}
+    for pn in problem.rejected:
+        reason = rej.get(pn, "taints")
+        reasons[pn] = reason
+        raw[pn] = word_for(reason)
+    plan.unplaced_reasons = reasons
+    plan.unplaced_words = raw
+    plan.unplaced_nearest = nearest

@@ -1,0 +1,90 @@
+"""The port imports neither JAX nor the reference package.
+
+Checked in a fresh interpreter, because tests/conftest.py imports jax
+into this one: every module of ``karpenter_tpu_torch`` and everything
+``chip_smoke.py`` imports must leave ``jax`` and the module
+``karpenter_tpu`` (and anything under ``karpenter_tpu.``) out of
+``sys.modules``.  ``karpenter_tpu_torch`` itself starts with the string
+``karpenter_tpu``, so the check tests the module name and the
+``karpenter_tpu.`` prefix, never a bare ``startswith``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import karpenter_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__,
+                                              "karpenter_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "karpenter_tpu"
+             or m.startswith("karpenter_tpu."))
+print(json.dumps({"modules": mods, "bad": bad,
+                  "torch": "torch" in sys.modules}))
+"""
+
+
+def _probe():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    res = _probe()
+    assert res["bad"] == []
+    assert res["torch"]
+    # the walk really covered the package (kernel wrapper, build, carry)
+    for m in ("karpenter_tpu_torch.solver.ffd_kernel",
+              "karpenter_tpu_torch.solver.packed",
+              "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
+              "karpenter_tpu_torch.workload"):
+        assert m in res["modules"]
+
+
+def test_prefix_trap_is_handled():
+    """The name filter must not confuse the port with the reference."""
+    names = ["karpenter_tpu_torch", "karpenter_tpu_torch.solver",
+             "karpenter_tpu", "karpenter_tpu.solver"]
+    ref = [m for m in names
+           if m == "karpenter_tpu" or m.startswith("karpenter_tpu.")]
+    assert ref == ["karpenter_tpu", "karpenter_tpu.solver"]
+
+
+def test_default_solver_needs_cuda(monkeypatch):
+    """TorchSolver() runs on the card: with no CUDA device it raises
+    instead of carrying on on the CPU."""
+    from karpenter_tpu_torch import TorchSolver, make_solver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSolver()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_solver()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card chip_smoke.py exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
