@@ -6,24 +6,39 @@ Run from the repository root on a machine with one CUDA card:
 
 It drives the port's main path — the default provisioning solve of the
 headline window, 10k pending pods x 500 instance types (seed 42) —
-through ``TorchSolver(device="cuda").solve`` and checks that it ran
-through the hand-written CUDA kernels.  Phases, in order; any failure
-exits non-zero and prints no result line:
+through ``TorchSolver(device="cuda").solve``, then the batched paths:
+the multi-cluster fleet (8 clusters x 10k pods, each with its own
+catalog) through ``fleet_solve_packed``, the window stream through
+``solve_stream`` and a zone-candidate window through ``solve``, and
+checks that each ran through the hand-written CUDA kernels.  Phases, in
+order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from ``karpenter_tpu_torch/csrc`` (one nvcc per
    source, all at once) into ``karpenter_tpu_torch/_build/``;
 3. hold each kernel against its plain PyTorch version on the card, with
-   exact int32 equality, over seeds at the headline shape, the largest
-   scan shape and edge cases;
-4. the main path, with every launch count set to 0 just before and read
-   just after; the plan must place all 10000 pods and validate clean,
-   and the packed result must equal the plain CPU solve word for word
-   (the float cost word to a relative 1e-5);
+   exact int32 equality: ``ffd_scan`` over seeds at the headline shape,
+   the largest scan shape and edge cases; ``ffd_scan_fleet`` with eight
+   distinct catalogs at the headline shape, with one catalog expanded
+   over 16 problems (stride 0, also against the problems launched one
+   by one) and with distinct catalogs at the largest shape;
+4. the paths, each with every launch count set to 0 just before and
+   read just after, each needing its kernels launched and no pod left
+   unplaced: (a) the main path, whose plan must validate clean and
+   whose packed result must equal the plain CPU solve word for word
+   (the float cost word to a relative 1e-5); (b) the fleet, whose
+   [C, Lo] result must equal the plain CPU fleet program word for word;
+   (c) the stream of 64 windows at depth 32, batch 16, each plan equal
+   to its single-window plan and clean; (d) the zone-candidate window,
+   whose plan must equal the CPU solver's, with its candidate rounds
+   batched;
 5. timings: p50 wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
-   ``torch.profiler`` trace, and each kernel's own time beside its plain
-   version and its bound (none of these gates the run).
+   ``torch.profiler`` trace, each kernel's own time beside its plain
+   version and its bound; the fleet's single-shot and pipelined walls;
+   the stream's amortized per-window wall at batch 1 and 16 beside the
+   single-window p50, and its kernels per batch and device busy share
+   (none of these gates the run).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json-out PATH`` everything
@@ -38,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -45,9 +61,18 @@ import torch
 
 from karpenter_tpu_torch import SolveRequest, TorchSolver, validate_plan
 from karpenter_tpu_torch import cuda_build, workload
+from karpenter_tpu_torch.apis import pod as pod_api
+from karpenter_tpu_torch.apis.requirements import LABEL_ZONE
+from karpenter_tpu_torch.parallel import (
+    FleetProblem, fleet_device_catalog, fleet_pack_inputs,
+    fleet_solve_packed,
+)
 from karpenter_tpu_torch.solver import ffd_kernel
 from karpenter_tpu_torch.solver import packed as tp
-from karpenter_tpu_torch.solver.types import FIT_BIG
+from karpenter_tpu_torch.solver.torch_backend import _pad1, _pad2
+from karpenter_tpu_torch.solver.types import (
+    FIT_BIG, GROUP_BUCKETS, NODE_BUCKETS, OFFERING_BUCKETS, bucket,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -62,10 +87,22 @@ OPS_PER_NODE = 16
 OPS_PER_OFFERING = 16
 
 HEADLINE = dict(pods=10_000, types=500, seed=42)
+# BASELINE config #5 as bench.py runs it: clusters x build_workload(pods,
+# types, seed=seed0 + c)
+FLEET = dict(clusters=8, pods=10_000, types=500, seed0=100)
+# the window stream: `distinct` headline-size windows (seeds seed0...)
+# cycled to `windows`, through solve_stream(depth, batch)
+STREAM = dict(windows=64, distinct=16, depth=32, batch=16, seed0=42)
+# the zone-candidate window: the headline pods plus `apps` co-scheduled
+# apps of `pods` pods, each with a self PodAffinityTerm on the zone key
+ZONE = dict(apps=3, pods=200)
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
         replaces="karpenter_tpu/solver/pallas_kernel.py:253"),
+    "ffd_scan_fleet": dict(
+        route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
+        replaces="karpenter_tpu/solver/pallas_kernel.py:304"),
 }
 # the module, not the ``encode`` function the solver package re-exports
 encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
@@ -73,6 +110,78 @@ encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def reset_launches() -> None:
+    for name in ffd_kernel.LAUNCHES:
+        ffd_kernel.LAUNCHES[name] = 0
+
+
+def require_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path}: {launches}")
+
+
+def first_diff(label: str, got, want) -> None:
+    """Raise naming the first differing cell of (node_off, assign,
+    unplaced) when any differs."""
+    for name, a, b in zip(("node_off", "assign", "unplaced"), got, want):
+        bad = torch.nonzero(a != b)
+        if bad.numel():
+            raise AssertionError(f"{label}: {name} differs at "
+                                 f"{bad[0].tolist()} ({bad.shape[0]} "
+                                 f"cells)")
+
+
+def max_abs_err(got, want) -> int:
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in zip(got, want))
+
+
+def words_equal(label: str, card: np.ndarray, plain: np.ndarray,
+                cost_word: int) -> tuple[float, float]:
+    """A packed result row against its plain CPU twin: every word equal
+    but the float cost word, which must agree to a relative 1e-5."""
+    if card.shape != plain.shape:
+        raise AssertionError(f"{label}: result lengths {card.shape} vs "
+                             f"{plain.shape}")
+    mask = np.ones(card.shape[0], bool)
+    mask[cost_word] = False
+    bad = np.nonzero((card != plain) & mask)[0]
+    if bad.size:
+        raise AssertionError(f"{label}: packed result differs from the CPU "
+                             f"in {bad.size} words, first at {bad[0]}")
+    c_card = float(card[cost_word:cost_word + 1].view(np.float32)[0])
+    c_cpu = float(plain[cost_word:cost_word + 1].view(np.float32)[0])
+    if abs(c_card - c_cpu) > 1e-5 * max(abs(c_cpu), 1e-30):
+        raise AssertionError(f"{label}: cost word {c_card} vs {c_cpu}")
+    return c_card, c_cpu
+
+
+def plan_view(plan):
+    return ([(n.offering_index, n.pod_names) for n in plan.nodes],
+            plan.unplaced_pods)
+
+
+def plans_equal(label: str, got, want) -> None:
+    if plan_view(got) != plan_view(want):
+        raise AssertionError(f"{label}: plan differs from the reference "
+                             f"plan")
+    if abs(got.total_cost_per_hour - want.total_cost_per_hour) > \
+            1e-5 * max(abs(want.total_cost_per_hour), 1e-30):
+        raise AssertionError(f"{label}: cost {got.total_cost_per_hour} vs "
+                             f"{want.total_cost_per_hour}")
+
+
+def clean_and_placed(label: str, plan, pods, catalog) -> None:
+    errors = validate_plan(plan, pods, catalog)
+    if errors:
+        raise AssertionError(f"{label}: validate_plan: {errors[:5]}")
+    if plan.unplaced_pods or plan.placed_count != len(pods):
+        raise AssertionError(f"{label}: placed {plan.placed_count} of "
+                             f"{len(pods)}")
 
 
 def card_line() -> str:
@@ -152,18 +261,12 @@ def check_scan(dev, label: str, N: int, inputs) -> tuple[int, dict]:
     want = ffd_kernel.ffd_scan_reference(meta[None], compat[None], alloc,
                                          rank, N)
     torch.cuda.synchronize()
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-              for a, b in zip(got, want))
+    err = max_abs_err(got, want)
     node_off, _, unplaced = (x.cpu().numpy()[0] for x in want)
     info = {"nodes_open": int((node_off >= 0).sum()),
             "unplaced": int(unplaced.sum())}
     if err:
-        for name, a, b in zip(("node_off", "assign", "unplaced"), got, want):
-            bad = torch.nonzero(a != b)
-            if bad.numel():
-                raise AssertionError(
-                    f"ffd_scan {label}: {name} differs at "
-                    f"{bad[0].tolist()} ({bad.shape[0]} cells)")
+        first_diff(f"ffd_scan {label}", got, want)
     return err, info
 
 
@@ -211,30 +314,115 @@ def phase_kernel_checks(dev, catalog) -> dict:
     return {"max_abs_err": worst, "cases": summary}
 
 
+def check_fleet_scan(dev, label: str, N: int, meta, compat, alloc,
+                     rank) -> tuple[int, dict]:
+    """``ffd_scan_fleet`` against its plain version on the card (numpy or
+    tensor inputs, [C, ...]); returns (max |diff|, info)."""
+    meta, compat, alloc, rank = (
+        x if isinstance(x, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        for x in (meta, compat, alloc, rank))
+    got = ffd_kernel.ffd_scan_fleet(meta, compat, alloc, rank, N)
+    want = ffd_kernel.ffd_scan_fleet_reference(meta, compat, alloc, rank, N)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        first_diff(f"ffd_scan_fleet {label}", got, want)
+    node_off, _, unplaced = (x.cpu().numpy() for x in want)
+    return err, {"nodes_open": (node_off >= 0).sum(axis=1).tolist(),
+                 "unplaced": unplaced.sum(axis=1).tolist()}
+
+
+def stacked_scan_inputs(seeds, G: int, O: int, alloc_np=None, rank_np=None):
+    """[C, ...] FFD inputs, one seed per problem; each problem draws its
+    own catalog unless one is given."""
+    probs = [scan_inputs(s, G, O, alloc_np, rank_np) for s in seeds]
+    return tuple(np.stack([p[i] for p in probs]) for i in range(4))
+
+
+def phase_fleet_kernel_checks(dev, catalog) -> dict:
+    O_h = 3072
+    alloc_h = np.zeros((O_h, 4), np.int32)
+    alloc_h[:catalog.num_offerings] = catalog.offering_alloc()
+    rank_h = np.zeros(O_h, np.float32)
+    rank_h[:catalog.num_offerings] = catalog.offering_rank_price()
+    worst = 0
+    summary = {}
+
+    # C = 8, eight distinct catalogs at the headline shape: the headline
+    # catalog with its offerings shuffled and its prices scaled per problem
+    probs = []
+    live = catalog.num_offerings
+    for c in range(8):
+        rng = np.random.RandomState(400 + c)
+        perm = rng.permutation(live)
+        a_c, r_c = alloc_h.copy(), rank_h.copy()
+        a_c[:live], r_c[:live] = alloc_h[perm], rank_h[perm] * np.float32(
+            0.8 + 0.4 * rng.rand())
+        probs.append(scan_inputs(400 + c, 64, O_h, a_c, r_c))
+    meta, compat, alloc, rank = (np.stack([p[i] for p in probs])
+                                 for i in range(4))
+    if len({a.tobytes() + r.tobytes() for a, r in zip(alloc, rank)}) != 8:
+        raise AssertionError("the eight catalogs are not distinct")
+    err, info = check_fleet_scan(dev, "C=8 distinct catalogs", 512, meta,
+                                 compat, alloc, rank)
+    worst = max(worst, err)
+    summary["C=8 distinct catalogs G=64 O=3072 N=512"] = info
+
+    # C = 16, the headline catalog expanded over the problems (stride 0):
+    # equal to the plain version and to each problem launched on its own
+    meta, compat, _, _ = stacked_scan_inputs(range(500, 516), 64, O_h,
+                                             alloc_h, rank_h)
+    a1 = torch.from_numpy(alloc_h).to(dev)
+    r1 = torch.from_numpy(rank_h).to(dev)
+    C = meta.shape[0]
+    a_exp, r_exp = a1.expand(C, O_h, 4), r1.expand(C, O_h)
+    err, info = check_fleet_scan(dev, "C=16 expanded catalog", 512, meta,
+                                 compat, a_exp, r_exp)
+    worst = max(worst, err)
+    m_d = torch.from_numpy(meta).to(dev)
+    c_d = torch.from_numpy(compat).to(dev)
+    together = ffd_kernel.ffd_scan_fleet(m_d, c_d, a_exp, r_exp, 512)
+    for c in range(C):
+        one = ffd_kernel.ffd_scan_fleet(m_d[c:c + 1], c_d[c:c + 1],
+                                        a1.expand(1, O_h, 4),
+                                        r1.expand(1, O_h), 512)
+        e = max_abs_err([x[c:c + 1] for x in together], one)
+        if e:
+            first_diff(f"ffd_scan_fleet C=16 problem {c} alone",
+                       [x[c:c + 1] for x in together], one)
+    torch.cuda.synchronize()
+    summary["C=16 expanded headline catalog G=64 O=3072 N=512 (and one "
+            "by one)"] = info
+
+    # distinct catalogs at the largest shape
+    meta, compat, alloc, rank = stacked_scan_inputs((600, 601), 2048, 4096)
+    err, info = check_fleet_scan(dev, "largest", 4096, meta, compat, alloc,
+                                 rank)
+    worst = max(worst, err)
+    summary["C=2 distinct catalogs G=2048 O=4096 N=4096"] = info
+    for label, info in summary.items():
+        say(f"kernel check ffd_scan_fleet {label}: exact (nodes open "
+            f"{info['nodes_open']}, pods unplaced {info['unplaced']})")
+    return {"max_abs_err": worst, "cases": summary}
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
 def phase_main_path(dev, pods, catalog):
-    solver = TorchSolver(device="cuda")
+    solver = TorchSolver(device=dev)
     request = SolveRequest(pods, catalog)
-    for name in ffd_kernel.LAUNCHES:
-        ffd_kernel.LAUNCHES[name] = 0
+    reset_launches()
     t0 = time.perf_counter()
     plan = solver.solve(request)
     cold_s = time.perf_counter() - t0
     launches = dict(ffd_kernel.LAUNCHES)
     stats = dict(solver.last_stats)
-    for name in KERNELS:
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path: {launches}")
-    if stats["path"] != "ffd-cuda":
+    require_launches(launches, ["ffd_scan"], "main path")
+    if stats["path"] != solver.path:          # "ffd-cuda" on the card
         raise AssertionError(f"main path took {stats['path']!r}")
-    errors = validate_plan(plan, pods, catalog)
-    if errors:
-        raise AssertionError(f"validate_plan: {errors[:5]}")
-    if plan.placed_count != len(pods) or plan.unplaced_pods:
-        raise AssertionError(f"placed {plan.placed_count} of {len(pods)}")
+    clean_and_placed("main path", plan, pods, catalog)
     say(f"main path: {len(plan.nodes)} nodes, {plan.placed_count} pods "
         f"placed, {len(plan.unplaced_pods)} unplaced, cost "
         f"{plan.total_cost_per_hour:.4f} $/h, path {stats['path']}, "
@@ -251,19 +439,8 @@ def phase_main_path(dev, pods, catalog):
         torch.from_numpy(prep.packed.copy()), *cpu_cat, G=prep.G_pad,
         O=prep.O_pad, U=prep.U_pad, N=prep.N, right_size=True,
         compact=prep.K, dense16=prep.dense16, coo16=prep.coo16).numpy()
-    cw = prep.N + prep.G_pad
-    if card.shape != plain.shape:
-        raise AssertionError(f"result lengths {card.shape} vs {plain.shape}")
-    mask = np.ones(card.shape[0], bool)
-    mask[cw] = False
-    bad = np.nonzero((card != plain) & mask)[0]
-    if bad.size:
-        raise AssertionError(f"packed result differs from the CPU solve in "
-                             f"{bad.size} words, first at {bad[0]}")
-    c_card = float(card[cw:cw + 1].view(np.float32)[0])
-    c_cpu = float(plain[cw:cw + 1].view(np.float32)[0])
-    if abs(c_card - c_cpu) > 1e-5 * max(abs(c_cpu), 1e-30):
-        raise AssertionError(f"cost word {c_card} vs {c_cpu}")
+    c_card, c_cpu = words_equal("main path", card, plain,
+                                prep.N + prep.G_pad)
     say(f"main path result buffer: {card.shape[0]} words equal to the "
         f"plain CPU solve (cost {c_card} vs {c_cpu})")
     # the kernel on the window's own unpacked tensors, against its plain
@@ -279,55 +456,242 @@ def phase_main_path(dev, pods, catalog):
     return solver, request, problem, launches, stats, cold_s, err
 
 
+def build_fleet():
+    """BASELINE config #5 as bench.py builds it: FLEET["clusters"]
+    clusters, each ``build_workload(pods, types, seed=seed0 + c)`` with
+    its own catalog, padded to common buckets and stacked.  Returns the
+    stacked problem, the per-cluster (pods, catalog, problem), and the
+    node axis sized by ``estimate_nodes`` with its cap."""
+    encode = encode_mod.encode
+    clusters = []
+    for c in range(FLEET["clusters"]):
+        pods, catalog = workload.build_workload(
+            FLEET["pods"], FLEET["types"], seed=FLEET["seed0"] + c)
+        clusters.append((pods, catalog, encode(pods, catalog)))
+    G = max(bucket(p.num_groups, GROUP_BUCKETS) for _, _, p in clusters)
+    O = max(bucket(cat.num_offerings, OFFERING_BUCKETS)
+            for _, cat, _ in clusters)
+    per = [(_pad2(p.group_req, G), _pad1(p.group_count, G),
+            _pad1(p.group_cap, G), _pad2(p.compat, G, O),
+            _pad2(cat.offering_alloc().astype(np.int32), O),
+            _pad1(cat.off_price.astype(np.float32), O),
+            _pad1(cat.offering_rank_price(), O))
+           for _, cat, p in clusters]
+    stacked = FleetProblem(*[np.stack([x[i] for x in per])
+                             for i in range(7)])
+    N_cap = bucket(FLEET["pods"], NODE_BUCKETS)
+    N = max(encode_mod.estimate_nodes(p, N_cap, NODE_BUCKETS)
+            for _, _, p in clusters)
+    return stacked, clusters, N, N_cap
+
+
+def phase_fleet(dev) -> dict:
+    """(b) The fleet through ``fleet_solve_packed`` on the card; every
+    cluster's plan decodes and validates clean; the card's [C, Lo]
+    result equals the plain CPU fleet program word for word."""
+    t0 = time.perf_counter()
+    stacked, clusters, N, N_cap = build_fleet()
+    build_s = time.perf_counter() - t0
+    C, G, O = stacked.compat.shape
+    dev_catalog = fleet_device_catalog(stacked, dev)
+    packed = fleet_pack_inputs(stacked)
+    reset_launches()
+    t0 = time.perf_counter()
+    while True:
+        out = fleet_solve_packed(stacked, num_nodes=N, device=dev,
+                                 device_catalog=dev_catalog,
+                                 packed_inputs=packed)
+        if (out[2] == 0).all() or N >= N_cap:
+            break
+        N = min(N_cap, bucket(N * 4, NODE_BUCKETS))    # escalate, as bench
+    cold_s = time.perf_counter() - t0
+    launches = dict(ffd_kernel.LAUNCHES)
+    require_launches(launches, ["ffd_scan_fleet"], "fleet path")
+    node_off, assign, unplaced, cost = out
+    if unplaced.sum():
+        raise AssertionError(f"fleet left {int(unplaced.sum())} pods "
+                             f"unplaced at N={N}")
+    nodes = []
+    for c, (pods, catalog, problem) in enumerate(clusters):
+        plan = encode_mod.decode_plan(problem, node_off[c], assign[c],
+                                      unplaced[c], float(cost[c]), "torch")
+        clean_and_placed(f"fleet cluster {c}", plan, pods, catalog)
+        nodes.append(len(plan.nodes))
+
+    ins, U = packed
+    kw = dict(C=C, G=G, O=O, U=U, N=N)
+    card = tp.fleet_packed_torch(torch.from_numpy(ins).to(dev),
+                                 *dev_catalog, **kw).cpu().numpy()
+    plain = tp.fleet_packed_torch(torch.from_numpy(ins),
+                                  *(t.cpu() for t in dev_catalog),
+                                  **kw).numpy()
+    for c in range(C):
+        words_equal(f"fleet cluster {c}", card[c], plain[c], N + G)
+    say(f"fleet path: {C} clusters x {FLEET['pods']} pods (each its own "
+        f"catalog, G={G} O={O} U={U} N={N}), every pod placed, nodes per "
+        f"cluster {nodes}, total cost {float(cost.sum()):.4f} $/h, "
+        f"validate_plan clean per cluster, launches {launches}; [C, Lo] = "
+        f"{list(card.shape)} equal to the plain CPU fleet program word for "
+        f"word (cost words to 1e-5); build+encode {build_s:.3f} s, cold "
+        f"fleet solve {cold_s * 1e3:.3f} ms")
+    return {"stacked": stacked, "N": N, "U": U, "packed": packed,
+            "dev_catalog": dev_catalog, "launches": launches,
+            "nodes": nodes, "cold_s": cold_s}
+
+
+def stream_windows(catalog):
+    """STREAM["distinct"] headline-size windows (seeds seed0...) encoded
+    against one catalog, so that they can share a batch."""
+    out = []
+    for i in range(STREAM["distinct"]):
+        pods, _ = workload.build_workload(
+            HEADLINE["pods"], HEADLINE["types"], seed=STREAM["seed0"] + i)
+        out.append((pods, encode_mod.encode(pods, catalog)))
+    return out
+
+
+def phase_stream(dev, catalog) -> dict:
+    """(c) ``solve_stream`` of STREAM["windows"] windows at depth 32,
+    batch 16: each plan equal to its window's single-window plan, clean,
+    every pod placed."""
+    windows = stream_windows(catalog)
+    solver = TorchSolver(device=dev)
+    singles = [solver.solve_encoded(p) for _, p in windows]
+    n = STREAM["windows"]
+    order = [i % len(windows) for i in range(n)]
+    reset_launches()
+    t0 = time.perf_counter()
+    plans = list(solver.solve_stream((windows[i][1] for i in order),
+                                     depth=STREAM["depth"],
+                                     batch=STREAM["batch"]))
+    wall_s = time.perf_counter() - t0
+    launches = dict(ffd_kernel.LAUNCHES)
+    stats = dict(solver.last_stats)
+    require_launches(launches, ["ffd_scan_fleet"], "stream path")
+    if stats["path"] != solver.path + "-batch" or len(plans) != n:
+        raise AssertionError(f"stream: path {stats['path']!r}, "
+                             f"{len(plans)} plans of {n}")
+    for k, (i, plan) in enumerate(zip(order, plans)):
+        plans_equal(f"stream window {k}", plan, singles[i])
+        clean_and_placed(f"stream window {k}", plan, windows[i][0], catalog)
+    say(f"stream path: {n} windows ({len(windows)} distinct, seeds "
+        f"{STREAM['seed0']}..{STREAM['seed0'] + len(windows) - 1}) at depth "
+        f"{STREAM['depth']}, batch {STREAM['batch']}: every plan equal to "
+        f"its single-window plan, validate_plan clean, every pod placed; "
+        f"path {stats['path']}, batch {stats['batch']} (padded "
+        f"{stats['batch_pad']}), launches {launches}, first run "
+        f"{wall_s * 1e3:.3f} ms")
+    return {"solver": solver, "windows": windows, "order": order,
+            "launches": launches, "first_wall_s": wall_s}
+
+
+def zone_window(pods):
+    """The headline pods plus ZONE["apps"] co-scheduled apps, each pod
+    with a self PodAffinityTerm on the zone key."""
+    extra = []
+    for a in range(ZONE["apps"]):
+        app = (("app", f"za{a}"),)
+        extra += [pod_api.PodSpec(
+            f"za{a}-{i}", requests=pod_api.ResourceRequests(1000, 2048, 0, 1),
+            affinity=(pod_api.PodAffinityTerm(app, LABEL_ZONE),),
+            labels=app) for i in range(ZONE["pods"])]
+    return list(pods) + extra
+
+
+def phase_zone(dev, pods, catalog) -> dict:
+    """(d) A zone-candidate window: the plan equals the CPU solver's, is
+    clean, places every pod, and its candidate rounds ran as batches."""
+    zpods = zone_window(pods)
+    request = SolveRequest(zpods, catalog)
+    solver = TorchSolver(device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = solver.solve(request)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ffd_kernel.LAUNCHES)
+    stats = dict(solver.last_stats)
+    require_launches(launches, ["ffd_scan", "ffd_scan_fleet"],
+                     "zone-candidate path")
+    if stats["path"] != solver.path + "-batch":
+        raise AssertionError(f"zone-candidate rounds took {stats['path']!r}"
+                             f", not solve_encoded_batch")
+    plans_equal("zone-candidate window", plan,
+                TorchSolver(device="cpu").solve(request))
+    clean_and_placed("zone-candidate window", plan, zpods, catalog)
+    say(f"zone-candidate path: {len(zpods)} pods ({ZONE['apps']} apps x "
+        f"{ZONE['pods']} zone-affine pods), {len(plan.nodes)} nodes, cost "
+        f"{plan.total_cost_per_hour:.4f} $/h, equal to the CPU solver's "
+        f"plan, validate_plan clean; last candidate round a batch of "
+        f"{stats['batch']} (padded {stats['batch_pad']}), launches "
+        f"{launches}, solve {wall_s * 1e3:.3f} ms")
+    return {"launches": launches, "wall_s": wall_s,
+            "last_batch": stats["batch"]}
+
+
 # -- phase 5: timings ---------------------------------------------------------
 
 
+def _read_bytes(t: torch.Tensor) -> int:
+    """Bytes of an input read once: a catalog expanded over the problems
+    (stride 0) is one catalog."""
+    n = int(t.numel() * t.element_size())
+    if t.dim() > 1 and t.stride(0) == 0:
+        n //= t.shape[0]
+    return n
+
+
 def scan_bound_ms(meta, compat, alloc, rank, N: int, assign, node_off):
-    """The least time the card could take for the scan: the larger of
-    the bytes it must move (inputs read once, outputs written once) over
-    the HBM rate, and the scalar operations this run's data needs (open
-    nodes at each group's step, every offering) over the scalar rate."""
+    """The least time the card could take for the scan of C problems:
+    the larger of the bytes it must move (inputs read once, outputs
+    written once) over the HBM rate, and the scalar operations this run's
+    data needs (open nodes at each group's step, every offering, per
+    problem) over the scalar rate."""
     G, O = compat.shape[-2:]
-    nbytes = sum(int(t.numel() * t.element_size())
-                 for t in (meta, compat, alloc, rank)) + 4 * (N + G * N + G)
-    first = np.where((assign > 0).any(axis=0), (assign > 0).argmax(axis=0),
-                     G)[node_off >= 0]
-    open_before = np.searchsorted(np.sort(first), np.arange(G), "left")
-    ops = OPS_PER_NODE * int(open_before.sum()) + OPS_PER_OFFERING * G * O
+    assign = assign.reshape(-1, G, N)
+    node_off = node_off.reshape(-1, N)
+    C = assign.shape[0]
+    nbytes = sum(_read_bytes(t) for t in (meta, compat, alloc, rank)) \
+        + 4 * C * (N + G * N + G)
+    ops = 0
+    for a, no in zip(assign, node_off):
+        first = np.where((a > 0).any(axis=0), (a > 0).argmax(axis=0),
+                         G)[no >= 0]
+        open_before = np.searchsorted(np.sort(first), np.arange(G), "left")
+        ops += OPS_PER_NODE * int(open_before.sum()) \
+            + OPS_PER_OFFERING * G * O
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, ops
 
 
-def profile_windows(solver, request, windows: int = 5) -> dict | None:
-    """Device launches and busy share of warm windows, from a
-    ``torch.profiler`` trace: each window is a ``solve_window`` range on
-    the host, and the device's kernel/copy intervals inside those ranges
-    are merged into busy time.  The profiler slows the host, so the busy
+def profile_spans(run, spans: int, tag: str) -> dict | None:
+    """Device launches and busy share of ``spans`` warm calls of ``run``,
+    from a ``torch.profiler`` trace: each call is a ``tag`` range on the
+    host, and the device's kernel/copy intervals inside those ranges are
+    merged into busy time.  The profiler slows the host, so the busy
     share read here is a lower bound on the unprofiled one.  Returns None
     when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    tag = "solve_window"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(windows):
+        for _ in range(spans):
             with record_function(tag):
-                solver.solve(request)
+                run()
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == tag and e.device_type == DeviceType.CPU)
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.name == tag and e.device_type == DeviceType.CPU)
     device = [e for e in events
               if e.device_type == DeviceType.CUDA and e.name != tag]
-    if not device or len(spans) != windows:
+    if not device or len(ranges) != spans:
         return None
     kernels = [e for e in device
                if not e.name.startswith(("Memcpy", "Memset"))]
     busy = 0.0
-    for lo, hi in spans:
+    for lo, hi in ranges:
         cut = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
                      for e in device)
         end = lo
@@ -335,13 +699,13 @@ def profile_windows(solver, request, windows: int = 5) -> dict | None:
             if t > max(s, end):
                 busy += t - max(s, end)
                 end = t
-    window_us = sum(hi - lo for lo, hi in spans)
-    return {"windows": windows,
-            "kernels_per_window": len(kernels) / windows,
-            "device_events_per_window": len(device) / windows,
-            "profiled_window_ms": window_us / windows / 1e3,
-            "device_busy_ms": busy / windows / 1e3,
-            "device_busy_share": busy / window_us}
+    span_us = sum(hi - lo for lo, hi in ranges)
+    return {"spans": spans,
+            "kernels_per_span": len(kernels) / spans,
+            "device_events_per_span": len(device) / spans,
+            "profiled_span_ms": span_us / spans / 1e3,
+            "device_busy_ms": busy / spans / 1e3,
+            "device_busy_share": busy / span_us}
 
 
 def phase_timings(dev, solver, request, problem, card: str) -> dict:
@@ -415,17 +779,17 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
     say(f"timing [{card}]: device phases of one window (CUDA events, "
         f"G={G} O={O} U={U} N={N}): " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in phases.items()))
-    prof = profile_windows(solver, request)
+    prof = profile_spans(lambda: solver.solve(request), 5, "solve_window")
     if prof is None:
         say(f"profile [{card}]: torch.profiler recorded no device events; "
             f"launches and device busy share not measured")
     else:
-        say(f"profile [{card}]: {prof['windows']} warm windows under "
-            f"torch.profiler: {prof['kernels_per_window']:.1f} kernels and "
-            f"{prof['device_events_per_window']:.1f} device events (kernels "
+        say(f"profile [{card}]: {prof['spans']} warm windows under "
+            f"torch.profiler: {prof['kernels_per_span']:.1f} kernels and "
+            f"{prof['device_events_per_span']:.1f} device events (kernels "
             f"+ copies) per window; device busy "
             f"{prof['device_busy_ms']:.4f} ms of a "
-            f"{prof['profiled_window_ms']:.4f} ms profiled window (busy "
+            f"{prof['profiled_span_ms']:.4f} ms profiled window (busy "
             f"share {prof['device_busy_share']:.4f})")
     say(f"timing [{card}]: ffd_scan kernel {phases['kernel']:.4f} ms, plain "
         f"PyTorch version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
@@ -440,6 +804,166 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
                          "bytes": nbytes, "ops": ops}}
 
 
+def fleet_scan_ms(dev, fleet: dict, card: str) -> dict:
+    """``ffd_scan_fleet``'s own time at C = 8 on the fleet's unpacked
+    tensors (a catalog per cluster), beside its plain version and bound."""
+    stacked, N, U = fleet["stacked"], fleet["N"], fleet["U"]
+    C, G, O = stacked.compat.shape
+    alloc, rank, _ = fleet["dev_catalog"]
+    ins = torch.from_numpy(fleet["packed"][0]).to(dev)
+    metas, compats, _ = torch.func.vmap(
+        lambda p, a: tp.unpack_problem(p, a, G, O, U))(ins, alloc)
+    metas = metas.contiguous()
+    return scan_times(dev, f"fleet C={C} (a catalog per cluster)", N,
+                      metas, compats, alloc, rank, card)
+
+
+def stream_scan_ms(dev, solver, windows, card: str) -> dict:
+    """``ffd_scan_fleet``'s own time at C = 16 on one stream batch's
+    unpacked tensors (the headline catalog expanded, stride 0)."""
+    preps = [solver._prepare(p) for _, p in windows[:STREAM["batch"]]]
+    p0 = preps[0]
+    G, O, U = p0.G_pad, p0.O_pad, p0.U_pad
+    N = max(pr.N for pr in preps)
+    off_alloc, _, off_rank = solver.device_offerings(windows[0][1].catalog,
+                                                     O)
+    rows = torch.from_numpy(np.stack([pr.packed for pr in preps])).to(dev)
+    metas, compats, _ = torch.func.vmap(
+        lambda p: tp.unpack_problem(p, off_alloc, G, O, U))(rows)
+    C = rows.shape[0]
+    return scan_times(dev, f"stream batch C={C} (one catalog, stride 0)",
+                      N, metas.contiguous(), compats,
+                      off_alloc.expand(C, O, 4), off_rank.expand(C, O),
+                      card)
+
+
+def scan_times(dev, label, N, metas, compats, alloc, rank, card) -> dict:
+    node_off, assign, _ = ffd_kernel.ffd_scan_fleet(metas, compats, alloc,
+                                                    rank, N)
+    ms = cuda_ms(lambda: ffd_kernel.ffd_scan_fleet(metas, compats, alloc,
+                                                   rank, N), 20)
+    plain_ms = cuda_ms(lambda: ffd_kernel.ffd_scan_fleet_reference(
+        metas, compats, alloc, rank, N), 1, warm=1)
+    bound_ms, bound_by, nbytes, ops = scan_bound_ms(
+        metas, compats, alloc, rank, N, assign.cpu().numpy(),
+        node_off.cpu().numpy())
+    C, G, O = compats.shape
+    say(f"timing [{card}]: ffd_scan_fleet {label}, G={G} O={O} N={N}: "
+        f"kernel {ms:.4f} ms ({ms / C:.4f} ms per problem), plain PyTorch "
+        f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} bytes, {ops} scalar ops); no single PyTorch call "
+        f"computes the scan (library_ms null)")
+    return {"C": C, "G": G, "O": O, "N": N, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
+
+
+def phase_batched_timings(dev, fleet: dict, stream: dict, card: str) -> dict:
+    """The fleet's single-shot and pipelined walls; the stream's
+    amortized per-window wall at batch 1 and 16 beside the single-window
+    p50 (turns ABBA, one process); the fleet kernel's own times; the
+    stream's kernels per batch and device busy share."""
+    stacked, N = fleet["stacked"], fleet["N"]
+    kw = dict(num_nodes=N, device=dev, device_catalog=fleet["dev_catalog"],
+              packed_inputs=fleet["packed"])
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fleet_solve_packed(stacked, **kw)
+        walls.append(time.perf_counter() - t0)
+    fleet_p50 = float(np.percentile(walls, 50)) * 1e3
+
+    def fleet_pipelined(n: int, depth: int = 8) -> float:
+        fins = []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fins.append(fleet_solve_packed(stacked, async_only=True, **kw))
+            if len(fins) > depth:
+                fins.pop(0)()
+        while fins:
+            fins.pop(0)()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    fleet_pipelined(8)
+    fleet_pipe = fleet_pipelined(24)
+    C = stacked.num_clusters
+    say(f"timing [{card}]: fleet {C} x {FLEET['pods']} pods: single-shot "
+        f"p50 wall {fleet_p50:.4f} ms (min {min(walls) * 1e3:.4f}, max "
+        f"{max(walls) * 1e3:.4f}, 10 solves); pipelined (async_only, depth "
+        f"8, 24 windows) {fleet_pipe:.4f} ms per fleet window, "
+        f"{C * FLEET['pods'] / fleet_pipe * 1e3:.1f} pods/s")
+
+    solver, windows, order = (stream["solver"], stream["windows"],
+                              stream["order"])
+    problem = windows[0][1]
+    single = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        solver.solve_encoded(problem)
+        single.append(time.perf_counter() - t0)
+    single_p50 = float(np.percentile(single, 50)) * 1e3
+
+    def stream_ms(batch: int) -> float:
+        t0 = time.perf_counter()
+        n = sum(1 for _ in solver.solve_stream(
+            (windows[i][1] for i in order), depth=STREAM["depth"],
+            batch=batch))
+        return (time.perf_counter() - t0) / n * 1e3
+
+    runs = {1: [], STREAM["batch"]: []}
+    batch_phases = []            # host phases of each run's last batch
+    for b in (1, STREAM["batch"], STREAM["batch"], 1):
+        runs[b].append(stream_ms(b))
+        if b > 1:
+            batch_phases.append({k: solver.last_stats[k] * 1e3 for k in (
+                "wall_s", "dispatch_s", "exec_fetch_s", "decode_s")})
+    amort = {b: float(np.mean(v)) for b, v in runs.items()}
+    say(f"timing [{card}]: stream of {len(order)} windows at depth "
+        f"{STREAM['depth']}: amortized per-window wall batch=1 "
+        f"{amort[1]:.4f} ms (runs {', '.join(f'{x:.4f}' for x in runs[1])})"
+        f", batch={STREAM['batch']} {amort[STREAM['batch']]:.4f} ms (runs "
+        f"{', '.join(f'{x:.4f}' for x in runs[STREAM['batch']])}); "
+        f"single-window solve_encoded p50 {single_p50:.4f} ms (20 solves)")
+    say(f"timing [{card}]: the last batch of {STREAM['batch']} of each "
+        f"batched run, host clock: " + "; ".join(
+            f"dispatch {p['dispatch_s']:.4f} ms, exec+fetch "
+            f"{p['exec_fetch_s']:.4f} ms, decode of the plans "
+            f"{p['decode_s']:.4f} ms" for p in batch_phases))
+
+    half = STREAM["batch"] * 2           # two batches per profiled stream
+    sub = order[:half]
+    profiles = {}
+    for b in (1, STREAM["batch"]):
+        prof = profile_spans(lambda: list(solver.solve_stream(
+            (windows[i][1] for i in sub), depth=STREAM["depth"], batch=b)),
+            1, f"stream_batch{b}")
+        profiles[b] = prof
+        if prof is None:
+            say(f"profile [{card}]: stream batch={b}: torch.profiler "
+                f"recorded no device events; not measured")
+            continue
+        units = len(sub) // b
+        say(f"profile [{card}]: stream of {len(sub)} windows at batch={b} "
+            f"under torch.profiler: "
+            f"{prof['kernels_per_span'] / units:.1f} kernels per "
+            f"{'batch' if b > 1 else 'window'} "
+            f"({prof['kernels_per_span'] / len(sub):.1f} per window); "
+            f"device busy {prof['device_busy_ms']:.4f} ms of a "
+            f"{prof['profiled_span_ms']:.4f} ms profiled stream (busy share "
+            f"{prof['device_busy_share']:.4f})")
+    fleet_kernel = fleet_scan_ms(dev, fleet, card)
+    stream_kernel = stream_scan_ms(dev, solver, windows, card)
+    return {"fleet_p50_ms": fleet_p50, "fleet_walls_ms": [w * 1e3
+                                                          for w in walls],
+            "fleet_pipelined_ms": fleet_pipe,
+            "single_window_p50_ms": single_p50,
+            "stream_amortized_ms": amort, "stream_runs_ms": runs,
+            "stream_batch_phases_ms": batch_phases,
+            "stream_profiles": profiles,
+            "ffd_scan_fleet": fleet_kernel,
+            "ffd_scan_fleet_stream": stream_kernel}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-out", type=Path, default=None,
@@ -451,6 +975,11 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # the batched paths run their rows through torch.func.vmap: an op with
+    # no batching rule in this torch would fall back to a loop over the
+    # rows, with this warning, which those paths must never do
+    warnings.filterwarnings(
+        "error", message=".*not yet implemented the batching rule")
     card = card_line()
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -469,17 +998,30 @@ def main() -> int:
 
     pods, catalog = workload.build_workload(
         HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
-    checks = phase_kernel_checks(dev, catalog)
+    checks = {"ffd_scan": phase_kernel_checks(dev, catalog),
+              "ffd_scan_fleet": phase_fleet_kernel_checks(dev, catalog)}
     solver, request, problem, launches, stats, cold_s, err = \
         phase_main_path(dev, pods, catalog)
-    checks["max_abs_err"] = max(checks["max_abs_err"], err)
+    checks["ffd_scan"]["max_abs_err"] = max(
+        checks["ffd_scan"]["max_abs_err"], err)
+    fleet = phase_fleet(dev)
+    stream = phase_stream(dev, catalog)
+    zone = phase_zone(dev, pods, catalog)
+    # launches per kernel over the paths that run it
+    path_launches = {"main": launches, "fleet": fleet["launches"],
+                     "stream": stream["launches"], "zone": zone["launches"]}
+    total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
+             for name in KERNELS}
+    say(f"launches per path: {path_launches}; over all paths {total}")
+
     timing = phase_timings(dev, solver, request, problem, card)
+    timing.update(phase_batched_timings(dev, fleet, stream, card))
 
     record = []
     for name, meta in KERNELS.items():
         t = timing[name]
-        record.append({"name": name, **meta, "launches": launches[name],
-                       "max_abs_err": checks["max_abs_err"],
+        record.append({"name": name, **meta, "launches": total[name],
+                       "max_abs_err": checks[name]["max_abs_err"],
                        "ms": t["ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                        "library_ms": None})
@@ -487,9 +1029,15 @@ def main() -> int:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps({
             "card": card, "torch": torch.__version__, "build_s": build_s,
-            "checks": checks, "launches": launches, "main_path_stats": {
+            "checks": checks, "launches": path_launches,
+            "main_path_stats": {
                 k: v for k, v in stats.items() if k != "telemetry"},
             "telemetry": stats.get("telemetry"), "cold_solve_s": cold_s,
+            "fleet": {"N": fleet["N"], "nodes": fleet["nodes"],
+                      "cold_s": fleet["cold_s"]},
+            "stream_first_wall_s": stream["first_wall_s"],
+            "zone": {"wall_s": zone["wall_s"],
+                     "last_batch": zone["last_batch"]},
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -12,8 +12,11 @@
 // from global memory, which is the gather the TPU could not do.
 //
 // Design.  The scan over groups is sequential by definition, so one
-// block owns one problem (gridDim.x = C; the single-window path runs
-// C = 1, a batch of windows needs only a caller).  Node state
+// block owns one problem (gridDim.x = C, the fleet grid of the
+// reference; the single-window path runs C = 1).  Every problem may
+// carry its own catalog: block c reads alloc + c * alloc_stride and
+// rank + c * rank_stride, and a stride of 0 is one catalog shared by all
+// C problems (a batch of windows).  Node state
 // (node_off[N] and resid[4][N], 20 B per slot) lives in shared memory;
 // each thread owns a contiguous run of k = ceil(N / 1024) node slots and
 // is the only thread that reads or writes them, so node state needs no
@@ -137,8 +140,8 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 template <typename CT>
 __global__ void __launch_bounds__(kThreads, 1)
 ffd_scan_kernel(const int* __restrict__ meta, const CT* __restrict__ compat,
-                const int4* __restrict__ alloc,
-                const float* __restrict__ rank,
+                const int* __restrict__ alloc_all, long long alloc_stride,
+                const float* __restrict__ rank, long long rank_stride,
                 int* __restrict__ node_off_out, int* __restrict__ assign,
                 int* __restrict__ unplaced, int G, int O, int N, int k,
                 int fit_big) {
@@ -152,6 +155,11 @@ ffd_scan_kernel(const int* __restrict__ meta, const CT* __restrict__ compat,
   __shared__ int s_best[2];
 
   const int c = blockIdx.x;
+  // this problem's catalog (stride 0: the catalog every problem shares);
+  // the launcher checked that every row start is 16-byte aligned
+  const int4* __restrict__ alloc = reinterpret_cast<const int4*>(
+      alloc_all + static_cast<long long>(c) * alloc_stride);
+  rank += static_cast<long long>(c) * rank_stride;
   meta += static_cast<size_t>(c) * G * 8;
   compat += static_cast<size_t>(c) * G * O;
   node_off_out += static_cast<size_t>(c) * N;
@@ -331,7 +339,8 @@ ffd_scan_kernel(const int* __restrict__ meta, const CT* __restrict__ compat,
 
 template <typename CT>
 cudaError_t launch(const int* meta, const void* compat, const int* alloc,
-                   const float* rank, int* node_off, int* assign,
+                   long long alloc_stride, const float* rank,
+                   long long rank_stride, int* node_off, int* assign,
                    int* unplaced, int C, int G, int O, int N, int fit_big,
                    cudaStream_t stream) {
   // Shared memory: node_off + resid is 20 B per slot, 80 KB at N = 4096,
@@ -345,9 +354,8 @@ cudaError_t launch(const int* meta, const void* compat, const int* alloc,
   if (err != cudaSuccess) return err;
   const int k = (N + kThreads - 1) / kThreads;
   ffd_scan_kernel<CT><<<C, kThreads, smem, stream>>>(
-      meta, static_cast<const CT*>(compat),
-      reinterpret_cast<const int4*>(alloc), rank, node_off, assign,
-      unplaced, G, O, N, k, fit_big);
+      meta, static_cast<const CT*>(compat), alloc, alloc_stride, rank,
+      rank_stride, node_off, assign, unplaced, G, O, N, k, fit_big);
   return cudaGetLastError();
 }
 
@@ -359,15 +367,20 @@ extern "C" {
 int ffd_scan_max_nodes() { return kThreads * kMaxPerThread; }
 
 // meta int32 [C, G, 8]; compat [C, G, O] int32 (compat_u8 = 0) or uint8
-// (compat_u8 = 1); alloc int32 [O, 4], 16-byte aligned; rank f32 [O];
-// outputs node_off int32 [C, N], assign int32 [C, G, N], unplaced int32
-// [C, G], all on CUDA device `device`.  Launches on `stream` and returns
-// the launch's cudaError_t.
+// (compat_u8 = 1); alloc int32 [C, O, 4] with problem stride
+// alloc_stride (in int32 elements, a multiple of 4; 0 = one catalog
+// shared by all problems), 16-byte aligned; rank f32 [C, O] with problem
+// stride rank_stride (0 = shared); outputs node_off int32 [C, N], assign
+// int32 [C, G, N], unplaced int32 [C, G], all on CUDA device `device`.
+// Launches on `stream` and returns the launch's cudaError_t.
 int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
-                    const int* alloc, const float* rank, int* node_off,
+                    const int* alloc, long long alloc_stride,
+                    const float* rank, long long rank_stride, int* node_off,
                     int* assign, int* unplaced, int C, int G, int O, int N,
                     int fit_big, int device, void* stream) {
-  if (C <= 0 || G < 0 || O <= 0 || N <= 0 || N > kThreads * kMaxPerThread)
+  if (C <= 0 || G < 0 || O <= 0 || N <= 0 || N > kThreads * kMaxPerThread
+      || alloc_stride < 0 || rank_stride < 0 || alloc_stride % 4 != 0
+      || reinterpret_cast<uintptr_t>(alloc) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   // in it (the caller's runtime may have another current device)
@@ -375,10 +388,11 @@ int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = compat_u8
-      ? launch<uint8_t>(meta, compat, alloc, rank, node_off, assign,
-                        unplaced, C, G, O, N, fit_big, s)
-      : launch<int>(meta, compat, alloc, rank, node_off, assign, unplaced,
-                    C, G, O, N, fit_big, s);
+      ? launch<uint8_t>(meta, compat, alloc, alloc_stride, rank,
+                        rank_stride, node_off, assign, unplaced, C, G, O, N,
+                        fit_big, s)
+      : launch<int>(meta, compat, alloc, alloc_stride, rank, rank_stride,
+                    node_off, assign, unplaced, C, G, O, N, fit_big, s);
   return static_cast<int>(err);
 }
 

@@ -1,19 +1,22 @@
-"""The FFD placement scan: CUDA kernel wrapper and its plain PyTorch twin.
+"""The FFD placement scan: CUDA kernel wrappers and their plain PyTorch twins.
 
-Replaces ``karpenter_tpu/solver/pallas_kernel.py`` (``ffd_scan_pallas``
-and its fleet grid).  :func:`ffd_scan` launches ``csrc/ffd_scan.cu`` on
-CUDA tensors and runs :func:`ffd_scan_reference` on CPU tensors — the
-choice follows the tensors' device, never a failure: on a CUDA tensor
-the kernel launches or the call raises.
+Replaces ``karpenter_tpu/solver/pallas_kernel.py``: :func:`ffd_scan`
+is ``ffd_scan_pallas`` (C problems sharing one catalog; C = 1 on the
+single-window path) and :func:`ffd_scan_fleet` is
+``ffd_scan_pallas_fleet`` (every problem with its own catalog).  Both
+launch the one kernel of ``csrc/ffd_scan.cu`` on CUDA tensors and run
+the plain version on CPU tensors — the choice follows the tensors'
+device, never a failure: on a CUDA tensor the kernel launches or the
+call raises.
 
-Contract (C problems that share one catalog; C = 1 on the single-window
-path)::
+Contract::
 
     meta     int32 [C, G, 8]  req_cpu, req_mem, req_gpu, req_pods,
                               count, cap, (label row), (priority)
     compat   int32 or uint8 [C, G, O]   group x offering feasibility
-    alloc    int32 [O, 4]     per-offering allocatable
-    rank     float32 [O]      ranking price
+    alloc    int32 [O, 4] (ffd_scan) or [C, O, 4] (ffd_scan_fleet)
+                              per-offering allocatable
+    rank     float32 [O] or [C, O]      ranking price
     -> node_off int32 [C, N] (-1 = unused slot), assign int32 [C, G, N],
        unplaced int32 [C, G]
 
@@ -29,7 +32,7 @@ from karpenter_tpu_torch.solver.types import FIT_BIG
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else; a caller resets an entry to 0 before a run and reads it
 # after to prove the run went through the kernel.
-LAUNCHES = {"ffd_scan": 0}
+LAUNCHES = {"ffd_scan": 0, "ffd_scan_fleet": 0}
 
 
 def _fit_counts(resid: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
@@ -106,16 +109,27 @@ def _ffd_scan_one(meta, compat, alloc, rank, N: int):
     return node_off, assign, unplaced
 
 
-def ffd_scan_reference(meta: torch.Tensor, compat: torch.Tensor,
-                       alloc: torch.Tensor, rank: torch.Tensor, N: int):
+def ffd_scan_fleet_reference(meta: torch.Tensor, compat: torch.Tensor,
+                             alloc: torch.Tensor, rank: torch.Tensor,
+                             N: int):
     """Plain PyTorch version of the kernel, on any device: a loop over
-    the C problems and, inside, over the G groups."""
-    outs = [_ffd_scan_one(meta[c], compat[c], alloc, rank, N)
+    the C problems, each with its own catalog ``alloc[c]``, ``rank[c]``,
+    and inside it over the G groups."""
+    outs = [_ffd_scan_one(meta[c], compat[c], alloc[c], rank[c], N)
             for c in range(meta.shape[0])]
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def _check(meta, compat, alloc, rank, N: int):
+def ffd_scan_reference(meta: torch.Tensor, compat: torch.Tensor,
+                       alloc: torch.Tensor, rank: torch.Tensor, N: int):
+    """Plain version of :func:`ffd_scan`: the fleet's with the one
+    catalog expanded over the C problems."""
+    C = meta.shape[0]
+    return ffd_scan_fleet_reference(meta, compat, alloc.expand(C, -1, -1),
+                                    rank.expand(C, -1), N)
+
+
+def _check(meta, compat, alloc, rank, N: int, fleet: bool):
     if meta.dim() != 3 or meta.shape[2] != 8 or meta.dtype != torch.int32:
         raise ValueError(f"meta must be int32 [C, G, 8], got "
                          f"{meta.dtype} {tuple(meta.shape)}")
@@ -125,54 +139,97 @@ def _check(meta, compat, alloc, rank, N: int):
         raise ValueError(f"compat must be int32/uint8 [C, G, O], got "
                          f"{compat.dtype} {tuple(compat.shape)}")
     O = compat.shape[2]
-    if alloc.shape != (O, 4) or alloc.dtype != torch.int32:
-        raise ValueError(f"alloc must be int32 [{O}, 4], got "
+    lead = (C,) if fleet else ()
+    if alloc.shape != lead + (O, 4) or alloc.dtype != torch.int32:
+        raise ValueError(f"alloc must be int32 {list(lead + (O, 4))}, got "
                          f"{alloc.dtype} {tuple(alloc.shape)}")
-    if rank.shape != (O,) or rank.dtype != torch.float32:
-        raise ValueError(f"rank must be float32 [{O}], got "
+    if rank.shape != lead + (O,) or rank.dtype != torch.float32:
+        raise ValueError(f"rank must be float32 {list(lead + (O,))}, got "
                          f"{rank.dtype} {tuple(rank.shape)}")
     if O == 0 or N <= 0:
         raise ValueError(f"need O > 0 and N > 0 (O={O}, N={N})")
     devs = {t.device for t in (meta, compat, alloc, rank)}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {devs}")
+    dev = meta.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the FFD scan runs on cpu or cuda, not {dev}")
     return C, G, O
 
 
-def ffd_scan(meta: torch.Tensor, compat: torch.Tensor, alloc: torch.Tensor,
-             rank: torch.Tensor, N: int):
-    """The FFD scan: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns (node_off [C, N], assign [C, G, N],
-    unplaced [C, G]), all int32."""
-    C, G, O = _check(meta, compat, alloc, rank, N)
-    dev = meta.device
-    if dev.type == "cpu":
-        return ffd_scan_reference(meta, compat, alloc, rank, N)
-    if dev.type != "cuda":
-        raise ValueError(f"ffd_scan runs on cpu or cuda, not {dev}")
+def _problem_stride(t: torch.Tensor, name: str) -> int:
+    """Element stride between the problems' catalogs in a per-problem
+    tensor ([C, O, 4] or [C, O]) whose rows are contiguous: its own
+    stride for C stacked catalogs, 0 for one catalog expanded over C."""
+    inner = t[0]
+    if not inner.is_contiguous():
+        raise ValueError(f"{name}[c] must be contiguous")
+    if t.shape[0] == 1 or t.stride(0) == 0:
+        return 0
+    if t.stride(0) != inner.numel():
+        raise ValueError(f"{name} must be contiguous or one catalog "
+                         f"expanded over C (stride 0), got strides "
+                         f"{t.stride()}")
+    return t.stride(0)
+
+
+def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride, N, C, G,
+            O):
     from karpenter_tpu_torch import cuda_build
 
     lib = cuda_build.load("ffd_scan")
     if N > lib.ffd_scan_max_nodes():
-        raise ValueError(f"ffd_scan takes N <= {lib.ffd_scan_max_nodes()}, "
-                         f"got {N}")
-    for name, t in (("meta", meta), ("compat", compat), ("alloc", alloc),
-                    ("rank", rank)):
+        raise ValueError(f"the FFD scan takes N <= "
+                         f"{lib.ffd_scan_max_nodes()}, got {N}")
+    for name, t in (("meta", meta), ("compat", compat)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if alloc.data_ptr() % 16:
         raise ValueError("alloc must be 16-byte aligned (read as int4)")
+    dev = meta.device
     node_off = torch.empty((C, N), dtype=torch.int32, device=dev)
     assign = torch.empty((C, G, N), dtype=torch.int32, device=dev)
     unplaced = torch.empty((C, G), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ffd_scan_launch(
         meta.data_ptr(), compat.data_ptr(),
-        int(compat.dtype == torch.uint8), alloc.data_ptr(),
-        rank.data_ptr(), node_off.data_ptr(), assign.data_ptr(),
-        unplaced.data_ptr(), C, G, O, N, FIT_BIG, dev.index, stream)
+        int(compat.dtype == torch.uint8), alloc.data_ptr(), alloc_stride,
+        rank.data_ptr(), rank_stride, node_off.data_ptr(),
+        assign.data_ptr(), unplaced.data_ptr(), C, G, O, N, FIT_BIG,
+        dev.index, stream)
     if err != 0:
         msg = lib.ffd_scan_error_string(err).decode()
         raise RuntimeError(f"ffd_scan launch failed: cudaError {err} ({msg})")
-    LAUNCHES["ffd_scan"] += 1
     return node_off, assign, unplaced
+
+
+def ffd_scan(meta: torch.Tensor, compat: torch.Tensor, alloc: torch.Tensor,
+             rank: torch.Tensor, N: int):
+    """The FFD scan of C problems sharing one catalog: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.  Returns
+    (node_off [C, N], assign [C, G, N], unplaced [C, G]), all int32."""
+    C, G, O = _check(meta, compat, alloc, rank, N, fleet=False)
+    if meta.device.type == "cpu":
+        return ffd_scan_reference(meta, compat, alloc, rank, N)
+    for name, t in (("alloc", alloc), ("rank", rank)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = _launch(meta, compat, alloc, 0, rank, 0, N, C, G, O)
+    LAUNCHES["ffd_scan"] += 1
+    return out
+
+
+def ffd_scan_fleet(meta: torch.Tensor, compat: torch.Tensor,
+                   alloc: torch.Tensor, rank: torch.Tensor, N: int):
+    """The FFD scan of C problems, each with its own catalog (``alloc``
+    [C, O, 4], ``rank`` [C, O]; a catalog expanded over C with stride 0
+    is one catalog shared by all): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Returns (node_off [C, N], assign
+    [C, G, N], unplaced [C, G]), all int32."""
+    C, G, O = _check(meta, compat, alloc, rank, N, fleet=True)
+    if meta.device.type == "cpu":
+        return ffd_scan_fleet_reference(meta, compat, alloc, rank, N)
+    out = _launch(meta, compat, alloc, _problem_stride(alloc, "alloc"),
+                  rank, _problem_stride(rank, "rank"), N, C, G, O)
+    LAUNCHES["ffd_scan_fleet"] += 1
+    return out

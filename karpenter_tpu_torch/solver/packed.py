@@ -1,6 +1,6 @@
-"""The device half of one solve window: packed buffer in, packed result out.
+"""The device half of a solve: packed buffers in, packed results out.
 
-PyTorch twins of the device program of ``karpenter_tpu/solver/
+PyTorch twins of the device programs of ``karpenter_tpu/solver/
 jax_backend.py``: unpack the problem (``_unpack_problem``), run the FFD
 scan (the CUDA kernel of ``solver/ffd_kernel.py`` on the card, its plain
 version on the CPU), right-size and cost (``finish_pallas_solve`` /
@@ -8,6 +8,15 @@ version on the CPU), right-size and cost (``finish_pallas_solve`` /
 telemetry block (``_pack_result_telemetry``).  :func:`solve_packed_torch`
 returns the same int32 buffer as the reference's ``solve_packed``, word
 for word except the float cost word (equal up to summation order).
+
+The batched programs run C problems at once: :func:`solve_packed_batch_torch`
+(C windows sharing one catalog: ``solve_packed_batch`` /
+``solve_packed_pallas_batch``) and :func:`fleet_packed_torch` (C
+clusters, each with its own catalog: ``parallel/fleet.py::
+fleet_packed_pallas``).  Each unpacks and finishes every row with
+``torch.func.vmap`` over the single-window functions (``jax.vmap`` in
+the reference) around ONE launch of the fleet kernel, so a batch costs
+one window's launches, never C times as many.
 
 Everything here is shape-static and issues no host synchronization (no
 ``.item()``, no boolean-mask indexing, no tensors built from Python
@@ -21,11 +30,12 @@ sums in int64 rather than matrix products (CUDA has no integer matmul).
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
 
 from karpenter_tpu_torch.explain import (
     BIT, DEFICIT_CLIP, DEFICIT_MASKED, RESOURCE_BITS,
 )
-from karpenter_tpu_torch.solver.ffd_kernel import ffd_scan
+from karpenter_tpu_torch.solver.ffd_kernel import ffd_scan, ffd_scan_fleet
 from karpenter_tpu_torch.solver.result_layout import (
     BP_SCALE, SLOT_BINDING_GROUPS, SLOT_FILL_ACCEL_BP, SLOT_FILL_CPU_BP,
     SLOT_FILL_MEM_BP, SLOT_FILL_PODS_BP, SLOT_GROUPS_PLACED,
@@ -114,16 +124,17 @@ def compact_assign(assign: torch.Tensor, K: int):
     """[G,N] -> COO in n-major order: (flat_idx int32 [K], cnt [K]).
     The reference scatters with mode="drop"; torch has none, so every
     out-of-range target (a zero cell, or a nonzero past slot K) is
-    routed to a dump slot K that is cut off afterwards."""
+    routed to a dump slot K that is cut off afterwards.  The scatter is
+    out of place so that ``torch.func.vmap`` batches it."""
     flat = assign.t().reshape(-1)                      # n-major [N*G]
     mask = flat > 0
     pos = torch.cumsum(mask.to(I32), 0) - 1
     tgt = torch.where(mask & (pos < K), pos, K).long()
     src = torch.arange(flat.shape[0], dtype=I32, device=assign.device)
-    idx = torch.zeros(K + 1, dtype=I32, device=assign.device)
-    cnt = torch.zeros(K + 1, dtype=flat.dtype, device=assign.device)
-    idx.scatter_(0, tgt, src)
-    cnt.scatter_(0, tgt, flat)
+    idx = torch.zeros(K + 1, dtype=I32, device=assign.device).scatter(
+        0, tgt, src)
+    cnt = torch.zeros(K + 1, dtype=flat.dtype, device=assign.device).scatter(
+        0, tgt, flat)
     return idx[:K], cnt[:K]
 
 
@@ -138,8 +149,11 @@ def pack16_pairs(a: torch.Tensor) -> torch.Tensor:
 def pack_result(node_off, assign, unplaced, cost, K: int,
                 dense16: bool = False, coo16: bool = False):
     """Flatten the solve result into the one result buffer
-    (``_pack_result``)."""
-    cost_i = cost.to(torch.float32).reshape(1).view(I32)     # bit cast
+    (``_pack_result``).  ``cost`` is the float cost or, from a caller
+    under ``vmap``, its int32 bit pattern already (not every torch has a
+    batching rule for the dtype view that bit-casts it)."""
+    cost_i = cost.reshape(1) if cost.dtype == I32 \
+        else cost.to(torch.float32).reshape(1).view(I32)     # bit cast
     if K > 0:
         idx, cnt = compact_assign(assign.to(I32), K)
         if coo16:
@@ -298,3 +312,54 @@ def solve_packed_torch(packed, off_alloc, off_price, off_rank, *, G: int,
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
                                  unplaced, cost, off_alloc, compact,
                                  dense16, coo16)
+
+
+def _cost_words(cost: torch.Tensor) -> torch.Tensor:
+    """[C] float costs -> their int32 bit patterns, cast outside vmap."""
+    return cost.to(torch.float32).view(I32)
+
+
+def solve_packed_batch_torch(packed_rows, off_alloc, off_price, off_rank, *,
+                             C: int, G: int, O: int, U: int, N: int,
+                             right_size: bool = True, compact: int = 0,
+                             dense16: bool = False,
+                             coo16: bool = False) -> torch.Tensor:
+    """C same-catalog windows: packed int32 problems [C, Li] -> packed
+    int32 results [C, Lo], each row equal to :func:`solve_packed_torch`
+    of that row.  One fleet-kernel launch with the catalog expanded over
+    the C problems (stride 0)."""
+    metas, compats, rows = vmap(
+        lambda p: unpack_problem(p, off_alloc, G, O, U))(packed_rows)
+    node_off, assign, unplaced = ffd_scan_fleet(
+        metas.contiguous(), compats.contiguous(),
+        off_alloc.expand(C, O, 4), off_rank.expand(C, O), N)
+    node_off, cost = vmap(
+        lambda m, ci, no, a: finish_solve(m, ci, no, a, off_alloc,
+                                          off_price, off_rank, right_size)
+    )(metas, compats, node_off, assign)
+    return vmap(
+        lambda m, r, ci, no, a, u, cw: pack_result_telemetry(
+            m, r, ci, no, a, u, cw, off_alloc, compact, dense16, coo16)
+    )(metas, rows, compats, node_off, assign, unplaced, _cost_words(cost))
+
+
+def fleet_packed_torch(packed_rows, alloc_all, rank_all, price_all, *,
+                       C: int, G: int, O: int, U: int, N: int,
+                       right_size: bool = True,
+                       compact: int = 0) -> torch.Tensor:
+    """C clusters, each with its own catalog (``alloc_all`` int32
+    [C, O, 4], ``rank_all`` / ``price_all`` float32 [C, O]): packed
+    problems [C, Li] -> packed results [C, Lo] in the bare
+    :func:`pack_result` layout (no explain words, no telemetry: the
+    fleet wire's parser is ``fleet_parse_outputs``).  One fleet-kernel
+    launch."""
+    metas, compats, _ = vmap(
+        lambda p, a: unpack_problem(p, a, G, O, U))(packed_rows, alloc_all)
+    node_off, assign, unplaced = ffd_scan_fleet(
+        metas.contiguous(), compats.contiguous(), alloc_all, rank_all, N)
+    node_off, cost = vmap(
+        lambda m, ci, no, a, alloc, price, rank: finish_solve(
+            m, ci, no, a, alloc, price, rank, right_size)
+    )(metas, compats, node_off, assign, alloc_all, price_all, rank_all)
+    return vmap(lambda no, a, u, cw: pack_result(no, a, u, cw, compact))(
+        node_off, assign, unplaced, _cost_words(cost))

@@ -1,12 +1,19 @@
 """The host half of the solve: pad, pack, dispatch, fetch, escalate, decode.
 
 Port of the host wrapper of ``karpenter_tpu/solver/jax_backend.py``
-(``JaxSolver`` / ``PendingSolve``) for the deterministic default route:
-one packed int32 problem buffer goes to the device, ``solve_packed_torch``
-runs the window there (the CUDA FFD kernel on the card), one packed
-result buffer comes back through pinned memory, and the plan decodes
-from it.  The catalog tensors stay device-resident between solves,
-keyed by catalog generation.
+(``JaxSolver`` / ``PendingSolve`` / ``BatchPendingSolve``) for the
+deterministic default route: one packed int32 problem buffer goes to the
+device, ``solve_packed_torch`` runs the window there (the CUDA FFD
+kernel on the card), one packed result buffer comes back through pinned
+memory, and the plan decodes from it.  The catalog tensors stay
+device-resident between solves, keyed by catalog generation.
+
+Batches of same-catalog, same-shape windows — ``solve_encoded_batch``
+(the zone-candidate rounds) and the window-batching arm of
+``solve_stream`` — stack their buffers into one [C, Li] upload, run
+``solve_packed_batch_torch`` (one launch of the fleet FFD kernel) and
+come back in one [C, Lo] copy.  A failed launch or an out-of-memory
+error raises; no batch is halved or re-run down another route.
 
 Windows that take another route in the reference — flat (G >=
 ``flat_min_groups``), stochastic, affinity, soft preferences — and the
@@ -25,11 +32,14 @@ import torch
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.obs.telemetry_words import decode_window
 from karpenter_tpu_torch.solver.encode import BIG_CAP, EncodedProblem
-from karpenter_tpu_torch.solver.packed import solve_packed_torch
+from karpenter_tpu_torch.solver.packed import (
+    solve_packed_batch_torch, solve_packed_torch,
+)
 from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
 from karpenter_tpu_torch.solver.types import (
-    COO_BUCKETS, GROUP_BUCKETS, LABELROW_BUCKETS, NODE_BUCKETS,
-    OFFERING_BUCKETS, Plan, SolveRequest, SolverOptions, bucket,
+    BATCH_BUCKETS, COO_BUCKETS, GROUP_BUCKETS, LABELROW_BUCKETS,
+    NODE_BUCKETS, OFFERING_BUCKETS, Plan, SolveRequest, SolverOptions,
+    bucket,
 )
 
 # the reference's flat-regime gate constants (solver/flat.py)
@@ -170,6 +180,28 @@ def _pad2(a: np.ndarray, n0: int, n1: int | None = None) -> np.ndarray:
     return out
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host buffer on ``device``: through pinned memory, without a
+    wait, on the card; the array itself on the CPU."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def start_fetch(out: torch.Tensor):
+    """Start the device->host copy of a result: (host tensor, CUDA event
+    or None).  On the card the copy lands in pinned memory and the event
+    marks its end; a CPU result is already on the host."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 def _env_on(name: str) -> bool:
     import os
 
@@ -259,8 +291,9 @@ class TorchSolver:
     """Pads, uploads, solves, decodes — on ``device`` ("cuda" by default;
     raises when no CUDA device exists; "cpu" runs the plain PyTorch
     path).  ``last_stats`` holds the route, shapes and phase times of
-    the last window; ``last_stats["path"]`` is ``"ffd-cuda"`` when the
-    FFD scan ran as the CUDA kernel and ``"ffd-reference"`` on the CPU."""
+    the last window or batch; ``last_stats["path"]`` is ``"ffd-cuda"``
+    when the FFD scan ran as the CUDA kernel and ``"ffd-reference"`` on
+    the CPU, with ``"-batch"`` appended for a batch of windows."""
 
     MAX_DEVICE_CATALOGS = 16
 
@@ -341,14 +374,109 @@ class TorchSolver:
                 "soft-preference windows are not ported yet (ROADMAP "
                 "queue 1, unserved routes of the first slice)")
 
+    def solve_stream(self, problems, depth: int = 2, batch: object = "auto"):
+        """Solve an iterable of EncodedProblems through a depth-``depth``
+        dispatch/fetch pipeline; yields Plans in order.
+
+        With ``batch`` > 1 (``"auto"``: 16 on the card, 1 on the CPU),
+        consecutive same-catalog windows that share padded shapes also
+        ride ONE device program (:class:`BatchPendingSolve`), dividing
+        the per-window launch cost by the batch width; other windows
+        break the batch and go through the single-window path unchanged.
+        The batch is capped at ``depth // 2``: accumulating a batch
+        delays the first yield by its width, and a batch wider than the
+        remaining depth would be awaited with nothing else in flight.  At
+        the default depth=2 this disables batching."""
+        from collections import deque
+
+        if batch == "auto":
+            batch = 16 if self.device.type == "cuda" else 1
+        batch = min(batch if isinstance(batch, int) else 1,
+                    max(1, depth // 2))
+        q: deque = deque()      # (unit, n_windows)
+        inflight = 0
+
+        def drain_to(limit):
+            nonlocal inflight
+            while q and inflight > limit:
+                unit, n = q.popleft()
+                inflight -= n
+                if n == 1:
+                    yield unit.result()
+                else:
+                    yield from unit.results()
+
+        buf: list = []          # [(problem, prep)] awaiting one batch
+
+        def flush():
+            nonlocal inflight
+            if not buf:
+                return
+            if len(buf) == 1:
+                unit, n = self.solve_encoded_async(buf[0][0]), 1
+            else:
+                unit, n = BatchPendingSolve(self, list(buf)), len(buf)
+            buf.clear()
+            q.append((unit, n))
+            inflight += n
+
+        for p in problems:
+            batchable = (p.num_groups > 0 and p.pref_rows is None
+                         and p.group_var is None and p.aff is None
+                         and not _flat_viable(p, self.options))
+            if not batchable:
+                flush()
+                q.append((self.solve_encoded_async(p), 1))
+                inflight += 1
+            else:
+                prep = self._prepare(p)
+                if buf and (buf[0][0].catalog is not p.catalog
+                            or (buf[0][1].G_pad, buf[0][1].O_pad,
+                                buf[0][1].U_pad)
+                            != (prep.G_pad, prep.O_pad, prep.U_pad)):
+                    flush()
+                buf.append((p, prep))
+                if len(buf) >= batch:
+                    flush()
+            yield from drain_to(depth)
+        flush()
+        yield from drain_to(0)
+
+    def solve_encoded_batch(self, problems: list[EncodedProblem]
+                            ) -> list[Plan]:
+        """Solve C problems sharing one catalog in ONE dispatch and ONE
+        fetch (the zone-candidate rounds: each problem is the base with
+        one compat row re-pinned).  As in the reference, problems that
+        cannot share one batch (another catalog, a route other than the
+        default, another group bucket) are solved one by one."""
+        if not problems:
+            return []
+        catalog = problems[0].catalog
+        if any(p.catalog is not catalog for p in problems[1:]) \
+                or any(p.pref_rows is not None or p.group_var is not None
+                       or p.aff is not None for p in problems):
+            return [self.solve_encoded(p) for p in problems]
+        # one common label-row bucket across candidates (their U differs
+        # by at most one appended row) so the stacked buffers share length
+        u_max = max((p.label_rows.shape[0] if p.label_rows is not None
+                     else p.num_groups) or 1 for p in problems)
+        U_pad = bucket(u_max, LABELROW_BUCKETS)
+        preps = [self._prepare(p, u_pad=U_pad) for p in problems]
+        if any(pr.G_pad != preps[0].G_pad for pr in preps):
+            return [self.solve_encoded(p) for p in problems]
+        return BatchPendingSolve(self, list(zip(problems, preps))).results()
+
     # -- internals ---------------------------------------------------------
 
-    def _prepare(self, problem: EncodedProblem) -> _Prepared:
+    def _prepare(self, problem: EncodedProblem,
+                 u_pad: int | None = None) -> _Prepared:
         """A clone of the problem's cached template (an unchanged window
-        never re-packs)."""
+        never re-packs).  ``u_pad`` overrides the label-row bucket (a
+        batch needs one common U across problems whose row counts
+        differ)."""
         opts = self.options
-        key = (opts.bucket_groups, opts.max_nodes, opts.adaptive_nodes,
-               opts.compact_assign)
+        key = (u_pad, opts.bucket_groups, opts.max_nodes,
+               opts.adaptive_nodes, opts.compact_assign)
         cache = problem._prep_cache
         if cache is None:
             cache = problem._prep_cache = {}
@@ -359,7 +487,7 @@ class TorchSolver:
             if floor > c.K0:
                 c.K0 = min(floor, c.K_cap)
             return c
-        tmpl = self._prepare_impl(problem)
+        tmpl = self._prepare_impl(problem, u_pad)
         cache[key] = tmpl
         return tmpl.clone()
 
@@ -369,7 +497,8 @@ class TorchSolver:
 
         return estimate_nodes(problem, n_cap, NODE_BUCKETS)
 
-    def _prepare_impl(self, problem: EncodedProblem) -> _Prepared:
+    def _prepare_impl(self, problem: EncodedProblem,
+                      u_pad: int | None = None) -> _Prepared:
         catalog = problem.catalog
         G = problem.num_groups
         O = catalog.num_offerings
@@ -385,7 +514,7 @@ class TorchSolver:
             rows, label_idx = problem.label_rows, problem.label_idx
         else:
             label_idx, rows = dedup_rows(problem.compat)
-        U_pad = bucket(max(rows.shape[0], 1), LABELROW_BUCKETS)
+        U_pad = u_pad or bucket(max(rows.shape[0], 1), LABELROW_BUCKETS)
         packed = pack_input(_pad2(problem.group_req, G_pad),
                             _pad1(problem.group_count, G_pad),
                             _pad1(problem.group_cap, G_pad),
@@ -441,11 +570,9 @@ class TorchSolver:
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
         off_alloc, off_price, off_rank = self.device_offerings(
             prep.catalog, prep.O_pad)
-        packed = torch.from_numpy(prep.packed)
-        if self.device.type == "cuda":
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
         return solve_packed_torch(
-            packed, off_alloc, off_price, off_rank, G=prep.G_pad,
+            upload(prep.packed, self.device), off_alloc, off_price, off_rank,
+            G=prep.G_pad,
             O=prep.O_pad, U=prep.U_pad, N=prep.N,
             right_size=self.options.right_size, compact=prep.K,
             dense16=prep.dense16, coo16=prep.coo16)
@@ -453,33 +580,28 @@ class TorchSolver:
     def _dispatch(self, prep: _Prepared):
         """Dispatch and start the device->host copy: (host tensor, CUDA
         event or None)."""
-        out = self.dispatch_packed(prep)
-        if self.device.type != "cuda":
-            return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+        return start_fetch(self.dispatch_packed(prep))
 
-    def _decode(self, problem, prep, out_np, words):
+    @staticmethod
+    def _decode(problem, out_np, G: int, N: int, K: int, dense16: bool,
+                coo16: bool) -> Plan:
+        """One window's plan from its packed result row."""
         from karpenter_tpu_torch.solver.encode import (
             decode_plan, decode_plan_entries,
         )
 
-        G, N, K = prep.G_pad, prep.N, prep.K
+        words = unpack_reason_words(out_np, G, N, K, dense16, coo16)
         node_off = out_np[:N]
         unplaced = out_np[N:N + G]
         cost = float(out_np[N + G:N + G + 1].view(np.float32)[0])
         if K > 0:
-            idx, cnt = unpack_coo_tail(out_np, G, N, K, prep.coo16)
+            idx, cnt = unpack_coo_tail(out_np, G, N, K, coo16)
             live = cnt > 0
             flat_idx = idx[live]
             return decode_plan_entries(
                 problem, node_off, flat_idx % G, flat_idx // G, cnt[live],
                 unplaced, cost, "torch", reason_words=words)
-        _, assign, _, _ = unpack_result(out_np, G, N, K, prep.dense16,
-                                        prep.coo16)
+        _, assign, _, _ = unpack_result(out_np, G, N, K, dense16, coo16)
         return decode_plan(problem, node_off, assign.astype(np.int32),
                            unplaced, cost, "torch", reason_words=words)
 
@@ -536,10 +658,9 @@ class PendingSolve:
                 host, event = solver._dispatch(prep)
                 t_issued = time.perf_counter()
                 continue
-            words = unpack_reason_words(out_np, G, N, K, prep.dense16,
-                                        prep.coo16)
             t_dec = time.perf_counter()
-            self._done = solver._decode(self._problem, prep, out_np, words)
+            self._done = solver._decode(self._problem, out_np, G, N, K,
+                                        prep.dense16, prep.coo16)
             t_end = time.perf_counter()
             solver.last_stats = {
                 "path": solver.path, "device": str(solver.device),
@@ -554,4 +675,103 @@ class PendingSolve:
                 "telemetry": decode_window(
                     out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
                     escalations=escalations, coo_growths=coo_growths)}
+            return self._done
+
+
+class BatchPendingSolve:
+    """C in-flight same-catalog, same-shape windows in one device program
+    (the window-batching arm of ``solve_stream``, and
+    ``solve_encoded_batch``).  The rows are stacked into one [C_pad, Li]
+    upload (rows past C repeat row 0, so a handful of batch widths
+    recur); ``solve_packed_batch_torch`` runs them with one launch of the
+    fleet kernel and one [C_pad, Lo] copy comes back through pinned
+    memory.  ``results()`` waits for it, handles COO growth and node
+    escalation with a whole-batch re-dispatch (both rare, shared-shape by
+    construction) and decodes each row.  Nothing falls back: a kernel
+    that fails raises."""
+
+    __slots__ = ("_solver", "_problems", "_preps", "_C", "_C_pad", "_rows",
+                 "_N", "_N_cap", "_K0", "_K_cap", "_dense16_ok", "_K",
+                 "_dense16", "_coo16", "_host", "_event", "_t_disp",
+                 "_t_issued", "_done")
+
+    def __init__(self, solver: TorchSolver, items):
+        self._solver = solver
+        self._problems = [p for p, _ in items]
+        self._preps = [pr for _, pr in items]
+        p0 = self._preps[0]
+        self._C = len(items)
+        self._C_pad = bucket(self._C, BATCH_BUCKETS)
+        self._rows = np.stack([pr.packed for pr in self._preps]
+                              + [p0.packed] * (self._C_pad - self._C))
+        self._N = max(pr.N for pr in self._preps)
+        self._N_cap = max(pr.N_cap for pr in self._preps)
+        self._K0 = max(pr.K0 for pr in self._preps)
+        self._K_cap = max(pr.K_cap for pr in self._preps)
+        self._dense16_ok = all(pr.dense16_ok for pr in self._preps)
+        self._done = None
+        self._dispatch()
+
+    def _dispatch(self) -> None:
+        solver, p0 = self._solver, self._preps[0]
+        self._t_disp = time.perf_counter()
+        self._K, self._dense16, self._coo16 = clamp_output_opts(
+            self._K0, self._dense16_ok, p0.G_pad, self._N)
+        off_alloc, off_price, off_rank = solver.device_offerings(
+            p0.catalog, p0.O_pad)
+        out = solve_packed_batch_torch(
+            upload(self._rows, solver.device), off_alloc, off_price,
+            off_rank, C=self._C_pad, G=p0.G_pad, O=p0.O_pad, U=p0.U_pad,
+            N=self._N, right_size=solver.options.right_size,
+            compact=self._K, dense16=self._dense16, coo16=self._coo16)
+        self._host, self._event = start_fetch(out)
+        self._t_issued = time.perf_counter()
+
+    def results(self) -> list[Plan]:
+        if self._done is not None:
+            return self._done
+        solver, p0 = self._solver, self._preps[0]
+        G = p0.G_pad
+        escalations = coo_growths = 0
+        while True:
+            if self._event is not None:
+                self._event.synchronize()
+            out_np = self._host.numpy()
+            t_fetch = time.perf_counter()
+            N, K = self._N, self._K
+            if self._K0 < self._K_cap and any(
+                    coo_buffer_full(out_np[c], G, N, K, self._coo16)
+                    for c in range(self._C)):
+                self._K0 = grow_coo(self._K0, self._K_cap)
+                for pr in self._preps:
+                    pr.grow_K0(self._K0)
+                solver._note_coo_growth(G, self._K0)
+                coo_growths += 1
+                self._dispatch()
+                continue
+            if any(needs_node_escalation(out_np[c, :N], out_np[c, N:N + G],
+                                         N, self._N_cap)
+                   for c in range(self._C)):
+                self._N = min(self._N_cap, bucket(N * 4, NODE_BUCKETS))
+                for pr in self._preps:
+                    pr.escalate_N(self._N)
+                escalations += 1
+                self._dispatch()
+                continue
+            t_dec = time.perf_counter()
+            self._done = [
+                solver._decode(p, out_np[c], G, N, K, self._dense16,
+                               self._coo16)
+                for c, p in enumerate(self._problems)]
+            solver.last_stats = {
+                "path": solver.path + "-batch", "device": str(solver.device),
+                "batch": self._C, "batch_pad": self._C_pad,
+                "wall_s": t_fetch - self._t_disp,
+                "dispatch_s": self._t_issued - self._t_disp,
+                "exec_fetch_s": t_fetch - self._t_issued,
+                "decode_s": time.perf_counter() - t_dec,
+                "d2h_bytes": int(out_np.nbytes),
+                "h2d_bytes": int(self._rows.nbytes),
+                "compact": bool(K), "G": G, "O": p0.O_pad, "N": N, "K": K,
+                "escalations": escalations, "coo_growths": coo_growths}
             return self._done

@@ -114,6 +114,8 @@ OFFERING_BUCKETS = (128, 256, 512, 1024, 2048, 3072, 4096)
 NODE_BUCKETS = (64, 128, 256, 384, 512, 1024, 2048, 4096, 8192, 16384)
 COO_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 LABELROW_BUCKETS = (4, 16, 64, 256, 1024, 4096)
+# padded widths of a batch of windows (its rows past C repeat row 0)
+BATCH_BUCKETS = (2, 4, 8, 16, 32)
 
 # The shared fit-count sentinel: "no capacity constraint" in the
 # per-resource fit division, on both sides of every parity pair (the

@@ -6,8 +6,9 @@ capacity; this refinement re-pins each such group to every other viable
 zone, solves each candidate and keeps the cheapest plan that places at
 least as many pods.  Groups are refined one at a time (greedy over
 groups, exact over zones within a group), bounded by
-``zone_candidate_solves``.  Candidates are solved one by one
-(``TorchSolver`` has no batched solve yet).
+``zone_candidate_solves``.  Each round's candidates are solved in one
+``solve_encoded_batch`` call: one upload, one launch of the fleet FFD
+kernel and one fetch per round, whatever the number of candidates.
 """
 
 from __future__ import annotations
@@ -103,13 +104,15 @@ def _wins(candidate: Plan, incumbent: Plan) -> bool:
 def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
     """Encode+solve with the v1 pin, then refine zone-affinity groups'
     zone choices against solved candidates.  ``backend`` is a solver
-    exposing ``solve_encoded(problem) -> Plan`` and carrying ``options``
-    (zone_candidates gate + zone_candidate_solves budget).
+    exposing ``solve_encoded(problem) -> Plan`` and
+    ``solve_encoded_batch(problems) -> list[Plan]`` and carrying
+    ``options`` (zone_candidates gate + zone_candidate_solves budget).
 
-    Candidates are evaluated in rounds: every remaining (group, zone)
-    candidate is solved against the current base, one solve per
-    candidate.  Each round fixes the single best improvement, then
-    re-evaluates the remaining groups against the updated base.
+    Candidates are evaluated in batched rounds: every remaining (group,
+    zone) candidate is solved against the current base in one
+    ``solve_encoded_batch`` call.  Each round fixes the single best
+    improvement, then re-evaluates the remaining groups against the
+    updated base.
     """
     problem = encode(request.pods, request.catalog, request.nodepool)
     plan = backend.solve_encoded(problem)
@@ -138,7 +141,7 @@ def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
         if not cand_keys:
             break
         probs = [_with_zone(base, gi, z) for gi, z in cand_keys]
-        plans = [backend.solve_encoded(p) for p in probs]
+        plans = backend.solve_encoded_batch(probs)
         best_i: int | None = None
         for i, p in enumerate(plans):
             if _wins(p, plans[best_i] if best_i is not None else plan):

@@ -12,15 +12,17 @@ tensors (exact int32 equality), and the solver on the card against the
 solver on the CPU.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from karpenter_tpu_torch import SolveRequest, TorchSolver, validate_plan
-from karpenter_tpu_torch import workload
+from karpenter_tpu_torch import encode, workload
 from karpenter_tpu_torch.solver import ffd_kernel
 from karpenter_tpu_torch.solver.ffd_kernel import (
-    ffd_scan, ffd_scan_reference,
+    ffd_scan, ffd_scan_fleet, ffd_scan_fleet_reference, ffd_scan_reference,
 )
 
 BIG = 1 << 30
@@ -96,3 +98,75 @@ def test_solver_on_card_matches_cpu(cuda_device, seed):
     assert plan.total_cost_per_hour == pytest.approx(
         ref.total_cost_per_hour, rel=1e-5)
     assert validate_plan(plan, pods, catalog) == []
+
+
+def _plan_view(plan):
+    return ([(n.offering_index, n.pod_names) for n in plan.nodes],
+            plan.unplaced_pods)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 512, 4096])
+def test_fleet_kernel_per_problem_catalogs(cuda_device, N):
+    """Every problem reads its own catalog: the fleet launch equals its
+    plain version exactly, int32 and uint8 compat."""
+    probs = [_inputs(s) for s in range(6)]
+    meta, compat, alloc, rank = (
+        torch.from_numpy(np.stack([p[i] for p in probs])).to(cuda_device)
+        for i in range(4))
+    for c in (compat, compat.to(torch.uint8)):
+        before = ffd_kernel.LAUNCHES["ffd_scan_fleet"]
+        got = ffd_scan_fleet(meta, c, alloc, rank, N)
+        assert ffd_kernel.LAUNCHES["ffd_scan_fleet"] == before + 1
+        want = ffd_scan_fleet_reference(meta, c, alloc, rank, N)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_expanded_catalog(cuda_device):
+    """One catalog expanded over C (stride 0) equals the plain version
+    and the problems launched one by one."""
+    probs = [_inputs(s) for s in range(16)]
+    meta = torch.from_numpy(np.stack([p[0] for p in probs])).to(cuda_device)
+    compat = torch.from_numpy(np.stack([p[1] for p in probs])).to(
+        cuda_device)
+    alloc = torch.from_numpy(probs[0][2]).to(cuda_device)
+    rank = torch.from_numpy(probs[0][3]).to(cuda_device)
+    C, O = 16, alloc.shape[0]
+    got = ffd_scan_fleet(meta, compat, alloc.expand(C, O, 4),
+                         rank.expand(C, O), 512)
+    want = ffd_scan_reference(meta, compat, alloc, rank, 512)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for c in range(C):
+        one = ffd_scan(meta[c:c + 1], compat[c:c + 1], alloc, rank, 512)
+        for x, y in zip(got, one):
+            assert torch.equal(x[c], y[0])
+
+
+@pytest.mark.cuda
+def test_solve_encoded_batch_on_card_matches_cpu(cuda_device):
+    """Three windows of one catalog in one batch on the card: the plans
+    of the CPU batch, each validated clean."""
+    catalog = workload.build_catalog(40)
+    windows = []
+    for seed in (3, 4, 5):
+        pods, _ = workload.build_workload(800, 40, seed=seed)
+        windows.append((pods, encode(pods, catalog)))
+    on_card = TorchSolver(device="cuda")
+    before = ffd_kernel.LAUNCHES["ffd_scan_fleet"]
+    with warnings.catch_warnings():
+        # a vmapped op without a batching rule in this torch would run
+        # as a loop over the rows, with a warning: none may
+        warnings.simplefilter("error")
+        plans = on_card.solve_encoded_batch([p for _, p in windows])
+    assert ffd_kernel.LAUNCHES["ffd_scan_fleet"] > before
+    assert on_card.last_stats["path"] == "ffd-cuda-batch"
+    ref = TorchSolver(device="cpu").solve_encoded_batch(
+        [p for _, p in windows])
+    for (pods, _), plan, want in zip(windows, plans, ref):
+        assert _plan_view(plan) == _plan_view(want)
+        assert plan.total_cost_per_hour == pytest.approx(
+            want.total_cost_per_hour, rel=1e-5)
+        assert validate_plan(plan, pods, catalog) == []

@@ -244,8 +244,8 @@ def test_coo_growth_matches(jcatalog, tcatalog, monkeypatch):
 
 
 def test_zone_affinity_window_matches(jcatalog, tcatalog):
-    """Zone-affinity groups go through the zone-candidate refinement
-    (per-candidate solves in the port, batched in the reference)."""
+    """Zone-affinity groups go through the zone-candidate refinement,
+    whose rounds are batched solves in both packages."""
     specs = mixed_specs(80, 6)
     jpods, tpods = both(specs)
     for i in range(12):
@@ -258,9 +258,13 @@ def test_zone_affinity_window_matches(jcatalog, tcatalog):
                 (("app", "za"),), t_req.LABEL_ZONE),),
             labels=(("app", "za"),)))
     jplan = jax_solver().solve(JSolveRequest(jpods, jcatalog))
-    tplan = torch_solver().solve(SolveRequest(tpods, tcatalog))
+    ts = torch_solver()
+    tplan = ts.solve(SolveRequest(tpods, tcatalog))
     assert_plans_equal(jplan, tplan)
     assert validate_plan(tplan, tpods, tcatalog) == []
+    # the last candidate round ran as one batch (solve_encoded_batch)
+    assert ts.last_stats["path"] == "ffd-reference-batch"
+    assert ts.last_stats["batch"] >= 2
 
 
 def test_dedup_rows_matches_reference(jcatalog):
