@@ -21,7 +21,15 @@ order; any failure exits non-zero and prints no result line:
    the largest scan shape and edge cases; ``ffd_scan_fleet`` with eight
    distinct catalogs at the headline shape, with one catalog expanded
    over 16 problems (stride 0, also against the problems launched one
-   by one) and with distinct catalogs at the largest shape;
+   by one) and with distinct catalogs at the largest shape; then the
+   shapes the kernel's design has to get right: offering counts that
+   are not multiples of 4, 16 or 128 (int32 and uint8 compat, one
+   problem and a fleet of three catalogs), N = 8192, G = 0 and G below
+   the row ring's depth, and a rank tie that only division by a small
+   rem makes.  Over all these checks, every instantiation of the chain
+   kernel must have run, and the uncapped branch, the capped branch and
+   the summed takes (groups that request nothing) of its step, counted
+   on the host from the plain version's outputs;
 4. the paths, each with every launch count set to 0 just before and
    read just after, each needing its kernels launched and no pod left
    unplaced: (a) the main path, whose plan must validate clean and
@@ -35,7 +43,9 @@ order; any failure exits non-zero and prints no result line:
 5. timings: p50 wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
    ``torch.profiler`` trace, each kernel's own time beside its plain
-   version and its bound; the fleet's single-shot and pipelined walls;
+   version and its bound, with the time per group step, and the scan
+   at the largest shape (G=2048, O=4096, N=4096); the fleet's
+   single-shot and pipelined walls;
    the stream's amortized per-window wall at batch 1 and 16 beside the
    single-window p50, and its kernels per batch and device busy share
    (none of these gates the run).
@@ -137,7 +147,7 @@ def first_diff(label: str, got, want) -> None:
 
 def max_abs_err(got, want) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-               for a, b in zip(got, want))
+               if a.numel() else 0 for a, b in zip(got, want))
 
 
 def words_equal(label: str, card: np.ndarray, plain: np.ndarray,
@@ -248,10 +258,35 @@ def scan_inputs(seed: int, G: int, O: int, alloc_np=None, rank_np=None,
     if case == "unplaceable":
         compat[0] = 0
         meta[0, 4] = 37
+    if case == "no_request":
+        # groups that request nothing: every compatible open node fits
+        # FIT_BIG of them, and the fill's int32 prefix sums wrap
+        free = rng.rand(G) < 0.35
+        free[0] = False
+        meta[free, :4] = 0
     return meta, compat, alloc_np, rank_np
 
 
-def check_scan(dev, label: str, N: int, inputs) -> tuple[int, dict]:
+def new_tally() -> dict:
+    """Over the kernel checks: the steps of each branch of the chain (from
+    the plain version's outputs) and the checked scans of each
+    instantiation of the chain kernel."""
+    return {"branches": {"opens_nothing": 0, "uncapped": 0, "capped": 0,
+                         "summed_takes": 0},
+            "variants": {}}
+
+
+def add_to_tally(tally: dict, label: str, meta, compat, alloc, want,
+                 N: int) -> None:
+    for k, v in ffd_kernel.chain_branches(meta, compat, alloc,
+                                          *want).items():
+        tally["branches"][k] += v
+    variant = ffd_kernel.scan_variant(compat.shape[-1], N)
+    tally["variants"].setdefault(variant, []).append(label)
+
+
+def check_scan(dev, label: str, N: int, inputs,
+               tally: dict) -> tuple[int, dict]:
     """Kernel vs plain version on the card; returns (max |diff|, info)."""
     meta, compat, alloc, rank = (
         x.contiguous() if isinstance(x, torch.Tensor)
@@ -267,10 +302,11 @@ def check_scan(dev, label: str, N: int, inputs) -> tuple[int, dict]:
             "unplaced": int(unplaced.sum())}
     if err:
         first_diff(f"ffd_scan {label}", got, want)
+    add_to_tally(tally, label, meta[None], compat[None], alloc, want, N)
     return err, info
 
 
-def phase_kernel_checks(dev, catalog) -> dict:
+def phase_kernel_checks(dev, catalog, tally: dict) -> dict:
     O_h = 3072
     alloc_h = np.zeros((O_h, 4), np.int32)
     alloc_h[:catalog.num_offerings] = catalog.offering_alloc()
@@ -283,7 +319,7 @@ def phase_kernel_checks(dev, catalog) -> dict:
     for seed in range(8):
         cases.append(("largest G=2048 O=4096 N=4096", 4096,
                       scan_inputs(100 + seed, 2048, 4096)))
-    for case in ("unplaceable", "cap1", "zero_req"):
+    for case in ("unplaceable", "cap1", "zero_req", "no_request"):
         for seed in range(2):
             cases.append((f"edge {case} G=64 O=3072 N=512", 512,
                           scan_inputs(200 + seed, 64, O_h, alloc_h, rank_h,
@@ -295,7 +331,7 @@ def phase_kernel_checks(dev, catalog) -> dict:
     worst = 0
     summary: dict[str, dict] = {}
     for label, N, inputs in cases:
-        err, info = check_scan(dev, label, N, inputs)
+        err, info = check_scan(dev, label, N, inputs, tally)
         worst = max(worst, err)
         s = summary.setdefault(label, {"runs": 0, "nodes_open": [],
                                        "unplaced": []})
@@ -314,8 +350,8 @@ def phase_kernel_checks(dev, catalog) -> dict:
     return {"max_abs_err": worst, "cases": summary}
 
 
-def check_fleet_scan(dev, label: str, N: int, meta, compat, alloc,
-                     rank) -> tuple[int, dict]:
+def check_fleet_scan(dev, label: str, N: int, meta, compat, alloc, rank,
+                     tally: dict) -> tuple[int, dict]:
     """``ffd_scan_fleet`` against its plain version on the card (numpy or
     tensor inputs, [C, ...]); returns (max |diff|, info)."""
     meta, compat, alloc, rank = (
@@ -328,6 +364,7 @@ def check_fleet_scan(dev, label: str, N: int, meta, compat, alloc,
     err = max_abs_err(got, want)
     if err:
         first_diff(f"ffd_scan_fleet {label}", got, want)
+    add_to_tally(tally, label, meta, compat, alloc, want, N)
     node_off, _, unplaced = (x.cpu().numpy() for x in want)
     return err, {"nodes_open": (node_off >= 0).sum(axis=1).tolist(),
                  "unplaced": unplaced.sum(axis=1).tolist()}
@@ -340,7 +377,7 @@ def stacked_scan_inputs(seeds, G: int, O: int, alloc_np=None, rank_np=None):
     return tuple(np.stack([p[i] for p in probs]) for i in range(4))
 
 
-def phase_fleet_kernel_checks(dev, catalog) -> dict:
+def phase_fleet_kernel_checks(dev, catalog, tally: dict) -> dict:
     O_h = 3072
     alloc_h = np.zeros((O_h, 4), np.int32)
     alloc_h[:catalog.num_offerings] = catalog.offering_alloc()
@@ -365,7 +402,7 @@ def phase_fleet_kernel_checks(dev, catalog) -> dict:
     if len({a.tobytes() + r.tobytes() for a, r in zip(alloc, rank)}) != 8:
         raise AssertionError("the eight catalogs are not distinct")
     err, info = check_fleet_scan(dev, "C=8 distinct catalogs", 512, meta,
-                                 compat, alloc, rank)
+                                 compat, alloc, rank, tally)
     worst = max(worst, err)
     summary["C=8 distinct catalogs G=64 O=3072 N=512"] = info
 
@@ -378,7 +415,7 @@ def phase_fleet_kernel_checks(dev, catalog) -> dict:
     C = meta.shape[0]
     a_exp, r_exp = a1.expand(C, O_h, 4), r1.expand(C, O_h)
     err, info = check_fleet_scan(dev, "C=16 expanded catalog", 512, meta,
-                                 compat, a_exp, r_exp)
+                                 compat, a_exp, r_exp, tally)
     worst = max(worst, err)
     m_d = torch.from_numpy(meta).to(dev)
     c_d = torch.from_numpy(compat).to(dev)
@@ -398,7 +435,7 @@ def phase_fleet_kernel_checks(dev, catalog) -> dict:
     # distinct catalogs at the largest shape
     meta, compat, alloc, rank = stacked_scan_inputs((600, 601), 2048, 4096)
     err, info = check_fleet_scan(dev, "largest", 4096, meta, compat, alloc,
-                                 rank)
+                                 rank, tally)
     worst = max(worst, err)
     summary["C=2 distinct catalogs G=2048 O=4096 N=4096"] = info
     for label, info in summary.items():
@@ -407,10 +444,106 @@ def phase_fleet_kernel_checks(dev, catalog) -> dict:
     return {"max_abs_err": worst, "cases": summary}
 
 
+def ulp_tie_inputs(seed: int, G: int, O: int):
+    """``scan_inputs`` with a rank tie that only rounding makes: the
+    first group (3 pods, an empty window, so rem = 3) fits two large
+    offerings whose ranks are one ulp apart, the higher at index 0, and
+    that divide by 3 to the same float but not by their full fit.  The
+    capped sweep must take index 0."""
+    meta, compat, alloc, rank = scan_inputs(seed, G, O)
+    rng = np.random.RandomState(seed)
+    three = np.float32(3)
+    while True:
+        lo = np.float32(rng.rand() * 5 + 0.05)
+        hi = np.nextafter(lo, np.float32(np.inf), dtype=np.float32)
+        if hi / three == lo / three and hi / np.float32(110) != \
+                lo / np.float32(110):
+            break
+    rank[:2] = (hi, lo)
+    rank[2:] = np.maximum(rank[2:], hi * 2)
+    alloc[:2] = (63800, 62988, 0, 110)
+    meta[0, :6] = (500, 512, 0, 1, 3, FIT_BIG)
+    compat[0, :2] = 1
+    return meta, compat, alloc, rank
+
+
+def phase_design_checks(dev, tally: dict) -> dict:
+    """The shapes the kernel's design has to get right, each against the
+    plain version: ragged O (int32 and uint8 compat; one problem and a
+    fleet of three catalogs), N = 8192 at O = 4096 and 5000 (the
+    instantiations that read the catalog, or rows and catalog, from
+    global memory), G = 0 and G below the ring depth, and the ulp tie."""
+    worst = 0
+    lines = []
+
+    def one(label, N, inputs, u8=False):
+        nonlocal worst
+        meta, compat, alloc, rank = inputs
+        if u8:
+            compat = compat.astype(np.uint8)
+        err, info = check_scan(dev, label, N, (meta, compat, alloc, rank),
+                               tally)
+        worst = max(worst, err)
+        lines.append((label, info))
+        return info
+
+    for O in (1, 129, 3000):
+        for u8 in (False, True):
+            one(f"ragged O={O} G=64 N=512 {'uint8' if u8 else 'int32'}",
+                512, scan_inputs(700 + O, 64, O), u8)
+        meta, compat, alloc, rank = stacked_scan_inputs(
+            (710 + O, 711 + O, 712 + O), 64, O)
+        for u8 in (False, True):
+            label = (f"ragged fleet C=3 O={O} G=64 N=512 "
+                     f"{'uint8' if u8 else 'int32'}")
+            err, info = check_fleet_scan(
+                dev, label, 512, meta,
+                compat.astype(np.uint8) if u8 else compat, alloc, rank, tally)
+            worst = max(worst, err)
+            lines.append((label, info))
+    for O in (4096, 5000):
+        one(f"N=8192 O={O} G=64", 8192, scan_inputs(720 + O, 64, O))
+    for G in (0, 1, 2, 3):
+        info = one(f"short G={G} O=3072 N=512", 512,
+                   scan_inputs(730 + G, G, 3072))
+        if G == 0 and info["nodes_open"]:
+            raise AssertionError("G=0 opened nodes")
+    tie = ulp_tie_inputs(740, 64, 3072)
+    one("ulp tie G=64 O=3072 N=512", 512, tie)
+    got = ffd_kernel.ffd_scan(*(torch.from_numpy(x).to(dev)[None]
+                                for x in tie[:2]),
+                              *(torch.from_numpy(x).to(dev)
+                                for x in tie[2:]), 512)
+    if int(got[0][0, 0]) != 0:
+        raise AssertionError("ulp tie: the first node is not offering 0")
+    for label, info in lines:
+        say(f"kernel check {label}: exact ({info})")
+    return {"max_abs_err": worst, "cases": dict(lines)}
+
+
+def require_design_coverage(tally: dict) -> dict:
+    """Every instantiation of the chain kernel ran in the checks, and
+    the uncapped branch, the capped branch and the summed takes of its
+    step."""
+    b, v = tally["branches"], tally["variants"]
+    say(f"chain branches over the kernel checks (host count from the plain "
+        f"outputs): {b}")
+    for variant, labels in v.items():
+        say(f"chain instantiation '{variant}': {len(labels)} checked scans, "
+            f"e.g. {labels[0]!r}")
+    if min(b["uncapped"], b["capped"], b["summed_takes"]) <= 0:
+        raise AssertionError(f"a branch of the chain never ran: {b}")
+    missing = set(ffd_kernel.VARIANTS) - set(v)
+    if missing:
+        raise AssertionError(f"instantiations never checked: {missing}")
+    return {"branches": dict(b), "variants": {k: len(x) for k, x in
+                                              v.items()}}
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
-def phase_main_path(dev, pods, catalog):
+def phase_main_path(dev, pods, catalog, tally: dict):
     solver = TorchSolver(device=dev)
     request = SolveRequest(pods, catalog)
     reset_launches()
@@ -450,7 +583,7 @@ def phase_main_path(dev, pods, catalog):
     meta, compat_i, _ = tp.unpack_problem(packed, off_alloc, prep.G_pad,
                                           prep.O_pad, prep.U_pad)
     err, info = check_scan(dev, "main-path window", prep.N,
-                           (meta, compat_i, off_alloc, off_rank))
+                           (meta, compat_i, off_alloc, off_rank), tally)
     say(f"kernel check ffd_scan on the main-path window G={prep.G_pad} "
         f"O={prep.O_pad} N={prep.N}: exact ({info})")
     return solver, request, problem, launches, stats, cold_s, err
@@ -791,8 +924,9 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
             f"{prof['device_busy_ms']:.4f} ms of a "
             f"{prof['profiled_span_ms']:.4f} ms profiled window (busy "
             f"share {prof['device_busy_share']:.4f})")
-    say(f"timing [{card}]: ffd_scan kernel {phases['kernel']:.4f} ms, plain "
-        f"PyTorch version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+    say(f"timing [{card}]: ffd_scan kernel {phases['kernel']:.4f} ms "
+        f"({phases['kernel'] / G * 1e3:.4f} us per group step, G={G}), "
+        f"plain PyTorch version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by}: {nbytes} bytes, {ops} scalar ops); no single "
         f"PyTorch call computes the scan (library_ms null)")
     return {"p50_wall_ms": p50, "walls_ms": [w * 1e3 for w in walls],
@@ -800,8 +934,32 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
             "encode_cold_ms": enc_cold, "encode_warm_ms": enc_warm,
             "shape": {"G": G, "O": O, "U": U, "N": N},
             "ffd_scan": {"ms": phases["kernel"], "plain_ms": plain_ms,
+                         "us_per_step": phases["kernel"] / G * 1e3,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "bytes": nbytes, "ops": ops}}
+                         "bytes": nbytes, "ops": ops},
+            "ffd_scan_largest": largest_scan_ms(dev, card)}
+
+
+def largest_scan_ms(dev, card: str) -> dict:
+    """``ffd_scan``'s own time at the largest shape the checks run, G=2048
+    O=4096 N=4096 (C=1), beside its plain version (one run) and bound."""
+    G, O, N = 2048, 4096, 4096
+    meta, compat, alloc, rank = (torch.from_numpy(x).to(dev) for x in
+                                 scan_inputs(100, G, O))
+    m, c = meta[None], compat[None]
+    node_off, assign, _ = ffd_kernel.ffd_scan(m, c, alloc, rank, N)
+    ms = cuda_ms(lambda: ffd_kernel.ffd_scan(m, c, alloc, rank, N), 10)
+    plain_ms = cuda_ms(lambda: ffd_kernel.ffd_scan_reference(
+        m, c, alloc, rank, N), 1, warm=0)
+    bound_ms, bound_by, nbytes, ops = scan_bound_ms(
+        m, c, alloc, rank, N, assign.cpu().numpy(), node_off.cpu().numpy())
+    say(f"timing [{card}]: ffd_scan at the largest shape G={G} O={O} N={N}: "
+        f"kernel {ms:.4f} ms ({ms / G * 1e3:.4f} us per group step), plain "
+        f"PyTorch version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}: {nbytes} bytes, {ops} scalar ops)")
+    return {"G": G, "O": O, "N": N, "ms": ms, "us_per_step": ms / G * 1e3,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops}
 
 
 def fleet_scan_ms(dev, fleet: dict, card: str) -> dict:
@@ -849,11 +1007,13 @@ def scan_times(dev, label, N, metas, compats, alloc, rank, card) -> dict:
         node_off.cpu().numpy())
     C, G, O = compats.shape
     say(f"timing [{card}]: ffd_scan_fleet {label}, G={G} O={O} N={N}: "
-        f"kernel {ms:.4f} ms ({ms / C:.4f} ms per problem), plain PyTorch "
+        f"kernel {ms:.4f} ms ({ms / C:.4f} ms per problem, "
+        f"{ms / G * 1e3:.4f} us per group step), plain PyTorch "
         f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
         f"{nbytes} bytes, {ops} scalar ops); no single PyTorch call "
         f"computes the scan (library_ms null)")
-    return {"C": C, "G": G, "O": O, "N": N, "ms": ms, "plain_ms": plain_ms,
+    return {"C": C, "G": G, "O": O, "N": N, "ms": ms,
+            "us_per_step": ms / G * 1e3, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops}
 
@@ -998,12 +1158,19 @@ def main() -> int:
 
     pods, catalog = workload.build_workload(
         HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
-    checks = {"ffd_scan": phase_kernel_checks(dev, catalog),
-              "ffd_scan_fleet": phase_fleet_kernel_checks(dev, catalog)}
+    tally = new_tally()
+    checks = {"ffd_scan": phase_kernel_checks(dev, catalog, tally),
+              "ffd_scan_fleet": phase_fleet_kernel_checks(dev, catalog,
+                                                          tally)}
+    design = phase_design_checks(dev, tally)
     solver, request, problem, launches, stats, cold_s, err = \
-        phase_main_path(dev, pods, catalog)
+        phase_main_path(dev, pods, catalog, tally)
     checks["ffd_scan"]["max_abs_err"] = max(
-        checks["ffd_scan"]["max_abs_err"], err)
+        checks["ffd_scan"]["max_abs_err"], err, design["max_abs_err"])
+    checks["ffd_scan_fleet"]["max_abs_err"] = max(
+        checks["ffd_scan_fleet"]["max_abs_err"], design["max_abs_err"])
+    checks["design"] = design
+    checks["coverage"] = require_design_coverage(tally)
     fleet = phase_fleet(dev)
     stream = phase_stream(dev, catalog)
     zone = phase_zone(dev, pods, catalog)

@@ -38,9 +38,12 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]),
         "ffd_scan_max_nodes": (ctypes.c_int, []),
+        "ffd_scan_row_words": (ctypes.c_int, [ctypes.c_int]),
+        "ffd_scan_variant": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "ffd_scan_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

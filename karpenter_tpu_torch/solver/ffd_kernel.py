@@ -21,6 +21,14 @@ Contract::
        unplaced int32 [C, G]
 
 bit-identical to the reference's ``_ffd_step`` scan.
+
+The kernel runs in two launches (see the note in ``csrc/ffd_scan.cu``):
+an offering prologue over all C x G groups, whose plain version is
+:func:`ffd_offers_reference`, writes one row per group into a scratch
+the wrapper allocates; then one block per problem runs the sequential
+chain, which reads the rows from shared memory and sweeps the offerings
+only on the steps where the pods left cap some offering
+(:func:`chain_branches` counts the steps of each branch).
 """
 
 from __future__ import annotations
@@ -28,6 +36,11 @@ from __future__ import annotations
 import torch
 
 from karpenter_tpu_torch.solver.types import FIT_BIG
+
+# A fit at or above this on an open node sends the kernel's step to the
+# exact sum of the takes (csrc/ffd_scan.cu, kFitSafe): below it, 8192
+# node slots cannot wrap an int32 prefix sum.
+WIDE_FIT = 1 << 18
 
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else; a caller resets an entry to 0 before a run and reads it
@@ -44,6 +57,76 @@ def _fit_counts(resid: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
                   rounding_mode="floor"),
         FIT_BIG)
     return per_dim.min(dim=1).values
+
+
+def _offer_fits(meta, compat, alloc):
+    """fe0 [C, G, O] = max(0, min(compat ? fit(alloc, req) : 0, cap)) for
+    C problems each with its own catalog (``alloc`` [C, O, 4])."""
+    req = meta[..., None, :4]                             # [C, G, 1, 4]
+    per_dim = torch.where(
+        req > 0,
+        torch.div(alloc[:, None], torch.clamp(req, min=1),
+                  rounding_mode="floor"),
+        FIT_BIG)
+    fe0 = torch.where(compat > 0, per_dim.min(dim=-1).values, 0)
+    return torch.clamp(torch.minimum(fe0, meta[..., 5:6]), min=0)
+
+
+def ffd_offers_reference(meta: torch.Tensor, compat: torch.Tensor,
+                         alloc: torch.Tensor, rank: torch.Tensor):
+    """Plain version of the kernel's offering prologue, for C problems
+    each with its own catalog (``alloc`` [C, O, 4], ``rank`` [C, O]).
+    Per group: ``fe0`` [C, G, O] = max(0, min(compat ? fit(alloc, req) :
+    0, cap)), which does not depend on node state; ``best0`` [C, G], the
+    first-index argmin of rank / fe0 over fe0 > 0 (0 when there is
+    none); ``bf0`` = fe0 at best0; ``maxfe`` = max fe0.  A step whose
+    pods left (rem) are at least maxfe caps no offering, so its (best,
+    bf) is (best0, bf0)."""
+    fe0 = _offer_fits(meta, compat, alloc)
+    cpp = torch.where(fe0 > 0, rank[:, None] / fe0.to(torch.float32),
+                      float("inf"))
+    best0 = torch.argmin(cpp, dim=-1)                   # first index on ties
+    bf0 = torch.gather(fe0, -1, best0[..., None])[..., 0]
+    return fe0, best0.to(torch.int32), bf0, fe0.max(dim=-1).values
+
+
+def chain_branches(meta: torch.Tensor, compat: torch.Tensor,
+                   alloc: torch.Tensor, node_off: torch.Tensor,
+                   assign: torch.Tensor, unplaced: torch.Tensor) -> dict:
+    """How many group steps of a scan took each branch of the kernel's
+    chain, from the inputs (``alloc`` [O, 4] or [C, O, 4]) and the scan's
+    outputs: rem_g, the pods the open nodes did not take, is unplaced_g
+    plus the pods of the nodes first opened at step g.  ``opens_nothing``
+    (rem <= 0), ``uncapped`` (rem >= maxfe: the prologue's argmin) and
+    ``capped`` (the chain's own sweep).  ``summed_takes`` counts the
+    steps of groups with no request at all and a cap of at least
+    WIDE_FIT whose fill met a compatible open node: their fits are
+    FIT_BIG, prefix sums may wrap, and the chain sums the takes behind a
+    second barrier (other, rarer causes of that path are not counted)."""
+    C, G, _ = meta.shape
+    if G == 0:
+        return {"opens_nothing": 0, "uncapped": 0, "capped": 0,
+                "summed_takes": 0}
+    if alloc.dim() == 2:
+        alloc = alloc.expand(C, -1, -1)
+    mask = assign > 0                                     # [C, G, N]
+    first = torch.where(mask.any(dim=1), mask.int().argmax(dim=1), G)
+    first = torch.where(node_off >= 0, first, G)          # [C, N]
+    steps = torch.arange(G, device=meta.device)
+    opened_at = first[:, None, :] == steps[None, :, None]
+    rem = unplaced.long() + (assign.long() * opened_at).sum(dim=2)
+    maxfe = torch.cat([
+        _offer_fits(meta[c:c + 1], compat[c:c + 1], alloc[c:c + 1]).amax(-1)
+        for c in range(C)]).long()
+    # a compatible node open before step g: first < g, compat[g, off]
+    off = node_off.clamp(min=0).long()[:, None, :].expand(C, G, -1)
+    met = (torch.gather(compat, 2, off) != 0) \
+        & (first[:, None, :] < steps[None, :, None])
+    wide = (meta[..., :4] == 0).all(dim=-1) & (meta[..., 5] >= WIDE_FIT)
+    return {"opens_nothing": int((rem <= 0).sum()),
+            "uncapped": int(((rem > 0) & (rem >= maxfe)).sum()),
+            "capped": int(((rem > 0) & (rem < maxfe)).sum()),
+            "summed_takes": int((wide & met.any(dim=2)).sum())}
 
 
 def _ffd_scan_one(meta, compat, alloc, rank, N: int):
@@ -187,6 +270,9 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride, N, C, G,
     if alloc.data_ptr() % 16:
         raise ValueError("alloc must be 16-byte aligned (read as int4)")
     dev = meta.device
+    # the prologue's rows: scratch the chain reads, 16-byte aligned rows
+    rows = torch.empty((C, G, lib.ffd_scan_row_words(O)), dtype=torch.int32,
+                       device=dev)
     node_off = torch.empty((C, N), dtype=torch.int32, device=dev)
     assign = torch.empty((C, G, N), dtype=torch.int32, device=dev)
     unplaced = torch.empty((C, G), dtype=torch.int32, device=dev)
@@ -194,13 +280,27 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride, N, C, G,
     err = lib.ffd_scan_launch(
         meta.data_ptr(), compat.data_ptr(),
         int(compat.dtype == torch.uint8), alloc.data_ptr(), alloc_stride,
-        rank.data_ptr(), rank_stride, node_off.data_ptr(),
+        rank.data_ptr(), rank_stride, rows.data_ptr(), node_off.data_ptr(),
         assign.data_ptr(), unplaced.data_ptr(), C, G, O, N, FIT_BIG,
         dev.index, stream)
     if err != 0:
         msg = lib.ffd_scan_error_string(err).decode()
         raise RuntimeError(f"ffd_scan launch failed: cudaError {err} ({msg})")
     return node_off, assign, unplaced
+
+
+VARIANTS = ("rows and catalog read from global memory",
+            "rows staged in shared memory, catalog from global memory",
+            "rows and catalog staged in shared memory")
+
+
+def scan_variant(O: int, N: int) -> str:
+    """The chain kernel's instantiation for offerings O and node slots N,
+    as the launcher picks it from the shapes alone (needs the built
+    library): the shared-memory budget rule of ``csrc/ffd_scan.cu``."""
+    from karpenter_tpu_torch import cuda_build
+
+    return VARIANTS[cuda_build.load("ffd_scan").ffd_scan_variant(O, N)]
 
 
 def ffd_scan(meta: torch.Tensor, compat: torch.Tensor, alloc: torch.Tensor,

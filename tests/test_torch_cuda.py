@@ -22,7 +22,8 @@ from karpenter_tpu_torch import SolveRequest, TorchSolver, validate_plan
 from karpenter_tpu_torch import encode, workload
 from karpenter_tpu_torch.solver import ffd_kernel
 from karpenter_tpu_torch.solver.ffd_kernel import (
-    ffd_scan, ffd_scan_fleet, ffd_scan_fleet_reference, ffd_scan_reference,
+    VARIANTS, chain_branches, ffd_scan, ffd_scan_fleet,
+    ffd_scan_fleet_reference, ffd_scan_reference, scan_variant,
 )
 
 BIG = 1 << 30
@@ -170,3 +171,106 @@ def test_solve_encoded_batch_on_card_matches_cpu(cuda_device):
         assert plan.total_cost_per_hour == pytest.approx(
             want.total_cost_per_hour, rel=1e-5)
         assert validate_plan(plan, pods, catalog) == []
+
+
+def _exact(got, want):
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O", [1, 129, 3000])
+def test_ffd_kernel_ragged_offerings(cuda_device, O):
+    """Offering counts that are not multiples of 4, 16 or 128: the rows
+    the prologue writes are padded to 16 bytes, the catalog's rank row is
+    staged word by word.  One problem and a fleet of three catalogs,
+    int32 and uint8 compat."""
+    probs = [_inputs(s, G=48, O=O) for s in (O, O + 1, O + 2)]
+    meta, compat, alloc, rank = (
+        torch.from_numpy(np.stack([p[i] for p in probs])).to(cuda_device)
+        for i in range(4))
+    for c in (compat, compat.to(torch.uint8)):
+        _exact(ffd_scan(meta[:1], c[:1], alloc[0], rank[0], 256),
+               ffd_scan_reference(meta[:1], c[:1], alloc[0], rank[0], 256))
+        _exact(ffd_scan_fleet(meta, c, alloc, rank, 256),
+               ffd_scan_fleet_reference(meta, c, alloc, rank, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O, variant", [(3072, 2), (4096, 1), (5000, 0)])
+def test_ffd_kernel_instantiations(cuda_device, O, variant):
+    """Each instantiation of the chain kernel, picked by the shapes alone:
+    N = 512 stages rows and catalog; N = 8192 with O = 4096 stages rows
+    only; N = 8192 with O = 5000 reads both from global memory."""
+    N = 512 if variant == 2 else 8192
+    assert scan_variant(O, N) == VARIANTS[variant]
+    meta, compat, alloc, rank = (torch.from_numpy(x).to(cuda_device)
+                                 for x in _inputs(variant, G=64, O=O))
+    meta[:, 4] *= 4
+    _exact(ffd_scan(meta[None], compat[None], alloc, rank, N),
+           ffd_scan_reference(meta[None], compat[None], alloc, rank, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 1024])
+def test_ffd_kernel_no_request_groups(cuda_device, N):
+    """Groups that request nothing fit FIT_BIG on every compatible open
+    node, so the fill's int32 prefix sums wrap and the step sums the
+    takes themselves: still equal to the plain version."""
+    for seed in range(4):
+        meta, compat, alloc, rank = _inputs(seed)
+        free = np.random.RandomState(seed).rand(meta.shape[0]) < 0.35
+        free[0] = False
+        meta[free, :4] = 0
+        meta[free, 5] = BIG
+        meta, compat, alloc, rank = (torch.from_numpy(x).to(cuda_device)
+                                     for x in (meta, compat, alloc, rank))
+        want = ffd_scan_reference(meta[None], compat[None], alloc, rank, N)
+        _exact(ffd_scan(meta[None], compat[None], alloc, rank, N), want)
+        assert chain_branches(meta[None], compat[None], alloc,
+                              *want)["summed_takes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [0, 1, 2, 3])
+def test_ffd_kernel_short_windows(cuda_device, G):
+    """G = 0 and G below the depth of the row ring."""
+    meta, compat, alloc, rank = (torch.from_numpy(x).to(cuda_device)
+                                 for x in _inputs(G, G=G, O=256))
+    got = ffd_scan(meta[None], compat[None], alloc, rank, 128)
+    _exact(got, ffd_scan_reference(meta[None], compat[None], alloc, rank,
+                                   128))
+    if G == 0:
+        assert (got[0] == -1).all()
+
+
+@pytest.mark.cuda
+def test_ffd_kernel_ulp_tie_and_branches(cuda_device):
+    """Ranks one ulp apart that divide by a small rem to the same float:
+    the capped sweep takes the lower index, as the plain version does;
+    and over these windows both branches of the chain run."""
+    rng = np.random.RandomState(9)
+    while True:
+        lo = np.float32(rng.rand() * 3 + 0.05)
+        hi = np.nextafter(lo, np.float32(np.inf), dtype=np.float32)
+        if hi / np.float32(3) == lo / np.float32(3) and \
+                hi / np.float32(30) != lo / np.float32(30):
+            break
+    branches = {"uncapped": 0, "capped": 0}
+    for seed in range(4):
+        meta, compat, alloc, rank = _inputs(seed)
+        rank[:2] = (hi, lo)
+        rank[2:] = np.maximum(rank[2:], hi * 2)
+        alloc[:2] = (64000, 65536, 0, 30)
+        meta[0, :6] = (250, 512, 0, 1, 3, BIG)
+        compat[0, :2] = 1
+        meta, compat, alloc, rank = (torch.from_numpy(x).to(cuda_device)
+                                     for x in (meta, compat, alloc, rank))
+        got = ffd_scan(meta[None], compat[None], alloc, rank, 256)
+        want = ffd_scan_reference(meta[None], compat[None], alloc, rank, 256)
+        _exact(got, want)
+        assert int(got[0][0, 0]) == 0
+        counts = chain_branches(meta[None], compat[None], alloc, *want)
+        for k in branches:
+            branches[k] += counts[k]
+    assert branches["uncapped"] > 0 and branches["capped"] > 0
