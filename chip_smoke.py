@@ -9,8 +9,13 @@ headline window, 10k pending pods x 500 instance types (seed 42) —
 through ``TorchSolver(device="cuda").solve``, then the batched paths:
 the multi-cluster fleet (8 clusters x 10k pods, each with its own
 catalog) through ``fleet_solve_packed``, the window stream through
-``solve_stream`` and a zone-candidate window through ``solve``, and
-checks that each ran through the hand-written CUDA kernels.  Phases, in
+``solve_stream`` and a zone-candidate window through ``solve``, then the
+routes the default dispatch takes on its own, each through ``solve`` at
+10k pods x 500 types: the flat regime (two heterogeneous windows), the
+affinity plane and the stochastic plane; and checks that each path ran
+through its hand-written CUDA kernels (the flat program's order-fixed
+segment sum; the affinity and stochastic scans are PyTorch ops and run
+none).  Phases, in
 order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit, as nvidia-smi reports them;
@@ -39,8 +44,17 @@ order; any failure exits non-zero and prints no result line:
    (c) the stream of 64 windows at depth 32, batch 16, each plan equal
    to its single-window plan and clean; (d) the zone-candidate window,
    whose plan must equal the CPU solver's, with its candidate rounds
-   batched;
-5. timings: p50 wall of 20 warm windows, the device phases of one
+   batched; (e) the two flat windows, (f) the affinity window and (g)
+   the stochastic window, each plan equal to the CPU solver's and clean
+   (validate_plan, validate_affinity_plan, the chance rule), its placed
+   count the CPU's, ``last_stats["path"]`` naming the route and the
+   card, and its raw result equal to the plain CPU program word for
+   word; ``segment_sum`` held bit for bit against its plain version on
+   every call of the flat program; for each route the cold wall, the p50
+   of 20 warm windows, the device program's CUDA-event time, kernels per
+   window from ``torch.profiler`` and, for flat, host syncs per window;
+5. timings (taken after path (d) and before paths (e)-(g) run): p50
+   wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
    ``torch.profiler`` trace, each kernel's own time beside its plain
    version and its bound, with the time per group step, and the scan
@@ -77,12 +91,17 @@ from karpenter_tpu_torch.parallel import (
     FleetProblem, fleet_device_catalog, fleet_pack_inputs,
     fleet_solve_packed,
 )
-from karpenter_tpu_torch.solver import ffd_kernel
+from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
+from karpenter_tpu_torch.affinity.validate import validate_affinity_plan
+from karpenter_tpu_torch.apis.nodeclaim import NodePool
+from karpenter_tpu_torch.solver import ffd_kernel, segment_sum
+from karpenter_tpu_torch.solver import flat as flat_mod
 from karpenter_tpu_torch.solver import packed as tp
 from karpenter_tpu_torch.solver.torch_backend import _pad1, _pad2
 from karpenter_tpu_torch.solver.types import (
     FIT_BIG, GROUP_BUCKETS, NODE_BUCKETS, OFFERING_BUCKETS, bucket,
 )
+from karpenter_tpu_torch.stochastic.kernel import solve_packed_stochastic
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -106,6 +125,16 @@ STREAM = dict(windows=64, distinct=16, depth=32, batch=16, seed0=42)
 # the zone-candidate window: the headline pods plus `apps` co-scheduled
 # apps of `pods` pods, each with a self PodAffinityTerm on the zone key
 ZONE = dict(apps=3, pods=200)
+# the routes the default dispatch takes on its own, at the headline size:
+# the flat regime (bench.py::build_hetero_workload, plain and with 30%
+# hard constraints and 15% soft preferences), the affinity plane
+# (bench.py::_affinity_bench_pods, RandomState(19)) and the stochastic
+# plane (bench.py::run_stochastic's menu, seed 13, overcommit 0.05)
+FLAT_WINDOWS = (dict(seed=7),
+                dict(seed=11, constrained_frac=0.3, pref_frac=0.15))
+AFFINITY = dict(tag="aff", rng_seed=19)
+STOCHASTIC = dict(seed=13, overcommit=0.05)
+ROUTE_WARM = 20
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
@@ -113,6 +142,9 @@ KERNELS = {
     "ffd_scan_fleet": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
         replaces="karpenter_tpu/solver/pallas_kernel.py:304"),
+    "segment_sum": dict(
+        route="cuda", source="karpenter_tpu_torch/csrc/segment_sum.cu",
+        replaces="karpenter_tpu/solver/flat.py:231"),
 }
 # the module, not the ``encode`` function the solver package re-exports
 encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
@@ -122,9 +154,23 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+COUNTERS = (ffd_kernel.LAUNCHES, segment_sum.LAUNCHES)
+
+
 def reset_launches() -> None:
-    for name in ffd_kernel.LAUNCHES:
-        ffd_kernel.LAUNCHES[name] = 0
+    for counts in COUNTERS:
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict:
+    return {k: v for counts in COUNTERS for k, v in counts.items()}
+
+
+def require_no_launches(launches: dict, path: str) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"the {path} launched a kernel of another "
+                             f"route: {launches}")
 
 
 def require_launches(launches: dict, names, path: str) -> None:
@@ -185,13 +231,18 @@ def plans_equal(label: str, got, want) -> None:
                              f"{want.total_cost_per_hour}")
 
 
-def clean_and_placed(label: str, plan, pods, catalog) -> None:
-    errors = validate_plan(plan, pods, catalog)
+def clean_and_placed(label: str, plan, pods, catalog, nodepool=None,
+                     placed: int | None = None) -> None:
+    """validate_plan clean, and every pod placed (or, with ``placed``,
+    exactly that many: a window whose reference leaves pods unplaced)."""
+    errors = validate_plan(plan, pods, catalog, nodepool)
     if errors:
         raise AssertionError(f"{label}: validate_plan: {errors[:5]}")
-    if plan.unplaced_pods or plan.placed_count != len(pods):
+    want = len(pods) if placed is None else placed
+    if plan.placed_count != want or \
+            plan.placed_count + len(plan.unplaced_pods) != len(pods):
         raise AssertionError(f"{label}: placed {plan.placed_count} of "
-                             f"{len(pods)}")
+                             f"{len(pods)}, want {want}")
 
 
 def card_line() -> str:
@@ -550,7 +601,7 @@ def phase_main_path(dev, pods, catalog, tally: dict):
     t0 = time.perf_counter()
     plan = solver.solve(request)
     cold_s = time.perf_counter() - t0
-    launches = dict(ffd_kernel.LAUNCHES)
+    launches = launch_counts()
     stats = dict(solver.last_stats)
     require_launches(launches, ["ffd_scan"], "main path")
     if stats["path"] != solver.path:          # "ffd-cuda" on the card
@@ -638,7 +689,7 @@ def phase_fleet(dev) -> dict:
             break
         N = min(N_cap, bucket(N * 4, NODE_BUCKETS))    # escalate, as bench
     cold_s = time.perf_counter() - t0
-    launches = dict(ffd_kernel.LAUNCHES)
+    launches = launch_counts()
     require_launches(launches, ["ffd_scan_fleet"], "fleet path")
     node_off, assign, unplaced, cost = out
     if unplaced.sum():
@@ -698,7 +749,7 @@ def phase_stream(dev, catalog) -> dict:
                                      depth=STREAM["depth"],
                                      batch=STREAM["batch"]))
     wall_s = time.perf_counter() - t0
-    launches = dict(ffd_kernel.LAUNCHES)
+    launches = launch_counts()
     stats = dict(solver.last_stats)
     require_launches(launches, ["ffd_scan_fleet"], "stream path")
     if stats["path"] != solver.path + "-batch" or len(plans) != n:
@@ -741,7 +792,7 @@ def phase_zone(dev, pods, catalog) -> dict:
     t0 = time.perf_counter()
     plan = solver.solve(request)
     wall_s = time.perf_counter() - t0
-    launches = dict(ffd_kernel.LAUNCHES)
+    launches = launch_counts()
     stats = dict(solver.last_stats)
     require_launches(launches, ["ffd_scan", "ffd_scan_fleet"],
                      "zone-candidate path")
@@ -759,6 +810,339 @@ def phase_zone(dev, pods, catalog) -> dict:
         f"{launches}, solve {wall_s * 1e3:.3f} ms")
     return {"launches": launches, "wall_s": wall_s,
             "last_batch": stats["batch"]}
+
+
+# -- phase 4 (e-g): the routes the default dispatch takes on its own --------
+
+
+def warm_walls(solver, request, n: int = ROUTE_WARM) -> list[float]:
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        solver.solve(request)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def route_run(dev, label: str, route: str, request, need=()):
+    """The window through ``TorchSolver(device=dev).solve`` with the launch
+    counts reset just before and read just after, and once through the
+    CPU solver: (solver, plan, cpu plan, launches, stats, cold s, cpu s).
+    The card's plan must equal the CPU's and name the route and the
+    card; the kernels in ``need`` must have run, and no other."""
+    solver = TorchSolver(device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = solver.solve(request)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = dict(solver.last_stats)
+    if need:
+        require_launches(launches, need, label)
+    require_no_launches({k: v for k, v in launches.items() if k not in need},
+                        label)
+    if stats["path"] != f"{route}-cuda":
+        raise AssertionError(f"{label} took {stats['path']!r}")
+    t0 = time.perf_counter()
+    cpu_plan = TorchSolver(device="cpu").solve(request)
+    cpu_s = time.perf_counter() - t0
+    plans_equal(label, plan, cpu_plan)
+    return solver, plan, cpu_plan, launches, stats, cold_s, cpu_s
+
+
+def top_device_ops(run, n: int = 8) -> list | None:
+    """The ``n`` PyTorch ops of one call of ``run`` with the most device
+    time of their own, from ``torch.profiler``: [(op, calls, device
+    ms)], or None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith("aten::")]
+    rows.sort(key=lambda r: -r[2])
+    if not rows or rows[0][2] <= 0:
+        return None
+    return rows[:n]
+
+
+def route_timings(dev, card: str, label: str, solver, request, program,
+                  reps: int, spans: int, tag: str) -> dict:
+    """p50 warm wall over ROUTE_WARM windows, the device program's CUDA
+    event time (``program`` run back to back), kernels per window and
+    device busy share from ``torch.profiler``, and the ops of one window
+    with the most device time."""
+    walls = warm_walls(solver, request)
+    p50 = float(np.percentile(walls, 50)) * 1e3
+    dev_ms = cuda_ms(program, reps, warm=1)
+    prof = profile_spans(lambda: solver.solve(request), spans, tag)
+    top = top_device_ops(lambda: solver.solve(request))
+    say(f"timing [{card}]: {label}: p50 wall of {ROUTE_WARM} warm windows "
+        f"{p50:.4f} ms (min {min(walls) * 1e3:.4f}, max "
+        f"{max(walls) * 1e3:.4f}); device program back to back {dev_ms:.4f}"
+        f" ms (CUDA events, {reps} runs)")
+    if prof is None:
+        say(f"profile [{card}]: {label}: torch.profiler recorded no device "
+            f"events; kernels per window not measured")
+    else:
+        say(f"profile [{card}]: {label}: {prof['spans']} warm windows under "
+            f"torch.profiler: {prof['kernels_per_span']:.1f} kernels per "
+            f"window; device busy {prof['device_busy_ms']:.4f} ms of a "
+            f"{prof['profiled_span_ms']:.4f} ms profiled window (busy share "
+            f"{prof['device_busy_share']:.4f})")
+    if top is None:
+        say(f"profile [{card}]: {label}: device time per op not measured")
+    else:
+        say(f"profile [{card}]: {label}: ops with the most device time in "
+            f"one window: " + ", ".join(f"{k} x{c} {ms:.4f} ms"
+                                        for k, c, ms in top))
+    return {"p50_wall_ms": p50, "walls_ms": [w * 1e3 for w in walls],
+            "device_program_ms": dev_ms, "profile": prof,
+            "top_device_ops": top}
+
+
+def flat_inputs(tmpl, dev):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (tmpl.item_req, tmpl.item_gid, tmpl.item_live,
+                      tmpl.rows, tmpl.item_row, tmpl.miss_rows)]
+
+
+def flat_program(tmpl, inputs, catalog_t, N: int):
+    """``flat_solve_torch`` of a template on given inputs (the catalog
+    tensors: off_alloc, off_price, off_rank)."""
+    off_alloc, off_price, off_rank = catalog_t
+    item_req, item_gid, item_live, rows, item_row, miss_rows = inputs
+    return flat_mod.flat_solve_torch(
+        item_req, item_gid, item_live, rows, item_row, off_alloc, off_rank,
+        miss_rows, off_price, I=tmpl.I_pad, O=tmpl.O_pad, G=tmpl.G_pad, N=N,
+        K=tmpl.K, U=tmpl.U_pad, slim=tmpl.slim)
+
+
+def phase_flat(dev, card: str) -> dict:
+    """(e) The flat regime: both FLAT_WINDOWS through ``solve`` on the
+    card (segment_sum launched, no FFD kernel), each plan equal to the
+    CPU solver's, clean, every pod placed; the card's raw result equal to
+    the plain CPU program word for word.  Then the segment-sum kernel
+    against its plain version on every call the program made."""
+    windows, calls = [], []
+    for w in FLAT_WINDOWS:
+        label = f"flat window (seed {w['seed']}" + (
+            f", {w['constrained_frac']:.0%} constrained, "
+            f"{w['pref_frac']:.0%} preferences)" if len(w) > 1 else ")")
+        pods, catalog = workload.build_hetero_workload(
+            HEADLINE["pods"], HEADLINE["types"], **w)
+        request = SolveRequest(pods, catalog)
+        solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
+            dev, label, "flat", request, need=("segment_sum",))
+        clean_and_placed(label, plan, pods, catalog)
+        problem = encode_mod.encode(pods, catalog)
+        tmpl = flat_mod.flat_template(solver, problem)
+        dev_cat = solver.device_offerings(catalog, tmpl.O_pad)
+        cpu_cat = [t.cpu() for t in dev_cat]
+        dev_in = flat_inputs(tmpl, dev)
+        card_out, info = flat_program(tmpl, dev_in, dev_cat, stats["N"])
+        plain_out, _ = flat_program(tmpl, flat_inputs(tmpl, "cpu"), cpu_cat,
+                                    stats["N"])
+        cost_word = (stats["N"] // 2 + tmpl.G_pad // 2) if tmpl.slim \
+            else stats["N"] + tmpl.G_pad
+        c_card, c_cpu = words_equal(label, card_out.cpu().numpy(),
+                                    plain_out.numpy(), cost_word)
+        say(f"{label}: G={problem.num_groups} (padded {stats['G']}) "
+            f"I={stats['I']} O={stats['O']} U={stats['U']} N={stats['N']} "
+            f"K={stats['K']} slim={stats['slim']}: {len(plan.nodes)} nodes, "
+            f"{plan.placed_count} pods placed, cost "
+            f"{plan.total_cost_per_hour:.4f} $/h, path {stats['path']}, "
+            f"launches {launches}, {stats['rounds']} rounds, "
+            f"{stats['host_syncs']} host syncs per window, "
+            f"{stats['escalations']} escalations; plan equal to the CPU "
+            f"solver's, validate_plan clean; result buffer "
+            f"{card_out.shape[0]} words equal to the plain CPU program "
+            f"(cost {c_card} vs {c_cpu}); cold solve {cold_s * 1e3:.3f} ms, "
+            f"CPU solve {cpu_s * 1e3:.3f} ms")
+        # every segment sum of one program run, for the kernel check
+        orig = flat_mod.segment_sum
+
+        def record(v, s, S, orig=orig):
+            calls.append((v.clone(), s.clone(), S))
+            return orig(v, s, S)
+
+        flat_mod.segment_sum = record
+        try:
+            flat_program(tmpl, dev_in, dev_cat, stats["N"])
+        finally:
+            flat_mod.segment_sum = orig
+        t = route_timings(
+            dev, card, label, solver, request,
+            lambda: flat_program(tmpl, dev_in, dev_cat, stats["N"]), 10, 5,
+            "flat_window")
+        t.update(host_syncs=stats["host_syncs"], rounds=stats["rounds"],
+                 cold_ms=cold_s * 1e3, cpu_solve_ms=cpu_s * 1e3,
+                 launches=launches, nodes=len(plan.nodes),
+                 shape={k: stats[k] for k in ("G", "I", "O", "U", "N", "K")},
+                 groups=problem.num_groups, cost=plan.total_cost_per_hour)
+        windows.append(t)
+    return {"windows": windows, "segment_sum": segment_sum_checks(calls,
+                                                                  card),
+            "launches": {k: sum(w["launches"][k] for w in windows)
+                         for k in windows[0]["launches"]}}
+
+
+def segment_sum_checks(calls, card: str) -> dict:
+    """``segment_sum`` against its plain version (index-order adds on the
+    CPU) on every call the flat program made, bit for bit; the kernel's
+    time on the largest call beside the plain version, ``index_add_``
+    (the PyTorch call for the same sums, in atomic order) and the
+    bound."""
+    err = 0.0
+    for v, s, S in calls:
+        got = segment_sum.segment_sum(v, s, S)
+        want = segment_sum.segment_sum_reference(v, s, S)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            diff = (got - want).abs()
+            raise AssertionError(f"segment_sum differs from its plain "
+                                 f"version on [{v.shape[0]}, {v.shape[1]}] "
+                                 f"-> {S}: max |diff| {float(diff.max())}")
+        err = max(err, float((got - want).abs().max()))
+    v, s, S = max(calls, key=lambda c: (c[0].shape[0], c[2]))
+    ms = cuda_ms(lambda: segment_sum.segment_sum(v, s, S), 50)
+    plain_ms = cuda_ms(lambda: segment_sum.segment_sum_reference(v, s, S), 5,
+                       warm=1)
+    idx = s.long()
+    lib_ms = cuda_ms(lambda: torch.zeros((S, v.shape[1]), device=v.device)
+                     .index_add_(0, idx, v), 50)
+    nbytes = v.numel() * 4 + s.numel() * s.element_size() + S * v.shape[1] * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = v.numel() / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"kernel check segment_sum: {len(calls)} calls of the flat program, "
+        f"exact against the plain version; timing [{card}]: "
+        f"[{v.shape[0]}, {v.shape[1]}] -> {S} segments: kernel {ms:.4f} ms, "
+        f"plain version {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes)")
+    return {"calls": len(calls), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes,
+            "shape": [v.shape[0], v.shape[1], S]}
+
+
+def packed_route_check(dev, label: str, solver, problem, program_of):
+    """The card's packed result of a window against the CPU solver's on
+    the same template, word for word (cost to 1e-5); returns the device
+    program (a zero-argument callable on the card's tensors) for timing,
+    and the prepared shapes."""
+    prep = solver._prepare(problem)
+    card = solver.dispatch_packed(prep).cpu().numpy()
+    cpu_solver = TorchSolver(device="cpu")
+    cpu_prep = cpu_solver._prepare(problem)
+    plain = cpu_solver.dispatch_packed(cpu_prep).numpy()
+    c_card, c_cpu = words_equal(label, card, plain, prep.N + prep.G_pad)
+    say(f"{label}: result buffer {card.shape[0]} words equal to the plain "
+        f"CPU program (cost {c_card} vs {c_cpu})")
+    return program_of(prep), prep
+
+
+def phase_affinity(dev, card: str) -> dict:
+    """(f) The affinity plane: the bench's 10k-pod window through
+    ``solve`` on the card (the affinity scan, no hand kernel), the plan
+    equal to the CPU solver's, clean under validate_plan and
+    validate_affinity_plan, with the CPU's placed count; the raw result
+    equal to the plain CPU program word for word."""
+    label = "affinity window"
+    catalog = workload.build_catalog(HEADLINE["types"])
+    pods = workload.affinity_bench_pods(
+        AFFINITY["tag"], HEADLINE["pods"],
+        np.random.RandomState(AFFINITY["rng_seed"]))
+    request = SolveRequest(pods, catalog)
+    solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
+        dev, label, "affinity", request)
+    clean_and_placed(label, plan, pods, catalog,
+                     placed=cpu_plan.placed_count)
+    errors = validate_affinity_plan(plan, pods)
+    if errors:
+        raise AssertionError(f"{label}: validate_affinity_plan: "
+                             f"{errors[:5]}")
+    problem = encode_mod.encode(pods, catalog)
+    if problem.aff is None or not problem.aff.device_armed:
+        raise AssertionError(f"{label} does not arm the affinity lane")
+
+    def program_of(prep):
+        off_alloc, off_price, off_rank = solver.device_offerings(
+            catalog, prep.O_pad)
+        packed = torch.from_numpy(prep.packed).to(dev)
+        aff = torch.from_numpy(prep.aff).to(dev)
+        return lambda: solve_packed_affinity(
+            packed, aff, off_alloc, off_price, off_rank, G=prep.G_pad,
+            O=prep.O_pad, U=prep.U_pad, N=prep.N)
+
+    program, prep = packed_route_check(dev, label, solver, problem,
+                                       program_of)
+    say(f"{label}: G={problem.num_groups} (padded {prep.G_pad}) "
+        f"O={prep.O_pad} N={prep.N}, {problem.aff.edge_count} edges: "
+        f"{len(plan.nodes)} nodes, {plan.placed_count} placed, "
+        f"{len(plan.unplaced_pods)} unplaced (as on the CPU), cost "
+        f"{plan.total_cost_per_hour:.4f} $/h, path {stats['path']}, launches "
+        f"{launches}; plan equal to the CPU solver's, validate_plan and "
+        f"validate_affinity_plan clean; cold solve {cold_s * 1e3:.3f} ms, "
+        f"CPU solve {cpu_s * 1e3:.3f} ms")
+    t = route_timings(dev, card, label, solver, request, program, 3, 2,
+                      "affinity_window")
+    t.update(cold_ms=cold_s * 1e3, cpu_solve_ms=cpu_s * 1e3,
+             launches=launches, nodes=len(plan.nodes),
+             placed=plan.placed_count, unplaced=len(plan.unplaced_pods),
+             shape={"G": prep.G_pad, "O": prep.O_pad, "N": prep.N},
+             groups=problem.num_groups, cost=plan.total_cost_per_hour)
+    return t
+
+
+def phase_stochastic(dev, card: str) -> dict:
+    """(g) The stochastic plane: run_stochastic's 10k-pod menu on an
+    overcommitting pool through ``solve`` on the card (the chance scan,
+    no hand kernel), the plan equal to the CPU solver's, clean under the
+    chance rule, every pod placed; the raw result equal to the plain CPU
+    program word for word."""
+    label = "stochastic window"
+    catalog = workload.build_catalog(HEADLINE["types"])
+    pods = workload.stochastic_pods(HEADLINE["pods"],
+                                    seed=STOCHASTIC["seed"])
+    pool = NodePool(name="default", overcommit=STOCHASTIC["overcommit"])
+    request = SolveRequest(pods, catalog, pool)
+    solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
+        dev, label, "stochastic", request)
+    clean_and_placed(label, plan, pods, catalog, pool)
+    problem = encode_mod.encode(pods, catalog, pool)
+
+    def program_of(prep):
+        off_alloc, off_price, off_rank = solver.device_offerings(
+            catalog, prep.O_pad)
+        packed = torch.from_numpy(prep.packed).to(dev)
+        sto = torch.from_numpy(prep.sto).to(dev)
+        kd, kc = solver._fit_grids(prep, sto, off_alloc)
+        return lambda: solve_packed_stochastic(
+            packed, sto, kd, kc, off_alloc, off_price, off_rank,
+            G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
+            z_bp=prep.z_bp)
+
+    program, prep = packed_route_check(dev, label, solver, problem,
+                                       program_of)
+    say(f"{label}: G={problem.num_groups} (padded {prep.G_pad}) "
+        f"O={prep.O_pad} N={prep.N}, z_bp={prep.z_bp}: {len(plan.nodes)} "
+        f"nodes, {plan.placed_count} pods placed, cost "
+        f"{plan.total_cost_per_hour:.4f} $/h, path {stats['path']}, launches "
+        f"{launches}; plan equal to the CPU solver's, validate_plan (chance "
+        f"rule) clean; cold solve {cold_s * 1e3:.3f} ms, CPU solve "
+        f"{cpu_s * 1e3:.3f} ms")
+    t = route_timings(dev, card, label, solver, request, program, 3, 2,
+                      "stochastic_window")
+    t.update(cold_ms=cold_s * 1e3, cpu_solve_ms=cpu_s * 1e3,
+             launches=launches, nodes=len(plan.nodes),
+             placed=plan.placed_count,
+             shape={"G": prep.G_pad, "O": prep.O_pad, "N": prep.N},
+             groups=problem.num_groups, cost=plan.total_cost_per_hour)
+    return t
 
 
 # -- phase 5: timings ---------------------------------------------------------
@@ -1174,15 +1558,26 @@ def main() -> int:
     fleet = phase_fleet(dev)
     stream = phase_stream(dev, catalog)
     zone = phase_zone(dev, pods, catalog)
+    # the timings come before the routes' phases, as in the earlier
+    # slices; the order does not move them beyond the host's drift
+    # (tools/torch_headline_aftereffect.py)
+    timing = phase_timings(dev, solver, request, problem, card)
+    timing.update(phase_batched_timings(dev, fleet, stream, card))
+    flat = phase_flat(dev, card)
+    affinity = phase_affinity(dev, card)
+    stochastic = phase_stochastic(dev, card)
+    checks["segment_sum"] = {"max_abs_err": flat["segment_sum"]["max_abs_err"],
+                             "calls": flat["segment_sum"]["calls"]}
+    timing["segment_sum"] = flat["segment_sum"]
     # launches per kernel over the paths that run it
     path_launches = {"main": launches, "fleet": fleet["launches"],
-                     "stream": stream["launches"], "zone": zone["launches"]}
+                     "stream": stream["launches"], "zone": zone["launches"],
+                     "flat": flat["launches"],
+                     "affinity": affinity["launches"],
+                     "stochastic": stochastic["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
-
-    timing = phase_timings(dev, solver, request, problem, card)
-    timing.update(phase_batched_timings(dev, fleet, stream, card))
 
     record = []
     for name, meta in KERNELS.items():
@@ -1191,7 +1586,7 @@ def main() -> int:
                        "max_abs_err": checks[name]["max_abs_err"],
                        "ms": t["ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                       "library_ms": None})
+                       "library_ms": t.get("library_ms")})
     if args.json_out is not None:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps({
@@ -1205,6 +1600,8 @@ def main() -> int:
             "stream_first_wall_s": stream["first_wall_s"],
             "zone": {"wall_s": zone["wall_s"],
                      "last_batch": zone["last_batch"]},
+            "routes": {"flat": flat["windows"], "affinity": affinity,
+                       "stochastic": stochastic},
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

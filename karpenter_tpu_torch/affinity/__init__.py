@@ -1,8 +1,18 @@
-"""Pod-to-pod (anti-)affinity and topology spread: the encode-time half.
+"""Pod-to-pod (anti-)affinity and topology spread.
 
-The constants the encoder's class lowering shares with the reference's
-affinity kernel (``karpenter_tpu/affinity``).  Windows that arm the
-plane are not served by this package yet.
+Port of ``karpenter_tpu/affinity``.  The encoder lowers each distinct
+label selector of a window's terms to a selector class and each group's
+hostname terms to int32 class bitmasks; the scan then checks every
+pairwise constraint through per-node class presence:
+
+- ``affinity/encode.py``   — selector classes, bitmasks, spread bounds,
+  the zone co-pin prepass and the packed suffix leaf;
+- ``affinity/kernel.py``   — the affinity-gated FFD scan;
+- ``affinity/enforce.py``  — the decode choke: every plan of a window
+  with the plane passes host-side edge and bound enforcement;
+- ``affinity/validate.py`` — the independent validator.
+
+The constants below are shared by all of them.
 """
 
 from __future__ import annotations

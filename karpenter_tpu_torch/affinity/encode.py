@@ -1,12 +1,12 @@
 """Affinity lowering: pod terms -> selector classes -> dense tensors.
 
-Port of the encode-time half of ``karpenter_tpu/affinity/encode.py``.
-``solver/encode.py`` calls :func:`build_affinity_index` over the final
-group list, to learn whether a window arms the affinity plane
-(``TorchSolver`` does not serve such windows yet and raises on them),
-and :func:`zone_pin_prepass` before per-signature lowering, so required
-zone-scope components land in one zone.  :func:`hostname_cap` lowers an
-empty-selector hostname spread onto the per-node cap.
+Port of ``karpenter_tpu/affinity/encode.py``.  ``solver/encode.py``
+calls :func:`build_affinity_index` over the final group list and
+:func:`zone_pin_prepass` before per-signature lowering, so required
+zone-scope components land in one zone; :func:`hostname_cap` lowers an
+empty-selector hostname spread onto the per-node cap, and
+:func:`pack_affinity` builds the suffix leaf the affinity scan
+(``affinity/kernel.py``) consumes.
 
 Every distinct label selector among the window's armed terms becomes
 one selector class; group membership of a class is a [C, G] bool
@@ -302,6 +302,33 @@ def build_affinity_index(reps: list[PodSpec]) -> AffinityIndex | None:
         bounds=bounds,
     )
 
+
+
+def pack_affinity(index: AffinityIndex, G_pad: int) -> np.ndarray:
+    """The int32 suffix leaf of an affinity dispatch — O(G) class
+    bitmasks plus the C_PAD bound row, zero-padded to the group bucket
+    (padding groups carry empty masks and place nothing):
+
+        [0,    G)        g_sel
+        [G,    2G)       g_anti
+        [2G,   3G)       g_req
+        [3G,   4G)       aff_flag
+        [4G,   5G)       spread_flag
+        [5G,   5G+C_PAD) bounds   (AFF_BIG = unbounded)
+    """
+    G = index.num_groups
+    buf = np.zeros(5 * G_pad + C_PAD, dtype=np.int32)
+    for i, col in enumerate((index.g_sel, index.g_anti, index.g_req,
+                             index.aff_flag, index.spread_flag)):
+        buf[i * G_pad:i * G_pad + G] = col
+    buf[5 * G_pad:] = index.bounds
+    return buf
+
+
+def unpack_affinity(buf: np.ndarray, G_pad: int):
+    """Host-side inverse of :func:`pack_affinity`."""
+    cols = [np.asarray(buf[i * G_pad:(i + 1) * G_pad]) for i in range(5)]
+    return (*cols, np.asarray(buf[5 * G_pad:5 * G_pad + C_PAD]))
 
 def zone_pin_prepass(entries) -> dict:
     """Co-pin required zone-scope components to one zone.

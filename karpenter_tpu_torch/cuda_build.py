@@ -8,8 +8,8 @@ and flags, so an edited source never loads a stale library.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them; a kernel that fails to build raises — nothing falls back.
 
-Fast math is never enabled: the FFD scan's rank / fit divide must be
-IEEE round-to-nearest (see ``csrc/ffd_scan.cu``).
+Fast math is never enabled: the FFD scan's rank / fit divide and the
+segment sum's adds must be IEEE round-to-nearest (see ``csrc/*.cu``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,14 @@ _SIGNATURES = {
         "ffd_scan_row_words": (ctypes.c_int, [ctypes.c_int]),
         "ffd_scan_variant": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "ffd_scan_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "segment_sum": {
+        "segment_sum_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        "segment_sum_max_cols": (ctypes.c_int, []),
+        "segment_sum_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }
 

@@ -71,6 +71,40 @@ def refine_static(problem, gi: int, word: int) -> int:
     return (word & ~_STATIC_BIT) | word_for(refined)
 
 
+def overcommit_nearest(problem, gi: int) -> dict:
+    """The "would fit at p99 variance X" payload for a group blocked by
+    the chance constraint (stochastic plane): per dimension, the
+    LARGEST per-pod variance at which one pod would still pass the
+    quantile check on the group's best mean-fitting offering —
+    ``X_r = ((alloc_r - mean_r) / z)^2`` — plus the buffer the group's
+    ACTUAL variance demands (``z * sqrt(var)``)."""
+    import math
+
+    from karpenter_tpu_torch.apis.pod import RESOURCE_AXES
+    from karpenter_tpu_torch.stochastic import z_value
+
+    catalog = problem.catalog
+    mean = problem.group_mean[gi].astype(np.int64)
+    var = problem.group_var[gi].astype(np.int64)
+    z = z_value(problem.overcommit_eps)
+    alloc = catalog.offering_alloc().astype(np.int64)
+    # best offering by mean headroom on variance-carrying dims
+    fits = (alloc >= mean[None, :]).all(axis=1)
+    slack = (alloc - mean[None, :]).clip(min=0).sum(axis=1)
+    off = int(np.argmax(np.where(fits, slack, -1)))
+    out = {"offering_index": off, "z": round(z, 4),
+           "epsilon": problem.overcommit_eps, "buffer": {},
+           "p99_fit_variance": {}}
+    for r, axis in enumerate(RESOURCE_AXES):
+        if var[r] <= 0:
+            continue
+        out["buffer"][axis] = round(z * math.sqrt(float(var[r])), 2)
+        head = max(float(alloc[off, r] - mean[r]), 0.0)
+        out["p99_fit_variance"][axis] = round((head / z) ** 2, 2) \
+            if z > 0 else float("inf")
+    return out
+
+
 def group_miss_counts(problem, plan) -> np.ndarray:
     """int64 [G] unplaced-per-group derived from the plan's unplaced pod
     names — the fallback when the caller has no dense unplaced vector."""
@@ -142,6 +176,12 @@ def attach(problem, plan, reason_words_arr=None,
                 or reason in ("zone_affinity", "zone_blackout",
                               "availability", "requirements"):
             near = nearest_miss(problem, gi, precomputed=near_pre())
+        if word & (1 << BIT["overcommit_risk"]):
+            # "would fit at p99 variance X": the variance bound under
+            # which the chance constraint would admit the pod on its
+            # best mean-compatible offering
+            near = dict(near or {})
+            near["overcommit"] = overcommit_nearest(problem, gi)
         for pn in g.pod_names[len(g.pod_names) - m:]:
             reasons[pn] = reason
             raw[pn] = word

@@ -8,9 +8,9 @@ reported no evidence for.  Every formula — the deficit clip, the
 first-index nearest-miss argmin, the placed-overlap test — mirrors the
 device reduction; change one side, change both.
 
-The stochastic and affinity bits of the reference oracle belong to
-routes this package does not serve yet (``TorchSolver`` raises on those
-windows), so they are not computed here.
+Stochastic windows add the overcommit_risk bit (from the scan's own fit
+grids, run on the CPU) and affinity windows the affinity_unsatisfied /
+spread_bound bits, as the reference oracle does.
 """
 
 from __future__ import annotations
@@ -107,7 +107,46 @@ def reason_words(problem, unplaced: np.ndarray,
               ).any(axis=1) & has_fit
     bits |= cap_hp.astype(np.int64) << BIT["capacity_higher_prio"]
     words[:] = np.where(un & live, bits, 0).astype(np.int32)
+    if getattr(problem, "group_var", None) is not None:
+        # the overcommit_risk bit, from the same fit grids the
+        # stochastic scan computes (stochastic/kernel._risk_words)
+        words |= _risk_words_host(problem, np.asarray(unplaced[:G]),
+                                  compat)
+    if getattr(problem, "aff", None) is not None:
+        # the affinity bits of the affinity scan's fold
+        # (affinity/kernel._affinity_words)
+        aff = problem.aff
+        live_un = live & un
+        words |= np.where(live_un & (aff.aff_flag > 0),
+                          np.int32(1 << BIT["affinity_unsatisfied"]),
+                          np.int32(0)).astype(np.int32)
+        words |= np.where(live_un & (aff.spread_flag > 0),
+                          np.int32(1 << BIT["spread_bound"]),
+                          np.int32(0)).astype(np.int32)
     return words
+
+
+def _risk_words_host(problem, unplaced: np.ndarray,
+                     compat: np.ndarray) -> np.ndarray:
+    """int32 [G] overcommit_risk bits of a stochastic window: the
+    scan's own grid functions run on CPU tensors."""
+    import torch
+
+    from karpenter_tpu_torch.stochastic import z_bp_for, zsq_value
+    from karpenter_tpu_torch.stochastic.kernel import (
+        _empty_fit_grids, _risk_words,
+    )
+
+    mean = torch.from_numpy(problem.group_mean.astype(np.int32))
+    var = torch.from_numpy(problem.group_var.astype(np.int32))
+    alloc = torch.from_numpy(
+        problem.catalog.offering_alloc().astype(np.int32))
+    kd, kc = _empty_fit_grids(mean, var, alloc,
+                              zsq_value(z_bp_for(problem.overcommit_eps)))
+    return _risk_words(
+        var, torch.from_numpy(problem.group_count.astype(np.int64)),
+        torch.from_numpy(np.asarray(unplaced, dtype=np.int64)),
+        torch.from_numpy(compat), kd, kc).numpy()
 
 
 def nearest_miss(problem, gi: int, precomputed: tuple | None = None

@@ -1073,13 +1073,20 @@ def decode_plan_entries(problem: EncodedProblem, node_off: np.ndarray,
             up[:m] = np.asarray(unplaced[:m], dtype=np.int64)
             np.add.at(up, cnts_dropped[0], cnts_dropped[1])
             unplaced = up
-    if getattr(problem, "aff", None) is not None:
-        # the reference's affinity choke point (affinity/enforce.py) is
-        # not ported yet: a window that arms the plane must never decode
-        # here without it
-        raise NotImplementedError(
-            "affinity windows need the affinity choke point "
-            "(ROADMAP queue 1 item 7)")
+    if problem.aff is not None and gis.size:
+        # affinity choke point (same contract as the gang choke above):
+        # edge-violating entries are dropped and hostname spread bounds
+        # clamped, whichever route produced the plan
+        from karpenter_tpu_torch.affinity.enforce import enforce_affinity
+
+        node_off, gis, ns, cnts, aff_dropped, cost = enforce_affinity(
+            problem, node_off, gis, ns, cnts, cost)
+        if aff_dropped is not None:
+            up = np.zeros(G, dtype=np.int64)
+            m = min(G, len(unplaced))
+            up[:m] = np.asarray(unplaced[:m], dtype=np.int64)
+            np.add.at(up, aff_dropped[0], aff_dropped[1])
+            unplaced = up
     open_idx = np.nonzero(node_off >= 0)[0]
     per_node: dict[int, list[str]] = {}
     if gis.size:

@@ -129,6 +129,28 @@ def chain_branches(meta: torch.Tensor, compat: torch.Tensor,
             "summed_takes": int((wide & met.any(dim=2)).sum())}
 
 
+def open_nodes(rem, bf, ptr, idx):
+    """The new-node half of an FFD step: ``rem`` pods left, ``bf`` of
+    them per node of the chosen offering, free slots from ``ptr`` on
+    (``idx`` = arange(N)).  Returns (pods_new [N], opened [N]): the pods
+    each slot receives and which slots open (ceil(rem / bf) of them,
+    as many as fit below N)."""
+    N = idx.shape[0]
+    n_new = torch.where(
+        bf > 0,
+        -torch.div(-rem, torch.clamp(bf, min=1), rounding_mode="floor"),
+        0).to(torch.int32)
+    n_new = torch.minimum(n_new, N - ptr)
+    new_pos = idx - ptr
+    is_new = (new_pos >= 0) & (new_pos < n_new)
+    pods_new = torch.where(
+        is_new,
+        torch.minimum(torch.maximum(rem - new_pos * bf,
+                                    torch.zeros_like(idx)), bf),
+        0).to(torch.int32)
+    return pods_new, is_new & (pods_new > 0)
+
+
 def _ffd_scan_one(meta, compat, alloc, rank, N: int):
     """One problem, op for op the reference's ``_ffd_step`` scan.
     int32 sums are taken wider and cast back, which wraps exactly as the
@@ -169,19 +191,7 @@ def _ffd_scan_one(meta, compat, alloc, rank, N: int):
                           float("inf"))
         best = torch.argmin(cpp)                      # first index on ties
         bf = fit_e[best]
-        n_new = torch.where(
-            bf > 0,
-            -torch.div(-rem, torch.clamp(bf, min=1), rounding_mode="floor"),
-            0).to(i32)
-        n_new = torch.minimum(n_new, N - ptr)
-        new_pos = idx - ptr
-        is_new = (new_pos >= 0) & (new_pos < n_new)
-        pods_new = torch.where(
-            is_new,
-            torch.minimum(torch.maximum(rem - new_pos * bf,
-                                        torch.zeros_like(idx)), bf),
-            0).to(i32)
-        opened = is_new & (pods_new > 0)
+        pods_new, opened = open_nodes(rem, bf, ptr, idx)
         node_off = torch.where(opened, best.to(i32), node_off)
         resid = torch.where(opened[:, None],
                             alloc[best][None, :] - pods_new[:, None]

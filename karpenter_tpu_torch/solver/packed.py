@@ -80,9 +80,12 @@ def _load(assign: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
     return _i32(torch.stack(cols, dim=1))
 
 
-def right_size(node_off, load, assign, compat, off_alloc, off_rank):
+def right_size(node_off, load, assign, compat, off_alloc, off_rank,
+               fits=None):
     """Per open node, the cheapest offering that fits its final ``load``
-    [N,R] and admits every group placed on it (``_right_size``)."""
+    [N,R] and admits every group placed on it (``_right_size``).
+    ``fits`` [N,O] replaces the plain capacity test (the stochastic
+    route's chance check)."""
     N = node_off.shape[0]
     is_open = node_off >= 0
     safe_off = torch.clamp(node_off, min=0).long()
@@ -93,7 +96,8 @@ def right_size(node_off, load, assign, compat, off_alloc, off_rank):
     incompat = (~compat).to(torch.float32)
     incompat_count = present.t() @ incompat                    # [N, O]
     all_compat = incompat_count < 0.5
-    fits = (off_alloc[None, :, :] >= load[:, None, :]).all(dim=2)
+    if fits is None:
+        fits = (off_alloc[None, :, :] >= load[:, None, :]).all(dim=2)
     candidate = all_compat & fits & is_open[:, None]
     rank_eff = off_rank[None, :].expand(N, off_rank.shape[0])
     cand_price = torch.where(candidate, rank_eff, float("inf"))
@@ -234,9 +238,12 @@ def frac_bp(num, den):
     return torch.clamp(bp, 0, BP_SCALE)
 
 
-def telemetry_words(meta, node_off, assign, unplaced, off_alloc):
+def telemetry_words(meta, node_off, assign, unplaced, off_alloc,
+                    binding=None):
     """The [1 + TELEMETRY_SLOT_COUNT] telemetry block, magic word first
-    (``_telemetry_words``); host-sourced slots ride the wire as zero."""
+    (``_telemetry_words``); host-sourced slots ride the wire as zero.
+    ``binding`` [G] bool is the constrained-group mask of the stochastic
+    and affinity routes, counted over live groups."""
     dev = meta.device
     req = meta[:, :4]
     count = meta[:, 4]
@@ -276,21 +283,27 @@ def telemetry_words(meta, node_off, assign, unplaced, off_alloc):
     slots[SLOT_GROUPS_PLACED] = _i32(placed_g.to(I32).sum())
     slots[SLOT_GROUPS_UNPLACED] = _i32(unplaced_g.to(I32).sum())
     slots[SLOT_PODS_UNPLACED] = _i32(torch.where(live, unp, 0).sum())
-    slots[SLOT_BINDING_GROUPS] = zero
+    slots[SLOT_BINDING_GROUPS] = zero if binding is None \
+        else _i32((binding & live).to(I32).sum())
     magic = torch.full((), int(TELEMETRY_MAGIC), dtype=I32, device=dev)
     return torch.stack([magic] + [s.to(I32) for s in slots])
 
 
 def pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
                           unplaced, cost, off_alloc, compact, dense16,
-                          coo16):
+                          coo16, extra_words=None, binding=None):
     """Packed result + the [G] explain words + the telemetry block — the
-    one finisher of the port's packed entry points."""
+    one finisher of the port's packed entry points.  ``extra_words`` [G]
+    are OR-ed into the explain words (a route's own reason bits);
+    ``binding`` feeds the telemetry's binding-groups slot."""
     out = pack_result(node_off, assign, unplaced, cost, compact, dense16,
                       coo16)
     words = explain_words(meta, rows_g, compat_i, unplaced.to(I32),
                           off_alloc)
-    tele = telemetry_words(meta, node_off, assign, unplaced, off_alloc)
+    if extra_words is not None:
+        words = words | extra_words
+    tele = telemetry_words(meta, node_off, assign, unplaced, off_alloc,
+                           binding=binding)
     return torch.cat([out, words, tele])
 
 

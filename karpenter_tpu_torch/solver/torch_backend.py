@@ -15,11 +15,17 @@ Batches of same-catalog, same-shape windows — ``solve_encoded_batch``
 come back in one [C, Lo] copy.  A failed launch or an out-of-memory
 error raises; no batch is halved or re-run down another route.
 
-Windows that take another route in the reference — flat (G >=
-``flat_min_groups``), stochastic, affinity, soft preferences — and the
-resident, serving and sharded options are not served yet: the solver
-raises ``NotImplementedError`` naming the ROADMAP item instead of
-running such a window down another route.
+The routes the reference's dispatch takes on its own are served too,
+each from the same packed buffer plus a small leaf: stochastic windows
+(a pool that overcommits) through ``stochastic/kernel.py``, windows
+whose encode arms the affinity lane through ``affinity/kernel.py``
+(stochastic wins when both are armed), and flat-regime windows (G >=
+``flat_min_groups``) through ``solver/flat.py``, routed before the
+packed buffer is built.  No route catches a failure of its device
+program and runs the window down another: a failed program raises.
+Soft preferences below the flat regime and the resident, serving and
+sharded options are not served yet: the solver raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,9 +35,12 @@ import time
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.affinity.encode import pack_affinity
+from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.obs.telemetry_words import decode_window
-from karpenter_tpu_torch.solver.encode import BIG_CAP, EncodedProblem
+from karpenter_tpu_torch.solver.encode import EncodedProblem
+from karpenter_tpu_torch.solver.flat import dispatch_flat, flat_viable
 from karpenter_tpu_torch.solver.packed import (
     solve_packed_batch_torch, solve_packed_torch,
 )
@@ -41,10 +50,11 @@ from karpenter_tpu_torch.solver.types import (
     NODE_BUCKETS, OFFERING_BUCKETS, Plan, SolveRequest, SolverOptions,
     bucket,
 )
-
-# the reference's flat-regime gate constants (solver/flat.py)
-_FLAT_MAX_CLASSES = 128
-_FLAT_MAX_ITEMS = 32768
+from karpenter_tpu_torch.stochastic import z_bp_for
+from karpenter_tpu_torch.stochastic.encode import pack_stochastic
+from karpenter_tpu_torch.stochastic.kernel import (
+    build_fit_grids, solve_packed_stochastic,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -208,35 +218,6 @@ def _env_on(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
 
 
-def _flat_viable(problem: EncodedProblem, options) -> bool:
-    """The reference's flat-regime gate (``solver/flat.flat_viable``):
-    True for the windows ``JaxSolver`` routes to the flat solver."""
-    mode = options.flat_solver
-    if mode == "off" or problem.aff is not None or not options.right_size:
-        return False
-    if mode != "on" and problem.num_groups < options.flat_min_groups:
-        return False
-    if problem.label_rows is None or problem.label_idx is None \
-            or not (1 <= problem.label_rows.shape[0] <= _FLAT_MAX_CLASSES):
-        return False
-    if problem.pref_rows is not None:
-        if problem.pref_idx is None:
-            return False
-        pairs = (problem.label_idx.astype(np.int64) << 32) \
-            | (problem.pref_idx.astype(np.int64) & 0xFFFFFFFF)
-        if np.unique(pairs).size > _FLAT_MAX_CLASSES:
-            return False
-    if not (problem.group_cap >= np.minimum(
-            problem.group_count, BIG_CAP)).all():
-        return False
-    total = int(problem.group_count.sum())
-    if total == 0 or total > _FLAT_MAX_ITEMS:
-        return False
-    tot = (problem.group_req.astype(np.int64)
-           * problem.group_count[:, None]).sum(axis=0)
-    return not (tot >= (1 << 31) - 1).any()
-
-
 # ---------------------------------------------------------------------------
 # Host wrapper
 # ---------------------------------------------------------------------------
@@ -247,14 +228,18 @@ class _Prepared:
     re-clamps (K, dense16, coo16) to the shapes it ran with.  Instances
     built by ``_prepare`` are cached per problem as templates; every
     dispatch works on a :meth:`clone`, and growth writes back to the
-    template so later windows start grown."""
+    template so later windows start grown.  ``sto`` / ``z_bp`` (the
+    stochastic leaf and z(eps) in basis points) and ``aff`` (the
+    affinity leaf, when the encode armed the device lane) pick the
+    route (:attr:`route`); ``sto_grid`` keeps the stochastic fit grids of
+    a device."""
 
     __slots__ = ("catalog", "G_pad", "O_pad", "U_pad", "N", "N_cap", "K0",
                  "K_cap", "K", "dense16_ok", "dense16", "coo16", "packed",
-                 "tmpl")
+                 "sto", "z_bp", "sto_grid", "aff", "tmpl")
 
     def __init__(self, *, catalog, G_pad, O_pad, U_pad, N, N_cap, K0,
-                 K_cap, packed, dense16_ok):
+                 K_cap, packed, dense16_ok, sto=None, z_bp=0, aff=None):
         self.catalog = catalog
         self.G_pad = G_pad
         self.O_pad = O_pad
@@ -267,7 +252,19 @@ class _Prepared:
         self.K, self.dense16, self.coo16 = clamp_output_opts(
             K0, dense16_ok, G_pad, N)
         self.packed = packed
+        self.sto = sto
+        self.z_bp = z_bp
+        self.sto_grid = None
+        self.aff = aff
         self.tmpl = None
+
+    @property
+    def route(self) -> str:
+        """The route a dispatch takes, in the reference's order:
+        stochastic, then affinity, then the FFD kernel."""
+        if self.sto is not None:
+            return "stochastic"
+        return "ffd" if self.aff is None else "affinity"
 
     def clone(self) -> "_Prepared":
         c = _Prepared.__new__(_Prepared)
@@ -293,7 +290,9 @@ class TorchSolver:
     path).  ``last_stats`` holds the route, shapes and phase times of
     the last window or batch; ``last_stats["path"]`` is ``"ffd-cuda"``
     when the FFD scan ran as the CUDA kernel and ``"ffd-reference"`` on
-    the CPU, with ``"-batch"`` appended for a batch of windows."""
+    the CPU, with ``"-batch"`` appended for a batch of windows, and
+    ``"flat-"``, ``"stochastic-"`` or ``"affinity-"`` followed by the
+    device type ("cuda" or "cpu") on the other routes."""
 
     MAX_DEVICE_CATALOGS = 16
 
@@ -345,6 +344,10 @@ class TorchSolver:
 
                 attach(problem, done)
             return PendingSolve(self, problem, done=done)
+        if problem.group_var is None and flat_viable(problem, self.options):
+            attempt = dispatch_flat(self, problem)
+            if attempt is not None:
+                return PendingSolve(self, problem, flat=attempt)
         self.check_route(problem)
         t_enc = time.perf_counter()
         prep = self._prepare(problem)
@@ -355,24 +358,17 @@ class TorchSolver:
                             prepare_s=t0 - t_enc)
 
     def check_route(self, problem: EncodedProblem) -> None:
-        """Raise NotImplementedError for a window that takes a route in
-        the reference which this package does not serve yet."""
-        if problem.group_var is not None:
-            raise NotImplementedError(
-                "stochastic (overcommit) windows are not ported yet "
-                "(ROADMAP queue 1 item 6)")
-        if problem.aff is not None:
-            raise NotImplementedError(
-                "affinity windows are not ported yet (ROADMAP queue 1 "
-                "item 7)")
-        if _flat_viable(problem, self.options):
-            raise NotImplementedError(
-                "flat-regime windows (G >= flat_min_groups) are not ported "
-                "yet (ROADMAP queue 1 item 5)")
-        if problem.pref_rows is not None:
-            raise NotImplementedError(
-                "soft-preference windows are not ported yet (ROADMAP "
-                "queue 1, unserved routes of the first slice)")
+        """Raise NotImplementedError for a window the flat program did not
+        take that goes down a route this package does not serve yet:
+        soft preferences (the reference's ``solve_packed_pref``).  The
+        stochastic and the affinity route win over preferences, as in
+        the reference."""
+        if problem.pref_rows is None or problem.group_var is not None \
+                or (problem.aff is not None and problem.aff.device_armed):
+            return
+        raise NotImplementedError(
+            "soft-preference windows below the flat regime are not ported "
+            "yet (ROADMAP queue 1 item 13)")
 
     def solve_stream(self, problems, depth: int = 2, batch: object = "auto"):
         """Solve an iterable of EncodedProblems through a depth-``depth``
@@ -423,7 +419,7 @@ class TorchSolver:
         for p in problems:
             batchable = (p.num_groups > 0 and p.pref_rows is None
                          and p.group_var is None and p.aff is None
-                         and not _flat_viable(p, self.options))
+                         and not flat_viable(p, self.options))
             if not batchable:
                 flush()
                 q.append((self.solve_encoded_async(p), 1))
@@ -523,9 +519,21 @@ class TorchSolver:
                             group_prio=_pad1(problem.group_prio, G_pad))
         K0, K_cap = self._compact_k(total_pods, G_pad)
         max_slots = int(catalog.offering_alloc()[:, 3].max()) if O else 1
+        # the route's leaf rides beside the unchanged packed buffer: the
+        # stochastic mean/var rows, or the affinity class words when the
+        # encode armed the device lane (a window over the class budget
+        # takes the FFD route; the decode choke still applies every edge)
+        sto, z_bp, aff = None, 0, None
+        if problem.group_var is not None:
+            sto = pack_stochastic(problem.group_mean, problem.group_var,
+                                  G_pad)
+            z_bp = z_bp_for(problem.overcommit_eps)
+        if problem.aff is not None and problem.aff.device_armed:
+            aff = pack_affinity(problem.aff, G_pad)
         return _Prepared(catalog=catalog, G_pad=G_pad, O_pad=O_pad,
                          U_pad=U_pad, N=N, N_cap=N_cap, K0=K0, K_cap=K_cap,
-                         packed=packed, dense16_ok=max_slots < (1 << 15))
+                         packed=packed, dense16_ok=max_slots < (1 << 15),
+                         sto=sto, z_bp=z_bp, aff=aff)
 
     def _compact_k(self, total_pods: int, G_pad: int) -> tuple[int, int]:
         """(initial, cap) COO capacity of the compacted assign; (0, 0) =
@@ -565,17 +573,50 @@ class TorchSolver:
         return cached
 
     def dispatch_packed(self, prep: _Prepared) -> torch.Tensor:
-        """Issue one window on the device; returns the device result."""
+        """Issue one window on the device; returns the device result.
+        The route follows the prepared leaves, in the reference's order:
+        stochastic, then affinity, then the FFD kernel."""
         prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
         off_alloc, off_price, off_rank = self.device_offerings(
             prep.catalog, prep.O_pad)
-        return solve_packed_torch(
-            upload(prep.packed, self.device), off_alloc, off_price, off_rank,
-            G=prep.G_pad,
-            O=prep.O_pad, U=prep.U_pad, N=prep.N,
-            right_size=self.options.right_size, compact=prep.K,
-            dense16=prep.dense16, coo16=prep.coo16)
+        packed = upload(prep.packed, self.device)
+        kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
+                  right_size=self.options.right_size, compact=prep.K,
+                  dense16=prep.dense16, coo16=prep.coo16)
+        if prep.sto is not None:
+            sto = upload(prep.sto, self.device)
+            kd, kc = self._fit_grids(prep, sto, off_alloc)
+            return solve_packed_stochastic(
+                packed, sto, kd, kc, off_alloc, off_price, off_rank,
+                z_bp=prep.z_bp, **kw)
+        if prep.aff is not None:
+            return solve_packed_affinity(
+                packed, upload(prep.aff, self.device), off_alloc, off_price,
+                off_rank, **kw)
+        return solve_packed_torch(packed, off_alloc, off_price, off_rank,
+                                  **kw)
+
+    def _fit_grids(self, prep: _Prepared, sto: torch.Tensor, off_alloc):
+        """The stochastic fit grids (kd, kc) of the window on this
+        solver's device and catalog: built at the first dispatch and
+        kept on the problem's template for every later one."""
+        cat = prep.catalog
+        key = (str(self.device), cat.uid, cat.generation,
+               cat.availability_generation, prep.O_pad, prep.z_bp)
+        cached = prep.sto_grid
+        if cached is None or cached[0] != key:
+            cached = (key, build_fit_grids(sto, off_alloc, G=prep.G_pad,
+                                           z_bp=prep.z_bp))
+            prep.sto_grid = cached
+            if prep.tmpl is not None:
+                prep.tmpl.sto_grid = cached
+        return cached[1]
+
+    def route_path(self, route: str) -> str:
+        """``last_stats["path"]`` of a single window on ``route``."""
+        return self.path if route == "ffd" \
+            else f"{route}-{self.device.type}"
 
     def _dispatch(self, prep: _Prepared):
         """Dispatch and start the device->host copy: (host tensor, CUDA
@@ -609,17 +650,20 @@ class TorchSolver:
 class PendingSolve:
     """One in-flight window.  ``result()`` waits for the result copy,
     re-dispatches on COO overflow or node escalation (both rare), and
-    decodes.  Nothing here falls back to another route: a kernel that
-    fails raises."""
+    decodes; a flat window (``flat``) finishes through
+    ``solver/flat.finalize_flat``.  Nothing here falls back to another
+    route: a program that fails raises."""
 
-    __slots__ = ("_solver", "_problem", "_prep", "_host", "_event",
+    __slots__ = ("_solver", "_problem", "_prep", "_flat", "_host", "_event",
                  "_t_disp", "_t_issued", "_prepare_s", "_done")
 
     def __init__(self, solver, problem, prep=None, host=None, event=None,
-                 t_disp=0.0, t_issued=0.0, prepare_s=0.0, done=None):
+                 t_disp=0.0, t_issued=0.0, prepare_s=0.0, done=None,
+                 flat=None):
         self._solver = solver
         self._problem = problem
         self._prep = prep
+        self._flat = flat
         self._host = host
         self._event = event
         self._t_disp = t_disp
@@ -629,6 +673,12 @@ class PendingSolve:
 
     def result(self) -> Plan:
         if self._done is not None:
+            return self._done
+        if self._flat is not None:
+            from karpenter_tpu_torch.solver.flat import finalize_flat
+
+            self._done = finalize_flat(self._solver, self._problem,
+                                       self._flat)
             return self._done
         solver, prep = self._solver, self._prep
         host, event = self._host, self._event
@@ -663,7 +713,8 @@ class PendingSolve:
                                         prep.dense16, prep.coo16)
             t_end = time.perf_counter()
             solver.last_stats = {
-                "path": solver.path, "device": str(solver.device),
+                "path": solver.route_path(prep.route),
+                "device": str(solver.device),
                 "prepare_s": self._prepare_s, "wall_s": t_fetch - t_disp,
                 "dispatch_s": t_issued - t_disp,
                 "exec_fetch_s": t_fetch - t_issued,

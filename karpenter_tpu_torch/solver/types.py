@@ -19,8 +19,8 @@ from karpenter_tpu_torch.catalog.arrays import CatalogArrays
 @dataclass
 class SolverOptions:
     """Solver configuration: the reference's options that the served
-    route reads, plus the route gates (flat, resident, serving, sharded)
-    so a window the reference would send elsewhere raises here."""
+    routes read, plus the gates of the planes not served yet (resident,
+    serving, sharded), which raise when set."""
 
     max_nodes: int = 4096           # static bound on nodes per solve
     right_size: bool = True         # post-pass: re-pick cheapest fitting offering
@@ -33,9 +33,13 @@ class SolverOptions:
     zone_candidates: str = "on"     # zone-affinity groups: solve per-zone
                                     # candidates and keep the cheapest
     zone_candidate_solves: int = 8  # extra-solve budget for the refinement
-    flat_solver: str = "auto"       # heterogeneous-regime solve: not served
-                                    # by this package yet (raises)
+    flat_solver: str = "auto"       # heterogeneous-regime parallel solve
+                                    # (solver/flat.py): "auto" engages at
+                                    # >= flat_min_groups, "on" forces it
+                                    # for viable windows, "off" never
     flat_min_groups: int = 2048     # G threshold of the flat regime
+    preference_lambda: float = 0.15  # soft-preference penalty weight of
+                                     # the flat program's class ranking
     resident: str = "auto"          # device-resident state: not served yet
     serving: str = "auto"           # persistent serving loop: not served yet
     sharded: int = 0                # sharded service: not served yet

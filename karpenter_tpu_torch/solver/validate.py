@@ -16,8 +16,9 @@ with the solver's device half:
 - gang atomicity: a gang places whole or not at all;
 - cost accounting matches the node prices.
 
-The chance-constrained capacity rule of overcommitting pools belongs to
-the stochastic route, which this package does not serve yet.
+On an overcommitting pool the per-node capacity rule is the chance
+constraint on the pods' usage distributions
+(``stochastic/validate.node_chance_violations``, float64).
 """
 
 from __future__ import annotations
@@ -33,16 +34,14 @@ from karpenter_tpu_torch.solver.encode import (
     viable_zones,
 )
 from karpenter_tpu_torch.solver.types import Plan
+from karpenter_tpu_torch.stochastic.validate import node_chance_violations
 
 
 def validate_plan(plan: Plan, pods: Sequence[PodSpec], catalog: CatalogArrays,
                   nodepool: NodePool | None = None) -> list[str]:
     """Returns a list of violations (empty = feasible)."""
     nodepool = nodepool or NodePool(name="default")
-    if float(getattr(nodepool, "overcommit", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "validating an overcommitting pool needs the stochastic "
-            "capacity rule (ROADMAP queue 1 item 6)")
+    overcommit = float(getattr(nodepool, "overcommit", 0.0) or 0.0)
     errors: list[str] = []
     by_name: dict[str, PodSpec] = {pod_key(p): p for p in pods}
 
@@ -80,10 +79,12 @@ def validate_plan(plan: Plan, pods: Sequence[PodSpec], catalog: CatalogArrays,
                 catalog.describe_offering(o):
             errors.append(f"node{ni}: offering index mismatch")
         used = [0, 0, 0, 0]
+        node_pods: list[PodSpec] = []
         for pn in node.pod_names:
             pod = by_name.get(pn)
             if pod is None:
                 continue
+            node_pods.append(pod)
             for i, v in enumerate(pod.requests.as_tuple()):
                 used[i] += v
             reqs = pod.scheduling_requirements().merged(nodepool.requirements)
@@ -92,7 +93,11 @@ def validate_plan(plan: Plan, pods: Sequence[PodSpec], catalog: CatalogArrays,
                               f"by labels {labels}")
             if nodepool.taints and not tolerates_all(pod.tolerations, nodepool.taints):
                 errors.append(f"node{ni}: pod {pn} does not tolerate pool taints")
-        if any(u > a for u, a in zip(used, alloc)):
+        if overcommit > 0.0:
+            errors.extend(node_chance_violations(
+                node_pods, alloc, overcommit,
+                label=f"node{ni} ({node.instance_type})"))
+        elif any(u > a for u, a in zip(used, alloc)):
             errors.append(f"node{ni} ({node.instance_type}): capacity exceeded "
                           f"used={used} alloc={list(alloc)}")
 

@@ -274,3 +274,61 @@ def test_ffd_kernel_ulp_tie_and_branches(cuda_device):
         for k in branches:
             branches[k] += counts[k]
     assert branches["uncapped"] > 0 and branches["capped"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 5, 129, 3073])
+def test_segment_sum_kernel_matches_plain_version(cuda_device, segments):
+    """The order-fixed float32 segment sum, bit for bit against its plain
+    version (index-order adds on the CPU), at totals past 2^24, with
+    empty segments, and with ids outside [0, segments), which both
+    drop."""
+    from karpenter_tpu_torch.solver.segment_sum import (
+        segment_sum, segment_sum_reference,
+    )
+
+    rng = np.random.RandomState(segments)
+    I = 16384
+    vals = (rng.randint(100, 32768, size=(I, 4))
+            * rng.choice([1.0, 1.0001, 0.9999], size=(I, 4))
+            ).astype(np.float32)
+    seg = rng.randint(0, max(segments - 1, 1), size=I).astype(np.int32)
+    stray = rng.rand(I)
+    seg[stray < 0.01] = -1
+    seg[stray > 0.99] = segments + 3
+    v, s = (torch.from_numpy(x).to(cuda_device) for x in (vals, seg))
+    got = segment_sum(v, s, segments)
+    want = segment_sum_reference(v, s, segments)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flat", "affinity", "stochastic"])
+def test_route_on_card_matches_cpu(cuda_device, route):
+    from karpenter_tpu_torch.apis.nodeclaim import NodePool
+    from karpenter_tpu_torch.solver.types import SolverOptions
+
+    opts, pool = SolverOptions(), None
+    if route == "flat":
+        pods, catalog = workload.build_hetero_workload(
+            1500, 60, seed=11, constrained_frac=0.3, pref_frac=0.15)
+        opts = SolverOptions(flat_solver="on")
+    elif route == "affinity":
+        catalog = workload.build_catalog(60)
+        pods = workload.affinity_bench_pods(
+            "ap0", 300, np.random.RandomState(190), services=4,
+            spread_sets=2)
+    else:
+        catalog = workload.build_catalog(60)
+        pods = workload.stochastic_pods(300, seed=3)
+        pool = NodePool(name="default", overcommit=0.05)
+    request = SolveRequest(pods, catalog, pool)
+    card = TorchSolver(opts, device=cuda_device)
+    plan = card.solve(request)
+    assert card.last_stats["path"] == f"{route}-cuda"
+    cpu_plan = TorchSolver(opts, device="cpu").solve(request)
+    assert [(n.offering_index, n.pod_names) for n in plan.nodes] == \
+        [(n.offering_index, n.pod_names) for n in cpu_plan.nodes]
+    assert plan.unplaced_pods == cpu_plan.unplaced_pods
+    assert validate_plan(plan, pods, catalog, pool) == []

@@ -8,8 +8,10 @@ encoder parity.  Plans must agree node for node (offering, pods in
 order), on unplaced pods and their reasons, and on cost to a relative
 1e-5; the port's ``validate_plan`` must come back clean.  Windows that
 force node escalation and COO growth, every output mode through
-explicit options, and the routes this package does not serve yet
-(which must raise NotImplementedError) are covered too.
+explicit options, one small window on each route the reference's
+dispatch takes on its own (affinity, stochastic and flat: served and
+equal; soft preferences below the flat regime: NotImplementedError) are
+covered too.
 """
 
 import numpy as np
@@ -277,35 +279,54 @@ def test_dedup_rows_matches_reference(jcatalog):
         np.testing.assert_array_equal(a, b)
 
 
-# -- routes this package does not serve yet -----------------------------------
+# -- the routes the reference's dispatch takes on its own ----------------------
 
 
-def _unserved_windows(tcatalog):
-    base = build_pods(mixed_specs(20, 1), t_pod, t_req)
-    pref = base + [t_pod.PodSpec("pref", preferred_requirements=((
-        50, t_req.Requirement(t_req.LABEL_CAPACITY_TYPE, t_req.Operator.IN,
-                              ("spot",))),))]
-    aff = base + [
-        t_pod.PodSpec("a", labels=(("app", "a"),)),
-        t_pod.PodSpec("b", affinity=(t_pod.PodAffinityTerm(
-            (("app", "a"),), t_pod.HOSTNAME_TOPOLOGY_KEY, anti=True),))]
-    sto_pool = t_nodeclaim.NodePool(name="oc", overcommit=0.1)
-    return {
-        "preferences": (SolveRequest(pref, tcatalog), TSolverOptions()),
-        "affinity": (SolveRequest(aff, tcatalog), TSolverOptions()),
-        "stochastic": (SolveRequest(base, tcatalog, sto_pool),
-                       TSolverOptions()),
-        "flat": (SolveRequest(base, tcatalog),
-                 TSolverOptions(flat_solver="on")),
-    }
+def _route_windows(jcatalog, tcatalog):
+    """One small window per route, in both packages: a soft preference
+    (below the flat regime), an anti-affinity edge, an overcommitting
+    pool, and the flat program forced on."""
+    windows = {}
+    for side, pod_mod, req_mod, nc_mod, cat in (
+            ("j", j_pod, j_req, j_nodeclaim, jcatalog),
+            ("t", t_pod, t_req, t_nodeclaim, tcatalog)):
+        base = build_pods(mixed_specs(20, 1), pod_mod, req_mod)
+        pref = base + [pod_mod.PodSpec("pref", preferred_requirements=((
+            50, req_mod.Requirement(req_mod.LABEL_CAPACITY_TYPE,
+                                    req_mod.Operator.IN, ("spot",))),))]
+        aff = base + [
+            pod_mod.PodSpec("a", labels=(("app", "a"),)),
+            pod_mod.PodSpec("b", affinity=(pod_mod.PodAffinityTerm(
+                (("app", "a"),), pod_mod.HOSTNAME_TOPOLOGY_KEY,
+                anti=True),))]
+        pool = nc_mod.NodePool(name="oc", overcommit=0.1)
+        windows[side] = {"preferences": ((pref, cat), {}),
+                         "affinity": ((aff, cat), {}),
+                         "stochastic": ((base, cat, pool), {}),
+                         "flat": ((base, cat), {"flat_solver": "on"})}
+    return windows
 
 
 @pytest.mark.parametrize("route", ["preferences", "affinity", "stochastic",
                                    "flat"])
-def test_unserved_route_raises(tcatalog, route):
-    request, opts = _unserved_windows(tcatalog)[route]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSolver(opts, device="cpu").solve(request)
+def test_unserved_route_raises(jcatalog, tcatalog, route):
+    """Soft preferences below the flat regime are the one route the port
+    does not serve yet: it raises NotImplementedError naming the ROADMAP.
+    The affinity, stochastic and flat routes are served, and their plans
+    equal the reference's."""
+    windows = _route_windows(jcatalog, tcatalog)
+    args, opts = windows["t"][route]
+    solver = TorchSolver(TSolverOptions(**opts), device="cpu")
+    if route == "preferences":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            solver.solve(SolveRequest(*args))
+        return
+    tplan = solver.solve(SolveRequest(*args))
+    assert solver.last_stats["path"] == f"{route}-cpu"
+    jargs, _ = windows["j"][route]
+    assert_plans_equal(jax_solver(**opts).solve(JSolveRequest(*jargs)),
+                       tplan)
+    assert validate_plan(tplan, *args) == []
 
 
 @pytest.mark.parametrize("opts", [{"resident": "on"}, {"serving": "on"},
