@@ -12,10 +12,13 @@ catalog) through ``fleet_solve_packed``, the window stream through
 ``solve_stream`` and a zone-candidate window through ``solve``, then the
 routes the default dispatch takes on its own, each through ``solve`` at
 10k pods x 500 types: the flat regime (two heterogeneous windows), the
-affinity plane and the stochastic plane; and checks that each path ran
-through its hand-written CUDA kernels (the flat program's order-fixed
-segment sum; the affinity and stochastic scans are PyTorch ops and run
-none).  Phases, in
+affinity plane and the stochastic plane; then the soft-preference window
+(the FFD kernel with a rank row per group), the resident store's churn
+stream, the serving loop's churn stream and the fleet with its resident
+input; and checks that each path ran through its hand-written CUDA
+kernels (the flat program's order-fixed segment sum, the pref
+right-size's order-fixed presence sum; the affinity and stochastic
+scans are PyTorch ops and run none).  Phases, in
 order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit, as nvidia-smi reports them;
@@ -31,10 +34,13 @@ order; any failure exits non-zero and prints no result line:
    are not multiples of 4, 16 or 128 (int32 and uint8 compat, one
    problem and a fleet of three catalogs), N = 8192, G = 0 and G below
    the row ring's depth, and a rank tie that only division by a small
-   rem makes.  Over all these checks, every instantiation of the chain
-   kernel must have run, and the uncapped branch, the capped branch and
-   the summed takes (groups that request nothing) of its step, counted
-   on the host from the plain version's outputs;
+   rem makes; then a rank row per group (the soft-preference scan) at the
+   headline shape, N = 8192 at O = 4096 and 5000, and on the pref
+   window's own tensors.  Over all these checks, every instantiation of
+   the chain kernel must have run, and the uncapped branch, the capped
+   branch and the summed takes (groups that request nothing) of its
+   step, counted on the host from the plain version's outputs; with a
+   rank row per group, every instantiation and both branches;
 4. the paths, each with every launch count set to 0 just before and
    read just after, each needing its kernels launched and no pod left
    unplaced: (a) the main path, whose plan must validate clean and
@@ -53,6 +59,28 @@ order; any failure exits non-zero and prints no result line:
    every call of the flat program; for each route the cold wall, the p50
    of 20 warm windows, the device program's CUDA-event time, kernels per
    window from ``torch.profiler`` and, for flat, host syncs per window;
+   (h) the pref window (the headline pods with soft preferences, G below
+   the flat gate, a node holding three or more groups with fractional
+   misses): ``ffd_scan_pref`` and ``presence_sum`` launched, the plan
+   equal to the CPU solver's and clean, the raw result equal to the
+   plain CPU program word for word, ``presence_sum`` bit for bit against
+   its plain version (the window's tensors and seeded ones), the same
+   timings plus the kernel and the pref right-size beside their
+   shared-rank forms, and ``presence_sum`` beside its plain version and
+   ``torch.matmul``; (i) the resident stream
+   (bench.py's ``run_resident`` churn at 10k x 500), resident on and off
+   alternately, every plan equal, each resident solve launching one
+   ``ffd_scan`` and nothing else (counts zeroed before it and read after
+   it), its raw result equal to the classic dispatch's word for word,
+   the device state equal to the mirror after every window, the modes
+   rebuild, delta and hit all seen; (j)
+   the serving stream (``run_serving``'s churn at 10k x 500, depth 2, a
+   cold and a warm pass): every window on the ring, no backpressure,
+   ``ring_state_violations`` empty, every plan and raw ring result equal
+   to the classic one, and the port's 8-seed parity checks empty; (k)
+   the fleet with ``resident_buf``: a rebuild, a hit on the same window
+   and a delta with one cluster churned, each equal to the fleet without
+   it;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -74,16 +102,20 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import random
 import subprocess
 import sys
 import time
 import warnings
+from collections import deque
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import SolveRequest, TorchSolver, validate_plan
+from karpenter_tpu_torch import (
+    SolveRequest, SolverOptions, TorchSolver, validate_plan,
+)
 from karpenter_tpu_torch import cuda_build, workload
 from karpenter_tpu_torch.apis import pod as pod_api
 from karpenter_tpu_torch.apis.requirements import LABEL_ZONE
@@ -94,10 +126,14 @@ from karpenter_tpu_torch.parallel import (
 from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.affinity.validate import validate_affinity_plan
 from karpenter_tpu_torch.apis.nodeclaim import NodePool
-from karpenter_tpu_torch.solver import ffd_kernel, segment_sum
+from karpenter_tpu_torch.solver import ffd_kernel, presence_sum, segment_sum
 from karpenter_tpu_torch.solver import flat as flat_mod
 from karpenter_tpu_torch.solver import packed as tp
-from karpenter_tpu_torch.solver.torch_backend import _pad1, _pad2
+from karpenter_tpu_torch.resident import delta as resident_delta
+from karpenter_tpu_torch.resident.store import ResidentBuffer
+from karpenter_tpu_torch.solver.torch_backend import (
+    _pad1, _pad2, unpack_result,
+)
 from karpenter_tpu_torch.solver.types import (
     FIT_BIG, GROUP_BUCKETS, NODE_BUCKETS, OFFERING_BUCKETS, bucket,
 )
@@ -135,6 +171,10 @@ FLAT_WINDOWS = (dict(seed=7),
 AFFINITY = dict(tag="aff", rng_seed=19)
 STOCHASTIC = dict(seed=13, overcommit=0.05)
 ROUTE_WARM = 20
+# bench.py::run_resident / run_serving's churn streams at the headline
+# size: 1-5 departures and 1-5 arrivals of 500m/1Gi pods per window
+RESIDENT = dict(seed=77, windows=10, rng="bench-resident", tag="rw")
+SERVING = dict(seed=78, windows=8, rng="bench-serving", tag="sw", depth=2)
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
@@ -145,6 +185,12 @@ KERNELS = {
     "segment_sum": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/segment_sum.cu",
         replaces="karpenter_tpu/solver/flat.py:231"),
+    "ffd_scan_pref": dict(
+        route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
+        replaces="karpenter_tpu/solver/jax_backend.py:958"),
+    "presence_sum": dict(
+        route="cuda", source="karpenter_tpu_torch/csrc/presence_sum.cu",
+        replaces="karpenter_tpu/solver/jax_backend.py:281"),
 }
 # the module, not the ``encode`` function the solver package re-exports
 encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
@@ -154,7 +200,7 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-COUNTERS = (ffd_kernel.LAUNCHES, segment_sum.LAUNCHES)
+COUNTERS = (ffd_kernel.LAUNCHES, segment_sum.LAUNCHES, presence_sum.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -318,13 +364,17 @@ def scan_inputs(seed: int, G: int, O: int, alloc_np=None, rank_np=None,
     return meta, compat, alloc_np, rank_np
 
 
-def new_tally() -> dict:
+def new_tally(pref: bool = True) -> dict:
     """Over the kernel checks: the steps of each branch of the chain (from
     the plain version's outputs) and the checked scans of each
-    instantiation of the chain kernel."""
-    return {"branches": {"opens_nothing": 0, "uncapped": 0, "capped": 0,
-                         "summed_takes": 0},
-            "variants": {}}
+    instantiation of the chain kernel; ``pref`` holds the same for the
+    scans with a rank row per group."""
+    tally = {"branches": {"opens_nothing": 0, "uncapped": 0, "capped": 0,
+                          "summed_takes": 0},
+             "variants": {}}
+    if pref:
+        tally["pref"] = new_tally(pref=False)
+    return tally
 
 
 def add_to_tally(tally: dict, label: str, meta, compat, alloc, want,
@@ -572,23 +622,72 @@ def phase_design_checks(dev, tally: dict) -> dict:
     return {"max_abs_err": worst, "cases": dict(lines)}
 
 
+def group_rank(rank_np: np.ndarray, G: int, seed: int) -> np.ndarray:
+    """A rank row per group, formed as the pref scan forms it
+    (rank * (1 + lambda * miss), lambda 0.5): fractional misses, and some
+    groups with no preference (the shared row itself)."""
+    rng = np.random.RandomState(seed)
+    miss = rng.choice(np.float32([0, 1 / 3, 2 / 3, 1]),
+                      size=(G, rank_np.shape[0]))
+    miss[rng.rand(G) < 0.3] = 0
+    return rank_np[None, :] * (np.float32(1) + np.float32(0.5) * miss)
+
+
+def phase_pref_kernel_checks(dev, catalog, tally: dict) -> dict:
+    """``ffd_scan`` with a rank row per group against its plain version:
+    the headline shape (and its cap = 1 edge), and N = 8192 at O = 4096
+    and 5000 (the instantiations that read rows or catalog from global
+    memory)."""
+    O_h = 3072
+    alloc_h = np.zeros((O_h, 4), np.int32)
+    alloc_h[:catalog.num_offerings] = catalog.offering_alloc()
+    rank_h = np.zeros(O_h, np.float32)
+    rank_h[:catalog.num_offerings] = catalog.offering_rank_price()
+    cases = []
+    for seed in range(4):
+        for case in ("", "cap1"):
+            cases.append((f"pref G=64 O=3072 N=512 {case}".strip(), 512,
+                          scan_inputs(800 + seed, 64, O_h, alloc_h, rank_h,
+                                      case=case)))
+    for O in (4096, 5000):
+        cases.append((f"pref N=8192 O={O} G=64", 8192,
+                      scan_inputs(820 + O, 64, O)))
+    worst = 0
+    for k, (label, N, (meta, compat, alloc, rank)) in enumerate(cases):
+        err, info = check_scan(dev, label, N, (
+            meta, compat, alloc, group_rank(rank, meta.shape[0], k)),
+            tally["pref"])
+        worst = max(worst, err)
+        say(f"kernel check ffd_scan, a rank row per group, {label}: exact "
+            f"({info})")
+    return {"max_abs_err": worst, "cases": len(cases)}
+
+
 def require_design_coverage(tally: dict) -> dict:
     """Every instantiation of the chain kernel ran in the checks, and
     the uncapped branch, the capped branch and the summed takes of its
-    step."""
-    b, v = tally["branches"], tally["variants"]
-    say(f"chain branches over the kernel checks (host count from the plain "
-        f"outputs): {b}")
-    for variant, labels in v.items():
-        say(f"chain instantiation '{variant}': {len(labels)} checked scans, "
-            f"e.g. {labels[0]!r}")
-    if min(b["uncapped"], b["capped"], b["summed_takes"]) <= 0:
-        raise AssertionError(f"a branch of the chain never ran: {b}")
-    missing = set(ffd_kernel.VARIANTS) - set(v)
-    if missing:
-        raise AssertionError(f"instantiations never checked: {missing}")
-    return {"branches": dict(b), "variants": {k: len(x) for k, x in
-                                              v.items()}}
+    step; with a rank row per group, every instantiation and the
+    uncapped and capped branches."""
+    out = {}
+    for form, t, need in (
+            ("shared rank", tally, ("uncapped", "capped", "summed_takes")),
+            ("rank row per group", tally["pref"], ("uncapped", "capped"))):
+        b, v = t["branches"], t["variants"]
+        say(f"chain branches over the kernel checks, {form} (host count "
+            f"from the plain outputs): {b}")
+        for variant, labels in v.items():
+            say(f"chain instantiation '{variant}', {form}: {len(labels)} "
+                f"checked scans, e.g. {labels[0]!r}")
+        if min(b[k] for k in need) <= 0:
+            raise AssertionError(f"a branch of the chain never ran ({form}):"
+                                 f" {b}")
+        missing = set(ffd_kernel.VARIANTS) - set(v)
+        if missing:
+            raise AssertionError(f"instantiations never checked ({form}): "
+                                 f"{missing}")
+        out[form] = {"branches": dict(b),
+                     "variants": {k: len(x) for k, x in v.items()}}
+    return out
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -1042,7 +1141,7 @@ def packed_route_check(dev, label: str, solver, problem, program_of):
     c_card, c_cpu = words_equal(label, card, plain, prep.N + prep.G_pad)
     say(f"{label}: result buffer {card.shape[0]} words equal to the plain "
         f"CPU program (cost {c_card} vs {c_cpu})")
-    return program_of(prep), prep
+    return program_of(prep), prep, card
 
 
 def phase_affinity(dev, card: str) -> dict:
@@ -1078,8 +1177,8 @@ def phase_affinity(dev, card: str) -> dict:
             packed, aff, off_alloc, off_price, off_rank, G=prep.G_pad,
             O=prep.O_pad, U=prep.U_pad, N=prep.N)
 
-    program, prep = packed_route_check(dev, label, solver, problem,
-                                       program_of)
+    program, prep, _ = packed_route_check(dev, label, solver, problem,
+                                          program_of)
     say(f"{label}: G={problem.num_groups} (padded {prep.G_pad}) "
         f"O={prep.O_pad} N={prep.N}, {problem.aff.edge_count} edges: "
         f"{len(plan.nodes)} nodes, {plan.placed_count} placed, "
@@ -1126,8 +1225,8 @@ def phase_stochastic(dev, card: str) -> dict:
             G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
             z_bp=prep.z_bp)
 
-    program, prep = packed_route_check(dev, label, solver, problem,
-                                       program_of)
+    program, prep, _ = packed_route_check(dev, label, solver, problem,
+                                          program_of)
     say(f"{label}: G={problem.num_groups} (padded {prep.G_pad}) "
         f"O={prep.O_pad} N={prep.N}, z_bp={prep.z_bp}: {len(plan.nodes)} "
         f"nodes, {plan.placed_count} pods placed, cost "
@@ -1143,6 +1242,420 @@ def phase_stochastic(dev, card: str) -> dict:
              shape={"G": prep.G_pad, "O": prep.O_pad, "N": prep.N},
              groups=problem.num_groups, cost=plan.total_cost_per_hour)
     return t
+
+
+# -- phase 4 (h-k): soft preferences, the resident store, the serving loop --
+
+
+def fractional_groups_per_node(prep, out_np: np.ndarray) -> int:
+    """Most groups with a fractional miss (0 < miss < 1 somewhere) that
+    one open node of a pref window's result holds."""
+    _, assign, _, _ = unpack_result(out_np, prep.G_pad, prep.N, prep.K,
+                                    prep.dense16, prep.coo16)
+    idx = prep.pref_idx
+    rows = prep.pref_rows[np.clip(idx, 0, None)]
+    frac = (idx >= 0) & ((rows > 0) & (rows < 1)).any(axis=1)
+    return int(((assign > 0) & frac[:, None]).sum(axis=0).max())
+
+
+def phase_pref(dev, card: str, tally: dict) -> dict:
+    """(h) The pref window: the headline pods with soft preferences
+    (``workload.with_preferences``) through ``solve`` on the card, the FFD
+    kernel with a rank row per group; the plan equal to the CPU solver's
+    and clean, the raw result equal to the plain CPU program word for
+    word, a node holding three or more groups with fractional misses;
+    the kernel on the window's tensors against its plain version; the
+    route's timings, the kernel beside its shared-rank form and the pref
+    right-size beside the plain one."""
+    label = "pref window"
+    pods, catalog = workload.build_workload(
+        HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
+    pods = workload.with_preferences(pods)
+    request = SolveRequest(pods, catalog)
+    problem = encode_mod.encode(pods, catalog)
+    gate = SolverOptions().flat_min_groups
+    if problem.pref_rows is None or problem.num_groups >= gate:
+        raise AssertionError(f"{label}: G={problem.num_groups} (flat gate "
+                             f"{gate}), preferences "
+                             f"{problem.pref_rows is not None}")
+    solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
+        dev, label, "pref", request, need=("ffd_scan_pref", "presence_sum"))
+    clean_and_placed(label, plan, pods, catalog)
+    lam_bp = int(solver.options.preference_lambda * 10000)
+
+    def tensors(prep):
+        off_alloc, off_price, off_rank = solver.device_offerings(
+            catalog, prep.O_pad)
+        return (torch.from_numpy(prep.packed).to(dev),
+                torch.from_numpy(prep.pref_rows).to(dev),
+                torch.from_numpy(prep.pref_idx).to(dev), off_alloc,
+                off_price, off_rank)
+
+    def program_of(prep):
+        args = tensors(prep)
+        return lambda: tp.solve_packed_pref_torch(
+            *args, G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
+            P=prep.pref_rows.shape[0], lam_bp=lam_bp)
+
+    program, prep, card_out = packed_route_check(dev, label, solver,
+                                                 problem, program_of)
+    shared = fractional_groups_per_node(prep, card_out)
+    if shared < 3:
+        raise AssertionError(f"{label}: no node holds three groups with "
+                             f"fractional misses (at most {shared})")
+    G, O, U, N = prep.G_pad, prep.O_pad, prep.U_pad, prep.N
+    packed, pref_rows, pref_idx, off_alloc, off_price, off_rank = \
+        tensors(prep)
+    meta, compat_i, _ = tp.unpack_problem(packed, off_alloc, G, O, U)
+    lam = lam_bp / 10000.0
+    miss_g, rank_g = tp.pref_rank_rows(pref_rows, pref_idx, off_rank, lam)
+    err, info = check_scan(dev, label, N, (meta, compat_i, off_alloc,
+                                           rank_g), tally["pref"])
+    say(f"{label}: G={problem.num_groups} (padded {G}) O={O} U={U} N={N} "
+        f"P={prep.pref_rows.shape[0]}: {len(plan.nodes)} nodes, "
+        f"{plan.placed_count} pods placed, cost "
+        f"{plan.total_cost_per_hour:.4f} $/h, path {stats['path']}, "
+        f"launches {launches}; up to {shared} groups with fractional misses "
+        f"on one node; plan equal to the CPU solver's, validate_plan clean; "
+        f"kernel check on the window's tensors exact ({info}); cold solve "
+        f"{cold_s * 1e3:.3f} ms, CPU solve {cpu_s * 1e3:.3f} ms")
+
+    # the kernel with its rank rows beside the same scan on the shared row
+    m3, c3 = meta[None].contiguous(), compat_i[None].contiguous()
+    node_off, assign, _ = (x[0] for x in ffd_kernel.ffd_scan(
+        m3, c3, off_alloc, rank_g, N))
+    ms = cuda_ms(lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc, rank_g, N),
+                 50)
+    shared_ms = cuda_ms(lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc,
+                                                    off_rank, N), 50)
+    plain_ms = cuda_ms(lambda: ffd_kernel.ffd_scan_reference(
+        m3, c3, off_alloc, rank_g, N), 3, warm=1)
+    bound_ms, bound_by, nbytes, ops = scan_bound_ms(
+        m3, c3, off_alloc, rank_g, N, assign.cpu().numpy()[None],
+        node_off.cpu().numpy()[None])
+    rs_pref_ms = cuda_ms(lambda: tp.finish_solve(
+        meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
+        True, miss_g=miss_g, pref_lambda=lam), 20)
+    rs_ms = cuda_ms(lambda: tp.finish_solve(
+        meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
+        True), 20)
+    rank_ms = cuda_ms(lambda: tp.pref_rank_rows(pref_rows, pref_idx,
+                                                off_rank, lam), 50)
+    say(f"timing [{card}]: ffd_scan_pref on the pref window G={G} O={O} "
+        f"N={N}: kernel {ms:.4f} ms ({ms / G * 1e3:.4f} us per group step), "
+        f"the same scan on the shared rank row {shared_ms:.4f} ms (x"
+        f"{ms / shared_ms:.3f}), plain PyTorch version {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {ops} scalar "
+        f"ops); forming rank_g {rank_ms:.4f} ms; right-size + cost with "
+        f"preferences {rs_pref_ms:.4f} ms against {rs_ms:.4f} ms without; "
+        f"no single PyTorch call computes the scan (library_ms null)")
+    psum = presence_sum_checks(dev, card, (assign > 0).to(torch.float32),
+                               miss_g)
+    t = route_timings(dev, card, label, solver, request, program, 10, 5,
+                      "pref_window")
+    t.update(cold_ms=cold_s * 1e3, cpu_solve_ms=cpu_s * 1e3,
+             launches=launches, nodes=len(plan.nodes),
+             shape={"G": G, "O": O, "U": U, "N": N,
+                    "P": prep.pref_rows.shape[0]},
+             groups=problem.num_groups, cost=plan.total_cost_per_hour,
+             fractional_groups_per_node=shared)
+    return {"route": t, "max_abs_err": err,
+            "ffd_scan_pref": {"ms": ms, "shared_rank_ms": shared_ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "bytes": nbytes,
+                              "ops": ops, "library_ms": None,
+                              "us_per_step": ms / G * 1e3},
+            "presence_sum": psum,
+            "right_size_pref_ms": rs_pref_ms, "right_size_ms": rs_ms,
+            "rank_rows_ms": rank_ms}
+
+
+def presence_sum_checks(dev, card: str, present, miss) -> dict:
+    """``presence_sum`` against its plain version (one ordered
+    ``addcmul_`` per group) bit for bit on the pref window's own tensors
+    and on seeded ones (ragged O, a node axis of 64, fractional misses);
+    its time on the window beside the plain version, ``torch.matmul``
+    (the same sums in another order) and the bound."""
+    cases = [("pref window", present, miss)]
+    for G, N, O in ((512, 512, 3072), (64, 64, 129), (341, 384, 1)):
+        rng = np.random.RandomState(G + N + O)
+        p = torch.from_numpy((rng.rand(G, N) < 0.02).astype(np.float32))
+        m = torch.from_numpy(rng.choice(
+            np.float32([0, 1 / 3, 2 / 3, 1, 0.1]), size=(G, O)))
+        cases.append((f"seeded G={G} N={N} O={O}", p.to(dev), m.to(dev)))
+    err = 0.0
+    for label, p, m in cases:
+        got = presence_sum.presence_sum(p, m)
+        want = presence_sum.presence_sum_reference(p, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"presence_sum differs from its plain "
+                                 f"version on {label}: max |diff| "
+                                 f"{float((got - want).abs().max())}")
+    ms = cuda_ms(lambda: presence_sum.presence_sum(present, miss), 50)
+    plain_ms = cuda_ms(lambda: presence_sum.presence_sum_reference(
+        present, miss), 5, warm=1)
+    lib_ms = cuda_ms(lambda: present.t() @ miss, 50)
+    G, N = present.shape
+    O = miss.shape[1]
+    nbytes = 4 * (G * N + G * O + N * O)
+    adds = int(present.sum()) * O             # this run's present groups
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"kernel check presence_sum: {len(cases)} cases exact against the "
+        f"plain version; timing [{card}]: the pref window's [G={G}, N={N}] "
+        f"x [G, O={O}]: kernel {ms:.4f} ms, plain version ({G} ordered "
+        f"addcmul_) {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {adds} adds)")
+    return {"max_abs_err": err, "cases": len(cases), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": adds}
+
+
+def churn_stream(cfg: dict):
+    """bench.py's resident / serving churn at the headline size: the
+    seed's 10k-pod window, then per window 1-5 departures and 1-5
+    arrivals of 500m/1Gi pods from ``random.Random(cfg["rng"])``."""
+    pods, catalog = workload.build_workload(
+        HEADLINE["pods"], HEADLINE["types"], seed=cfg["seed"])
+    rng = random.Random(cfg["rng"])
+    seqs, cur = [], list(pods)
+    for w in range(cfg["windows"]):
+        if w:
+            for _ in range(rng.randrange(1, 6)):
+                cur.pop(rng.randrange(len(cur)))
+            cur.extend(pod_api.PodSpec(
+                f"{cfg['tag']}{w}n{i}",
+                requests=pod_api.ResourceRequests(500, 1024, 0, 1))
+                for i in range(rng.randrange(1, 6)))
+        seqs.append(list(cur))
+    return seqs, catalog
+
+
+def p50_ms(xs) -> float:
+    return float(np.percentile(xs, 50)) * 1e3
+
+
+def phase_resident(dev, card: str) -> dict:
+    """(i) The resident stream: resident on and off alternately (the
+    order flips each window), every plan equal, the device state equal
+    to the mirror and to the window's packed buffer after every window;
+    the last window re-solved for a hit; rebuild, delta and hit seen.
+    The counts are zeroed before each resident solve and read after it:
+    one ``ffd_scan`` per dispatch and no other kernel.  Each resident
+    dispatch's raw result is held word for word against the classic
+    dispatch of the same prepared window.  Each window is encoded before
+    its timed solves, so both arms' walls read the encode memo, not the
+    encode."""
+    seqs, catalog = churn_stream(RESIDENT)
+    on = TorchSolver(SolverOptions(resident="on"), device=dev)
+    off = TorchSolver(SolverOptions(resident="off"), device=dev)
+    walls = {"on": [], "off": []}
+    modes, h2d, words = [], [], []
+    kept = []                       # (prep, device result) per dispatch
+    dispatch_solve = on.resident.dispatch_solve
+
+    def keep(prep, packed, catalog_t, right_size):
+        out = dispatch_solve(prep, packed, catalog_t, right_size)
+        kept.append((prep, out))
+        return out
+
+    on.resident.dispatch_solve = keep
+    launches: dict = {}
+    for w, pods_w in enumerate(seqs + seqs[-1:]):
+        request = SolveRequest(pods_w, catalog)
+        problem = encode_mod.encode(pods_w, catalog)
+        plans = {}
+        for arm in (("off", "on") if w % 2 == 0 else ("on", "off")):
+            solver = on if arm == "on" else off
+            if arm == "on":
+                kept.clear()
+                reset_launches()
+            t0 = time.perf_counter()
+            plans[arm] = solver.solve(request)
+            walls[arm].append(time.perf_counter() - t0)
+            if arm == "on":
+                got = {k: v for k, v in launch_counts().items() if v}
+        plans_equal(f"resident window {w}", plans["on"], plans["off"])
+        st = on.last_stats
+        if st["path"] != "resident-cuda":
+            raise AssertionError(f"resident window {w} took {st['path']!r}")
+        dispatches = 1 + st["escalations"] + st["coo_growths"]
+        if got != {"ffd_scan": dispatches} or len(kept) != dispatches:
+            raise AssertionError(f"resident window {w}: {len(kept)} resident "
+                                 f"dispatches launched {got}, want one "
+                                 f"ffd_scan each of {dispatches}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        prep, out = kept[-1]
+        classic = prep.clone()
+        classic.resident = False
+        words_equal(f"resident window {w}", out.cpu().numpy(),
+                    off.dispatch_packed(classic).cpu().numpy(),
+                    prep.N + prep.G_pad)
+        modes.append(st["resident_mode"])
+        h2d.append(st["h2d_bytes"])
+        words.append(st["delta_words"])
+        snap = on.resident.snapshot_state()
+        want = resident_delta.pack_window(problem)[0]
+        if not (np.array_equal(snap["mirror"], snap["device"])
+                and np.array_equal(snap["device"], want)):
+            raise AssertionError(f"resident window {w}: device state != "
+                                 f"mirror != packed window")
+    if not {"rebuild", "delta", "hit"} <= set(modes) or modes[-1] != "hit":
+        raise AssertionError(f"resident modes {modes}")
+    warm = slice(1, len(seqs))
+    out = {"modes": modes, "h2d_bytes": h2d, "delta_words": words,
+           "full_packed_bytes": int(want.nbytes),
+           "on_p50_ms": p50_ms(walls["on"][warm]),
+           "off_p50_ms": p50_ms(walls["off"][warm]),
+           "on_walls_ms": [x * 1e3 for x in walls["on"]],
+           "off_walls_ms": [x * 1e3 for x in walls["off"]],
+           "warm_h2d_p50_bytes": float(np.percentile(h2d[warm], 50)),
+           "warm_delta_words_p50": float(np.percentile(words[warm], 50)),
+           "launches": launches, "stats": on.resident.stats()}
+    say(f"resident path: {len(seqs)} windows of {RESIDENT['seed']}'s "
+        f"10k-pod churn (+1 repeat), resident on/off alternately: every "
+        f"plan equal, every resident raw result equal to the classic raw "
+        f"result word for word, device state == mirror == packed window "
+        f"after every window; modes {modes}; launches of the resident "
+        f"solves alone {launches}")
+    say(f"timing [{card}]: resident stream warm p50 wall: on "
+        f"{out['on_p50_ms']:.4f} ms, off {out['off_p50_ms']:.4f} ms; H2D "
+        f"per warm window p50 {out['warm_h2d_p50_bytes']:.0f} B (full "
+        f"packed buffer {out['full_packed_bytes']} B), delta words p50 "
+        f"{out['warm_delta_words_p50']:.0f}")
+    return out
+
+
+def phase_serving(dev, card: str) -> dict:
+    """(j) The serving stream: a cold pass and a warm pass of
+    ``serve``-style submits at depth 2; every window on the ring, none
+    backpressured, ``ring_state_violations`` empty, every plan equal to
+    the classic plan and every raw ring result equal to the classic raw
+    result word for word; then the port's 8-seed parity checks."""
+    from karpenter_tpu_torch.serving.ring import OutputRing
+    from karpenter_tpu_torch.serving.validate import (
+        plan_parity_violations, raw_parity_violations,
+        ring_state_violations,
+    )
+
+    seqs, catalog = churn_stream(SERVING)
+    problems = [encode_mod.encode(p, catalog) for p in seqs]
+    on = TorchSolver(SolverOptions(serving="on"), device=dev)
+    off = TorchSolver(SolverOptions(serving="off"), device=dev)
+    loop = on.serving
+    slots = {}
+
+    class KeepingRing(OutputRing):
+        """The loop's output ring, keeping every slot it hands out."""
+
+        def take(self, seq):
+            slot = slots[seq] = super().take(seq)
+            return slot
+
+    loop.output = KeepingRing(loop.capacity)
+    reset_launches()
+    cold = list(loop.serve(iter(problems), depth=SERVING["depth"]))
+    kick_s, plans = [], []
+    pending = deque()
+    t0 = time.perf_counter()
+    for problem in problems:
+        t1 = time.perf_counter()
+        pending.append(loop.submit(problem))
+        kick_s.append(time.perf_counter() - t1)
+        while len(pending) >= SERVING["depth"]:
+            plans.append(pending.popleft().result())
+    while pending:
+        plans.append(pending.popleft().result())
+    ring_ms = (time.perf_counter() - t0) * 1e3 / len(problems)
+    launches = launch_counts()
+    require_launches(launches, ["ffd_scan"], "serving path")
+    st = loop.stats()
+    n = 2 * len(problems)
+    if (st["ring_windows"], st["classic_windows"], st["backpressured"]) \
+            != (n, 0, 0):
+        raise AssertionError(f"serving: not every window rode the ring: "
+                             f"{st}")
+    violations = ring_state_violations(loop, catalog)
+    if violations:
+        raise AssertionError(f"serving ring state: {violations}")
+    classic_s = []
+    first = len(problems)
+    for k, (problem, plan, cplan) in enumerate(zip(problems, plans, cold)):
+        t1 = time.perf_counter()
+        classic = off.solve_encoded(problem)
+        classic_s.append(time.perf_counter() - t1)
+        plans_equal(f"serving window {k} (warm)", plan, classic)
+        plans_equal(f"serving window {k} (cold)", cplan, classic)
+        prep = off._prepare(problem)
+        raw = off.dispatch_packed(prep).cpu().numpy()
+        for seq in (k, first + k):
+            words_equal(f"serving window {k} slot {seq}",
+                        slots[seq].host.numpy(), raw, prep.N + prep.G_pad)
+    modes = [slots[s].mode for s in sorted(slots)]
+    parity = raw_parity_violations(seeds=8, device=dev) \
+        + plan_parity_violations(seeds=8, device=dev)
+    if parity:
+        raise AssertionError(f"serving parity checks: {parity[:3]}")
+    out = {"kick_p50_ms": p50_ms(kick_s), "ring_p50_ms": ring_ms,
+           "classic_p50_ms": p50_ms(classic_s),
+           "overlap_fraction": loop.overlap_fraction, "modes": modes,
+           "kick_ms": [x * 1e3 for x in kick_s],
+           "classic_ms": [x * 1e3 for x in classic_s], "stats": st,
+           "launches": launches}
+    say(f"serving path: {len(problems)} windows of {SERVING['seed']}'s "
+        f"10k-pod churn, a cold and a warm pass at depth {SERVING['depth']}:"
+        f" {st['ring_windows']} ring windows, 0 classic, 0 backpressured, "
+        f"ring state clean, every plan equal to the classic plan, every raw "
+        f"ring result equal to the classic raw result word for word; modes "
+        f"{modes}; the port's 8-seed raw and plan parity checks clean; "
+        f"launches {launches}")
+    say(f"timing [{card}]: serving warm pass: kick p50 "
+        f"{out['kick_p50_ms']:.4f} ms, amortized ring p50 {ring_ms:.4f} ms "
+        f"per window, classic p50 {out['classic_p50_ms']:.4f} ms, overlap "
+        f"fraction {loop.overlap_fraction:.4f}")
+    return out
+
+
+def phase_fleet_resident(dev, fleet: dict) -> dict:
+    """(k) The fleet with ``resident_buf``: window 0 rebuilds, window 1
+    (the same window) is a hit, window 2 (one cluster churned) a delta;
+    each equal to the fleet without the buffer."""
+    import copy
+
+    stacked, N = fleet["stacked"], fleet["N"]
+    kw = dict(num_nodes=N, device=dev, device_catalog=fleet["dev_catalog"])
+    churned = copy.deepcopy(stacked)
+    churned.group_count[3, 0] = max(0, int(churned.group_count[3, 0]) - 3)
+    buf = ResidentBuffer("fleet")
+    reset_launches()
+    runs = []
+    for label, problem in (("rebuild", stacked), ("hit", stacked),
+                           ("delta", churned)):
+        t0 = time.perf_counter()
+        got = fleet_solve_packed(problem, resident_buf=buf, **kw)
+        runs.append((label, time.perf_counter() - t0, problem, got))
+    launches = launch_counts()
+    require_launches(launches, ["ffd_scan_fleet"], "fleet resident path")
+    for label, _, problem, got in runs:
+        want = fleet_solve_packed(problem, **kw)
+        for name, a, b in zip(("node_off", "assign", "unplaced", "cost"),
+                              got, want):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"fleet resident {label}: {name} "
+                                     f"differs from the plain fleet")
+    if buf.stats != {"rebuild": 1, "hit": 1, "delta": 1}:
+        raise AssertionError(f"fleet resident ladder {buf.stats}")
+    say(f"fleet resident path: rebuild, hit, delta ({buf.stats}) each equal "
+        f"to the fleet without the buffer; walls "
+        + ", ".join(f"{lb} {s * 1e3:.3f} ms" for lb, s, _, _ in runs)
+        + f"; launches {launches}")
+    return {"stats": dict(buf.stats), "launches": launches,
+            "walls_ms": {lb: s * 1e3 for lb, s, _, _ in runs}}
 
 
 # -- phase 5: timings ---------------------------------------------------------
@@ -1547,6 +2060,7 @@ def main() -> int:
               "ffd_scan_fleet": phase_fleet_kernel_checks(dev, catalog,
                                                           tally)}
     design = phase_design_checks(dev, tally)
+    checks["ffd_scan_pref"] = phase_pref_kernel_checks(dev, catalog, tally)
     solver, request, problem, launches, stats, cold_s, err = \
         phase_main_path(dev, pods, catalog, tally)
     checks["ffd_scan"]["max_abs_err"] = max(
@@ -1554,7 +2068,6 @@ def main() -> int:
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
         checks["ffd_scan_fleet"]["max_abs_err"], design["max_abs_err"])
     checks["design"] = design
-    checks["coverage"] = require_design_coverage(tally)
     fleet = phase_fleet(dev)
     stream = phase_stream(dev, catalog)
     zone = phase_zone(dev, pods, catalog)
@@ -1566,15 +2079,32 @@ def main() -> int:
     flat = phase_flat(dev, card)
     affinity = phase_affinity(dev, card)
     stochastic = phase_stochastic(dev, card)
+    pref = phase_pref(dev, card, tally)
+    checks["ffd_scan_pref"]["max_abs_err"] = max(
+        checks["ffd_scan_pref"]["max_abs_err"], pref["max_abs_err"])
+    # the pref window's own scan counts toward the per-group coverage
+    checks["coverage"] = require_design_coverage(tally)
+    resident = phase_resident(dev, card)
+    serving = phase_serving(dev, card)
+    fleet_resident = phase_fleet_resident(dev, fleet)
     checks["segment_sum"] = {"max_abs_err": flat["segment_sum"]["max_abs_err"],
                              "calls": flat["segment_sum"]["calls"]}
     timing["segment_sum"] = flat["segment_sum"]
+    timing["ffd_scan_pref"] = pref["ffd_scan_pref"]
+    timing["presence_sum"] = pref["presence_sum"]
+    checks["presence_sum"] = {"max_abs_err": pref["presence_sum"]
+                              ["max_abs_err"],
+                              "cases": pref["presence_sum"]["cases"]}
     # launches per kernel over the paths that run it
     path_launches = {"main": launches, "fleet": fleet["launches"],
                      "stream": stream["launches"], "zone": zone["launches"],
                      "flat": flat["launches"],
                      "affinity": affinity["launches"],
-                     "stochastic": stochastic["launches"]}
+                     "stochastic": stochastic["launches"],
+                     "pref": pref["route"]["launches"],
+                     "resident": resident["launches"],
+                     "serving": serving["launches"],
+                     "fleet_resident": fleet_resident["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
@@ -1601,7 +2131,9 @@ def main() -> int:
             "zone": {"wall_s": zone["wall_s"],
                      "last_batch": zone["last_batch"]},
             "routes": {"flat": flat["windows"], "affinity": affinity,
-                       "stochastic": stochastic},
+                       "stochastic": stochastic, "pref": pref},
+            "resident": resident, "serving": serving,
+            "fleet_resident": fleet_resident,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -55,6 +55,16 @@
 //    so node state needs no barrier.
 // 4. One SM per problem stays: the G steps are sequential.
 //
+// Soft preferences (the reference's solve_core pref scan) rank each group
+// by its own row, rank_g = rank * (1 + lambda * miss_g): rank then has a
+// group stride beside its problem stride.  The prologue reads the group's
+// row; the chain reads it only in the capped sweep, from global memory
+// (L2) instead of the shared-memory copy of the one shared row.  Group
+// stride 0 is the shared row.  The two forms are separate instantiations
+// (kGroupRank), so the shared-row path compiles to the code it had
+// before the group stride: a uniform run-time branch measured 14% slower
+// there (tools/torch_scan_ab.py).
+//
 // Shared memory decides the instantiation, from the shapes alone
 // (ffd_scan_variant): node state is 20 B per slot, a row is
 // 4 x (round_up(O, 4) + 16) bytes, the catalog 20 B per offering, and a
@@ -237,13 +247,14 @@ __device__ __forceinline__ void wait_primary() {
 
 // ---- prologue: one block per (problem, group), over the whole card ------
 
-template <typename CT>
+template <typename CT, bool kGroupRank>
 __global__ void __launch_bounds__(kOfferThreads)
 ffd_offer_kernel(const int* __restrict__ meta, const CT* __restrict__ compat,
                  const int* __restrict__ alloc_all, long long alloc_stride,
                  const float* __restrict__ rank_all, long long rank_stride,
-                 int* __restrict__ rows, int* __restrict__ assign, int G,
-                 int O, int N, int fit_big) {
+                 long long rank_gstride, int* __restrict__ rows,
+                 int* __restrict__ assign, int G, int O, int N,
+                 int fit_big) {
   __shared__ unsigned long long s_key[kOfferThreads / 32];
   __shared__ unsigned s_max[kOfferThreads / 32];
   __shared__ unsigned s_mag[4];
@@ -253,7 +264,8 @@ ffd_offer_kernel(const int* __restrict__ meta, const CT* __restrict__ compat,
   const long long c = cg / G;
   const int4* __restrict__ alloc = reinterpret_cast<const int4*>(
       alloc_all + c * alloc_stride);
-  const float* __restrict__ rank = rank_all + c * rank_stride;
+  const float* __restrict__ rank = rank_all + c * rank_stride
+      + (kGroupRank ? (cg - c * G) * rank_gstride : 0);
   const int* mg = meta + cg * 8;
   const CT* crow = compat + cg * O;
   int* row = rows + cg * row_words(O);
@@ -368,16 +380,19 @@ __device__ __forceinline__ void wait_row(unsigned long long* bar,
 // 2.2 us per step at one slot each).  Slot order is the FFD age order;
 // the slots below ptr are the open nodes, so a (round i, warp) chunk of
 // 32 slots at or above ptr has nothing to fill and skips the work.
-template <int kVariant, int kSlots>
+template <int kVariant, int kSlots, bool kGroupRank>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ffd_chain_kernel(const int* __restrict__ rows,
                  const int* __restrict__ alloc_all, long long alloc_stride,
                  const float* __restrict__ rank_all, long long rank_stride,
-                 int* __restrict__ node_off_out, int* __restrict__ assign,
-                 int* __restrict__ unplaced, int G, int O, int N,
-                 int fit_big) {
+                 long long rank_gstride, int* __restrict__ node_off_out,
+                 int* __restrict__ assign, int* __restrict__ unplaced, int G,
+                 int O, int N, int fit_big) {
   constexpr bool kRowsSmem = kVariant != kGlobal;
   constexpr bool kCatSmem = kVariant == kCatRows;
+  // one rank row per group: the capped sweep reads the group's row from
+  // global memory, and s_rank is not staged
+  constexpr bool kRankSmem = kCatSmem && !kGroupRank;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned s_scan[2][kSlots][32];  // chunk totals, by parity
   __shared__ unsigned s_odd[2][32];           // warp "a fit may wrap"
@@ -422,7 +437,7 @@ ffd_chain_kernel(const int* __restrict__ rows,
   if (kCatSmem) {
     for (int o = tid; o < O; o += T) {
       cp_async16(s_alloc + o, g_alloc + o);
-      cp_async4(s_rank + o, g_rank + o);
+      if (kRankSmem) cp_async4(s_rank + o, g_rank + o);
     }
   }
   if (kRowsSmem && steward) {
@@ -580,8 +595,10 @@ ffd_chain_kernel(const int* __restrict__ rows,
         bf = t0.y;
       } else {
         unsigned long long key = kNoArg;
+        const float* __restrict__ rank_row = kGroupRank
+            ? g_rank + static_cast<long long>(g) * rank_gstride : g_rank;
         for (int o = tid; o < O; o += T) {
-          const float r = kCatSmem ? s_rank[o] : __ldg(g_rank + o);
+          const float r = kRankSmem ? s_rank[o] : __ldg(rank_row + o);
           key = candidate(key, r, min(row[o] & 0x7fffffff, rem), o);
         }
         key = warp_min_key(key);
@@ -691,19 +708,22 @@ int choose_variant(int O, int N) {
 // launch, or the launch is refused.  It is per device and per kernel:
 // set once per (instantiation, device) to the largest size asked for.
 std::mutex g_attr_mutex;
-int g_attr_bytes[3][4][kMaxDevices];      // [variant][log2 slots][device]
+// [variant][log2 slots][group rank][device]
+int g_attr_bytes[3][4][2][kMaxDevices];
 
-template <int kVariant, int kSlots>
+template <int kVariant, int kSlots, bool kGroupRank>
 cudaError_t launch_chain(const int* rows, const int* alloc,
                          long long alloc_stride, const float* rank,
-                         long long rank_stride, int* node_off, int* assign,
+                         long long rank_stride, long long rank_gstride,
+                         int* node_off, int* assign,
                          int* unplaced, int C, int G, int O, int N,
                          int fit_big, int device, cudaStream_t stream) {
-  const auto kernel = ffd_chain_kernel<kVariant, kSlots>;
+  const auto kernel = ffd_chain_kernel<kVariant, kSlots, kGroupRank>;
   const size_t smem = chain_smem(kVariant, O, N);
   {
     std::lock_guard<std::mutex> lock(g_attr_mutex);
-    int& have = g_attr_bytes[kVariant][__builtin_ctz(kSlots)][device];
+    int& have =
+        g_attr_bytes[kVariant][__builtin_ctz(kSlots)][kGroupRank][device];
     if (static_cast<size_t>(have) < smem) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -724,50 +744,69 @@ cudaError_t launch_chain(const int* rows, const int* alloc,
   cfg.attrs = &attr;
   cfg.numAttrs = G > 0 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, rows, alloc, alloc_stride, rank,
-                            rank_stride, node_off, assign, unplaced, G, O, N,
-                            fit_big);
+                            rank_stride, rank_gstride, node_off, assign,
+                            unplaced, G, O, N, fit_big);
+}
+
+template <int kVariant, int kSlots>
+cudaError_t launch_chain_rank(const int* rows, const int* alloc,
+                              long long alloc_stride, const float* rank,
+                              long long rank_stride, long long rank_gstride,
+                              int* node_off, int* assign, int* unplaced,
+                              int C, int G, int O, int N, int fit_big,
+                              int device, cudaStream_t stream) {
+  return rank_gstride != 0
+      ? launch_chain<kVariant, kSlots, true>(
+            rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+            node_off, assign, unplaced, C, G, O, N, fit_big, device, stream)
+      : launch_chain<kVariant, kSlots, false>(
+            rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+            node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
 }
 
 template <int kVariant>
 cudaError_t launch_chain_slots(const int* rows, const int* alloc,
                                long long alloc_stride, const float* rank,
-                               long long rank_stride, int* node_off,
-                               int* assign, int* unplaced, int C, int G,
-                               int O, int N, int fit_big, int device,
-                               cudaStream_t stream) {
+                               long long rank_stride, long long rank_gstride,
+                               int* node_off, int* assign, int* unplaced,
+                               int C, int G, int O, int N, int fit_big,
+                               int device, cudaStream_t stream) {
   switch (chain_slots(N)) {
     case 1:
-      return launch_chain<kVariant, 1>(rows, alloc, alloc_stride, rank,
-                                       rank_stride, node_off, assign,
-                                       unplaced, C, G, O, N, fit_big, device,
-                                       stream);
+      return launch_chain_rank<kVariant, 1>(
+          rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+          node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
     case 2:
-      return launch_chain<kVariant, 2>(rows, alloc, alloc_stride, rank,
-                                       rank_stride, node_off, assign,
-                                       unplaced, C, G, O, N, fit_big, device,
-                                       stream);
+      return launch_chain_rank<kVariant, 2>(
+          rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+          node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
     case 4:
-      return launch_chain<kVariant, 4>(rows, alloc, alloc_stride, rank,
-                                       rank_stride, node_off, assign,
-                                       unplaced, C, G, O, N, fit_big, device,
-                                       stream);
+      return launch_chain_rank<kVariant, 4>(
+          rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+          node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
     default:
-      return launch_chain<kVariant, 8>(rows, alloc, alloc_stride, rank,
-                                       rank_stride, node_off, assign,
-                                       unplaced, C, G, O, N, fit_big, device,
-                                       stream);
+      return launch_chain_rank<kVariant, 8>(
+          rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+          node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
   }
 }
 
 template <typename CT>
 void launch_offers(const int* meta, const void* compat, const int* alloc,
                    long long alloc_stride, const float* rank,
-                   long long rank_stride, int* rows, int* assign, int C,
-                   int G, int O, int N, int fit_big, cudaStream_t stream) {
-  ffd_offer_kernel<CT><<<static_cast<unsigned>(C) * G, kOfferThreads, 0,
-                         stream>>>(
-      meta, static_cast<const CT*>(compat), alloc, alloc_stride, rank,
-      rank_stride, rows, assign, G, O, N, fit_big);
+                   long long rank_stride, long long rank_gstride, int* rows,
+                   int* assign, int C, int G, int O, int N, int fit_big,
+                   cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(C) * G;
+  const CT* compat_t = static_cast<const CT*>(compat);
+  if (rank_gstride != 0)
+    ffd_offer_kernel<CT, true><<<blocks, kOfferThreads, 0, stream>>>(
+        meta, compat_t, alloc, alloc_stride, rank, rank_stride,
+        rank_gstride, rows, assign, G, O, N, fit_big);
+  else
+    ffd_offer_kernel<CT, false><<<blocks, kOfferThreads, 0, stream>>>(
+        meta, compat_t, alloc, alloc_stride, rank, rank_stride,
+        rank_gstride, rows, assign, G, O, N, fit_big);
 }
 
 }  // namespace
@@ -789,18 +828,22 @@ int ffd_scan_variant(int O, int N) { return choose_variant(O, N); }
 // (compat_u8 = 1); alloc int32 [C, O, 4] with problem stride
 // alloc_stride (in int32 elements, a multiple of 4; 0 = one catalog
 // shared by all problems), 16-byte aligned; rank f32 [C, O] with problem
-// stride rank_stride (0 = shared); rows int32 scratch [C, G,
+// stride rank_stride (0 = shared), or one row per group, [C, G, O], with
+// group stride rank_gstride (0 = one row shared by the groups); rows int32
+// scratch [C, G,
 // ffd_scan_row_words(O)], 16-byte aligned; outputs node_off int32 [C,
 // N], assign int32 [C, G, N], unplaced int32 [C, G], all on CUDA device
 // `device`.  Launches the prologue (when G > 0) and the chain on
 // `stream` and returns the first cudaError_t.
 int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
                     const int* alloc, long long alloc_stride,
-                    const float* rank, long long rank_stride, int* rows,
-                    int* node_off, int* assign, int* unplaced, int C, int G,
-                    int O, int N, int fit_big, int device, void* stream) {
+                    const float* rank, long long rank_stride,
+                    long long rank_gstride, int* rows, int* node_off,
+                    int* assign, int* unplaced, int C, int G, int O, int N,
+                    int fit_big, int device, void* stream) {
   if (C <= 0 || G < 0 || O <= 0 || N <= 0 || N > kMaxThreads * kMaxPerThread
-      || alloc_stride < 0 || rank_stride < 0 || alloc_stride % 4 != 0
+      || alloc_stride < 0 || rank_stride < 0 || rank_gstride < 0
+      || alloc_stride % 4 != 0
       || reinterpret_cast<uintptr_t>(alloc) % 16 != 0
       || reinterpret_cast<uintptr_t>(rows) % 16 != 0
       || device < 0 || device >= kMaxDevices)
@@ -813,32 +856,33 @@ int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
   if (G > 0) {
     if (compat_u8)
       launch_offers<uint8_t>(meta, compat, alloc, alloc_stride, rank,
-                             rank_stride, rows, assign, C, G, O, N, fit_big,
-                             s);
+                             rank_stride, rank_gstride, rows, assign, C, G, O,
+                             N, fit_big, s);
     else
       launch_offers<int>(meta, compat, alloc, alloc_stride, rank,
-                         rank_stride, rows, assign, C, G, O, N, fit_big, s);
+                         rank_stride, rank_gstride, rows, assign, C, G, O, N,
+                         fit_big, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   switch (choose_variant(O, N)) {
     case kCatRows:
       err = launch_chain_slots<kCatRows>(rows, alloc, alloc_stride, rank,
-                                         rank_stride, node_off, assign,
-                                         unplaced, C, G, O, N, fit_big,
-                                         device, s);
+                                         rank_stride, rank_gstride, node_off,
+                                         assign, unplaced, C, G, O, N,
+                                         fit_big, device, s);
       break;
     case kRows:
       err = launch_chain_slots<kRows>(rows, alloc, alloc_stride, rank,
-                                      rank_stride, node_off, assign,
-                                      unplaced, C, G, O, N, fit_big, device,
-                                      s);
+                                      rank_stride, rank_gstride, node_off,
+                                      assign, unplaced, C, G, O, N, fit_big,
+                                      device, s);
       break;
     default:
       err = launch_chain_slots<kGlobal>(rows, alloc, alloc_stride, rank,
-                                        rank_stride, node_off, assign,
-                                        unplaced, C, G, O, N, fit_big,
-                                        device, s);
+                                        rank_stride, rank_gstride, node_off,
+                                        assign, unplaced, C, G, O, N,
+                                        fit_big, device, s);
   }
   return static_cast<int>(err);
 }

@@ -9,10 +9,13 @@ kernel, each block reading its cluster's catalog) and fetched as one
 [C, Lo] buffer in the bare result layout.  Results equal a solve of each
 cluster on its own, bit for bit.
 
+With ``resident_buf`` (a ``resident.store.ResidentBuffer``) the stacked
+input stays on the device across windows: an unchanged window reuses it
+and a churned one moves only its word delta.
+
 Not ported: ``fleet_solve`` / ``fleet_solve_pallas_sharded`` /
 ``fleet_solve_sharded_offerings``, which shard the fleet or the catalog
-over a device mesh and need more than one device, and the resident
-input buffer (``resident_buf``; ROADMAP queue 1 item 8).
+over a device mesh and need more than one device.
 """
 
 from __future__ import annotations
@@ -119,11 +122,15 @@ def fleet_solve_packed(problem: FleetProblem, *, num_nodes: int,
     fetches the assignment as COO with ``coo_state.k`` slots (dense
     without it): the finalizer re-dispatches at 4x, up to
     ``coo_state.cap``, on the sound full-buffer overflow signal, and the
-    grown capacity persists across windows."""
-    if resident_buf is not None:
-        raise NotImplementedError(
-            "the resident fleet input buffer is not ported yet (ROADMAP "
-            "queue 1 item 8)")
+    grown capacity persists across windows.  ``resident_buf`` (a
+    ``resident.store.ResidentBuffer``) keeps the stacked [C, Li] input
+    resident on the device: a window with no change uploads nothing, a
+    churned one only its padded word delta (``resident_buf.stats`` and
+    the returned delta of its ``update`` count which).  The resident
+    buffer feeds the first dispatch only: a COO re-dispatch uploads this
+    window's host buffer, since a later window's update may have
+    rewritten the resident one by the time an ``async_only`` finalizer
+    runs."""
     dev = resolve_device(device)
     C, G, O = problem.compat.shape
     N = num_nodes
@@ -134,14 +141,15 @@ def fleet_solve_packed(problem: FleetProblem, *, num_nodes: int,
     if coo_state is None:
         coo_state = CooCapacity(0, 0)
 
-    def dispatch(K):
-        out = fleet_packed_torch(upload(ins, dev), alloc_all, rank_all,
-                                 price_all, C=C, G=G, O=O, U=U_pad, N=N,
+    def dispatch(dev_ins, K):
+        out = fleet_packed_torch(dev_ins, alloc_all, rank_all, price_all,
+                                 C=C, G=G, O=O, U=U_pad, N=N,
                                  right_size=right_size, compact=K)
         return start_fetch(out)
 
     K0 = coo_state.k
-    first = dispatch(K0)
+    first = dispatch(upload(ins, dev) if resident_buf is None
+                     else resident_buf.update(ins, dev)[0], K0)
 
     def finalize():
         K, (host, event) = K0, first
@@ -153,7 +161,7 @@ def fleet_solve_packed(problem: FleetProblem, *, num_nodes: int,
                     coo_buffer_full(out_np[c], G, N, K) for c in range(C)):
                 K = grow_coo(K, coo_state.cap)
                 coo_state.k = max(coo_state.k, K)   # persist across windows
-                host, event = dispatch(K)
+                host, event = dispatch(upload(ins, dev), K)
                 continue
             return fleet_parse_outputs(out_np, C, G, N, K)
 

@@ -1,0 +1,279 @@
+"""Generation-tracked device-resident state: the store itself (port of
+``karpenter_tpu/resident/store.py``).
+
+- :class:`ResidentStore` — the solver-side store.  ``TorchSolver`` sends
+  every preference-free window of the FFD route through
+  :meth:`ResidentStore.dispatch_solve` (delta-apply + solve, one device
+  input of delta size); a host-side tracker rides
+  :meth:`ResidentStore.track_window`, which keeps the same mirror and
+  device buffer through the standalone update.
+- :class:`ResidentBuffer` — one resident int32 buffer + its host mirror;
+  the fleet keeps its stacked [C, Li] input resident with it.
+
+A state's device tensor is used only while its recorded generation
+equals the catalog's ``(generation, availability_generation)`` and the
+window's padded shape matches; anything else rebuilds from the host,
+with the reason recorded.  A failed device program invalidates the state
+and raises: the port never falls back to the classic path, which would
+hide a broken resident program behind a working one.
+
+Not ported here: the device-telemetry, metrics and profiler hooks (the
+port has no ``obs.devtel`` / ``obs.prof`` yet) and the occupancy view
+(``occupancy_tensors``, ``occupancy_rows``, ``OccupancySnapshot``),
+which reads the preempt encoder and the cluster state.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.resident.delta import (
+    DELTA_BUCKETS, REBUILD_FRACTION, WindowDelta, diff_words, empty_delta,
+    pack_window, pad_delta, pod_churn,
+)
+
+def plan_update(buf, flat: np.ndarray, generation: tuple | None):
+    """The one cold / generation / shape / oversized-delta ladder of every
+    resident consumer.  ``buf`` has mirror/dev/generation/pending_reason.
+    Returns ``(reason, idx)``: a non-empty reason means rebuild (a pending
+    invalidation reason wins over "cold"); otherwise ``idx`` holds the
+    changed words (empty = hit)."""
+    if buf.dev is None or buf.mirror is None:
+        return buf.pending_reason or "cold", None
+    if buf.generation != generation:
+        return "generation", None
+    if buf.mirror.shape != flat.shape:
+        return "shape", None
+    idx = diff_words(buf.mirror, flat)
+    if idx.size > max(64, flat.size * REBUILD_FRACTION):
+        return "delta_too_large", None
+    return "", idx
+
+
+class ResidentBuffer:
+    """One device-resident int32 buffer + its host mirror.
+
+    ``update(host, device)`` returns the device buffer to use: a window
+    with no change reuses it outright (no H2D), a small diff is scattered
+    in place as a padded (idx, val) pair, and a shape, generation or
+    device change or an oversized diff rebuilds from the host.  The
+    mirror always equals the device content.  ``dev`` is the state
+    tensor, L + 1 words with the spare word last
+    (``resident/kernels.py``)."""
+
+    __slots__ = ("name", "mirror", "dev", "generation", "stats",
+                 "pending_reason")
+
+    def __init__(self, name: str = "buffer"):
+        self.name = name
+        self.mirror: np.ndarray | None = None
+        self.dev = None
+        self.generation: tuple | None = None
+        self.stats = {"hit": 0, "delta": 0, "rebuild": 0}
+        # an invalidation's reason, reported by the next rebuild
+        self.pending_reason = ""
+
+    def invalidate(self, reason: str = "") -> None:
+        self.mirror = None
+        self.dev = None
+        self.generation = None
+        self.pending_reason = reason
+
+    def rebuild(self, flat: np.ndarray, device, generation) -> None:
+        """Replace the state with ``flat`` uploaded to ``device``."""
+        from karpenter_tpu_torch.resident.kernels import new_state
+
+        self.dev = new_state(flat, device)
+        self.mirror = flat.copy()
+        self.generation = generation
+        self.pending_reason = ""
+        self.stats["rebuild"] += 1
+
+    def update(self, host: np.ndarray, device, generation=None):
+        """-> (device buffer of ``host``'s shape, WindowDelta).  ``host``
+        must be int32.  A failed scatter invalidates the buffer and
+        raises."""
+        from karpenter_tpu_torch.resident.kernels import update_resident
+        from karpenter_tpu_torch.solver.torch_backend import upload
+
+        dev = resolve_device(device)
+        flat = host.reshape(-1)
+        if self.dev is not None and self.dev.device != dev:
+            self.invalidate("device")
+        reason, idx = plan_update(self, flat, generation)
+        if reason:
+            self.rebuild(flat, dev, generation)
+            delta = WindowDelta(mode="rebuild", words=int(flat.size),
+                                h2d_bytes=int(host.nbytes), reason=reason)
+        elif idx.size == 0:
+            self.stats["hit"] += 1
+            delta = WindowDelta(mode="hit", words=0, h2d_bytes=0)
+        else:
+            didx, dval = pad_delta(idx, flat[idx], flat.size)
+            try:
+                update_resident(self.dev, upload(didx, dev),
+                                upload(dval, dev))
+            except Exception:
+                self.invalidate("update_error")
+                raise
+            self.mirror[idx] = flat[idx]
+            self.stats["delta"] += 1
+            delta = WindowDelta(mode="delta", words=int(idx.size),
+                                h2d_bytes=int(didx.nbytes + dval.nbytes))
+        return self.dev[:-1].view(host.shape), delta
+
+
+class _SolveState:
+    """Per-(catalog uid, padded shape) resident solve state: the buffer
+    plus the tracked window's pod-key set."""
+
+    __slots__ = ("buf", "pod_keys")
+
+    def __init__(self):
+        self.buf = ResidentBuffer(name="solve")
+        self.pod_keys: frozenset = frozenset()
+
+
+class ResidentStore:
+    """The solver-side store: keyed resident solve states + counters, on
+    ``device`` (the card unless the CPU is asked for)."""
+
+    MAX_STATES = 8   # distinct (catalog uid, shape) combinations kept
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._states: dict[tuple, _SolveState] = {}
+        self.windows = 0
+        self.rebuilds = 0
+        self.invalidations = 0
+        self.last_delta: WindowDelta | None = None
+        self.last_rebuild_reason = ""
+        self.last_key: tuple | None = None
+
+    def _state_for(self, key: tuple) -> _SolveState:
+        with self._lock:
+            st = self._states.get(key)
+            if st is None:
+                while len(self._states) >= self.MAX_STATES:
+                    self._states.pop(next(iter(self._states)))
+                st = self._states[key] = _SolveState()
+            return st
+
+    def invalidate(self, reason: str = "invalidated") -> None:
+        """Drop every resident state: the next window of each key
+        rebuilds from the host, reporting ``reason``."""
+        with self._lock:
+            for st in self._states.values():
+                st.buf.invalidate(reason)
+            self.invalidations += 1
+
+    def _account(self, key: tuple, delta: WindowDelta) -> None:
+        with self._lock:
+            self.windows += 1
+            if delta.mode == "rebuild":
+                self.rebuilds += 1
+                self.last_rebuild_reason = delta.reason
+            self.last_delta = delta
+            self.last_key = key
+
+    def dispatch_solve(self, prep, packed: np.ndarray, catalog_tensors,
+                       right_size: bool):
+        """Delta-apply + solve of one prepared window on the store's
+        device; returns the device result buffer (the layout of
+        ``solve_packed_torch``).  The caller invalidates the store when
+        this raises."""
+        from karpenter_tpu_torch.resident.kernels import solve_resident
+        from karpenter_tpu_torch.solver.torch_backend import upload
+
+        catalog = prep.catalog
+        key = (catalog.uid, prep.G_pad, prep.O_pad, prep.U_pad)
+        gen = (catalog.generation, catalog.availability_generation)
+        buf = self._state_for(key).buf
+        flat = packed.reshape(-1)
+        reason, idx = plan_update(buf, flat, gen)
+        if reason:
+            buf.rebuild(flat, self.device, gen)
+            didx, dval = empty_delta(flat.size)
+            delta = WindowDelta(mode="rebuild", words=int(flat.size),
+                                h2d_bytes=int(flat.nbytes), reason=reason)
+        else:
+            didx, dval = pad_delta(idx, flat[idx], flat.size)
+            if idx.size:
+                buf.mirror[idx] = flat[idx]
+                buf.stats["delta"] += 1
+                delta = WindowDelta(
+                    mode="delta", words=int(idx.size),
+                    h2d_bytes=int(didx.nbytes + dval.nbytes))
+            else:
+                # an unchanged window: the all-padding pair still rides,
+                # so the program is the same, but it is a hit
+                buf.stats["hit"] += 1
+                delta = WindowDelta(mode="hit", words=0,
+                                    h2d_bytes=int(didx.nbytes + dval.nbytes))
+        off_alloc, off_price, off_rank = catalog_tensors
+        buf.dev, out = solve_resident(
+            buf.dev, upload(didx, self.device), upload(dval, self.device),
+            off_alloc, off_price, off_rank, G=prep.G_pad, O=prep.O_pad,
+            U=prep.U_pad, N=prep.N, right_size=right_size, compact=prep.K,
+            dense16=prep.dense16, coo16=prep.coo16)
+        self._account(key, delta)
+        return out
+
+    def track_window(self, pods, catalog, nodepool=None) -> WindowDelta:
+        """Keep the resident state of a window without solving it:
+        encode, pack, and apply the delta through the standalone
+        update."""
+        from karpenter_tpu_torch.solver.encode import encode
+
+        problem = encode(pods, catalog, nodepool)
+        packed, (G_pad, O_pad, U_pad) = pack_window(problem)
+        key = (catalog.uid, G_pad, O_pad, U_pad)
+        gen = (catalog.generation, catalog.availability_generation)
+        st = self._state_for(key)
+        arrivals, departures, cur = pod_churn(st.pod_keys, pods)
+        st.pod_keys = cur
+        _, delta = st.buf.update(packed, self.device, gen)
+        delta = WindowDelta(mode=delta.mode, words=delta.words,
+                            h2d_bytes=delta.h2d_bytes, reason=delta.reason,
+                            arrivals=arrivals, departures=departures)
+        self._account(key, delta)
+        return delta
+
+    def snapshot_state(self) -> dict | None:
+        """The most recent state's key, generation, mirror and device
+        words (fetched) — None before any window."""
+        with self._lock:
+            key = self.last_key
+            st = self._states.get(key) if key is not None else None
+        if st is None or st.buf.mirror is None or st.buf.dev is None:
+            return None
+        return {"key": key, "generation": st.buf.generation,
+                "mirror": st.buf.mirror,
+                "device": st.buf.dev[:-1].cpu().numpy()}
+
+    def stats(self) -> dict:
+        with self._lock:
+            last = self.last_delta
+            return {
+                "states": len(self._states),
+                "windows": self.windows,
+                "rebuilds": self.rebuilds,
+                "invalidations": self.invalidations,
+                "last_mode": last.mode if last else "",
+                "last_delta_words": last.words if last else 0,
+                "last_delta_h2d_bytes": last.h2d_bytes if last else 0,
+                "last_rebuild_reason": self.last_rebuild_reason,
+            }
+
+
+def resident_store_of(solver):
+    """The ResidentStore of a solver, or None."""
+    return getattr(solver, "resident", None)
+
+
+__all__ = ["DELTA_BUCKETS", "ResidentBuffer", "ResidentStore",
+           "plan_update", "resident_store_of"]

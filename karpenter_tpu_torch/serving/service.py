@@ -1,0 +1,262 @@
+"""The serving loop: a persistent device-resident solve service (port of
+``karpenter_tpu/serving/service.py``).
+
+``ServingLoop`` keeps the packed problem state on the device (a
+``ResidentBuffer``: the resident store's mirror and invalidation rules)
+and uploads each submitted window's padded word delta through pinned
+staging.  One kick per window (``serving/kernels.serve_window``) applies
+the delta and solves; the result waits in the output ring, whose copy to
+the host runs while later windows are kicked, and ``result()`` decodes
+it on the classic path's decode (``PendingSolve``).
+
+Routing, counted in ``stats()``:
+
+1. the ring (rebuild / delta / hit) — eligible windows;
+2. classic dispatch on the card — ineligible windows (preferences,
+   stochastic, affinity, flat, empty: ``classic_windows``) and windows
+   that find the output ring full (``backpressured``), which leave the
+   mirror untouched so the next admitted delta takes up their churn.
+
+A kick or fetch that fails invalidates the ring and raises: the port has
+no host failover and no classic re-solve of a failed window, which would
+hide a broken serving program behind a working one.  Not ported: the
+sharded loop (``ShardedServingLoop``), and ``track_generation`` and
+``drain``, whose callers (the chaos harness, shutdown) are not ported
+either.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+from karpenter_tpu_torch.resident.delta import empty_delta, pad_delta
+from karpenter_tpu_torch.resident.store import ResidentBuffer, plan_update
+from karpenter_tpu_torch.serving import RING_SLOTS
+from karpenter_tpu_torch.serving.oracle import RingOracle
+from karpenter_tpu_torch.serving.ring import OutputRing, OutputSlot, Staging
+
+
+class ServingPending:
+    """One ring-fed window in flight: ``result()`` claims its output slot,
+    waits for the copy, and decodes."""
+
+    __slots__ = ("_loop", "_seq", "_done")
+
+    def __init__(self, loop: "ServingLoop", seq: int):
+        self._loop = loop
+        self._seq = seq
+        self._done = None
+
+    def result(self):
+        if self._done is None:
+            self._done = self._loop._finish(self._seq)
+        return self._done
+
+
+class ServingLoop:
+    """The serving service of one ``TorchSolver`` (when
+    ``serving_enabled``), on the solver's device."""
+
+    def __init__(self, solver, capacity: int = RING_SLOTS):
+        self.solver = solver
+        self.capacity = capacity
+        self.staging = Staging(capacity, solver.device)
+        self.output = OutputRing(capacity)
+        self.buf = ResidentBuffer("serving")
+        self.oracle = RingOracle()
+        self.windows = 0             # everything submitted
+        self.ring_windows = 0        # admitted to the ring (the seq)
+        self.classic_windows = 0     # ineligible or backpressured
+        self.backpressured = 0       # a ring full -> classic dispatch
+        self.rebuilds = 0
+        self.invalidations = 0
+        self.kicks = 0
+        self.fetched = 0
+        self.overlapped = 0          # fetched after a later kick
+        self.last_mode = ""
+        self.last_reason = ""
+
+    # -- state ---------------------------------------------------------------
+
+    def invalidate(self, reason: str = "") -> None:
+        """The device state, mirror and replay die together; kicked
+        output slots stay fetchable."""
+        self.buf.invalidate(reason)
+        self.oracle.reset()
+        self.invalidations += 1
+        self.last_reason = reason
+
+    @property
+    def overlap_fraction(self) -> float:
+        return self.overlapped / self.fetched if self.fetched else 0.0
+
+    def stats(self) -> dict:
+        return {
+            "windows": self.windows,
+            "ring_windows": self.ring_windows,
+            "classic_windows": self.classic_windows,
+            "backpressured": self.backpressured,
+            "rebuilds": self.rebuilds,
+            "invalidations": self.invalidations,
+            "kicks": self.kicks,
+            "fetched": self.fetched,
+            "overlapped": self.overlapped,
+            "overlap_fraction": self.overlap_fraction,
+            "output_occupancy": self.output.occupancy,
+            "capacity": self.capacity,
+            "buffer": dict(self.buf.stats),
+            "last_mode": self.last_mode,
+            "last_reason": self.last_reason,
+        }
+
+    def snapshot_state(self) -> dict | None:
+        """Mirror, fetched device state and oracle replay; None when
+        cold."""
+        if self.buf.mirror is None or self.buf.dev is None:
+            return None
+        return {
+            "generation": self.buf.generation,
+            "mirror": self.buf.mirror.copy(),
+            "device": self.buf.dev[:-1].cpu().numpy(),
+            "oracle": None if self.oracle.mirror is None
+            else self.oracle.mirror.copy(),
+            "seq": self.oracle.last_seq,
+        }
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, problem):
+        """Route one window: the ring when eligible and there is room,
+        classic dispatch otherwise.  Returns a handle with ``result()``."""
+        self.windows += 1
+        if not self._eligible(problem):
+            return self._classic(problem, "classic")
+        prep = self.solver._prepare(problem)
+        if prep.route not in ("ffd", "resident"):
+            return self._classic(problem, "classic")
+        if self.output.full:
+            self.backpressured += 1
+            return self._classic(problem, "backpressure")
+        return self._admit(problem, prep)
+
+    def serve(self, problems, depth: int = 2):
+        """Yield Plans in submit order, keeping ``depth`` windows in
+        flight, so that each fetch overlaps a later window's kick."""
+        pending = deque()
+        for problem in problems:
+            pending.append(self.submit(problem))
+            while len(pending) >= max(1, depth):
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+    # -- internals -----------------------------------------------------------
+
+    def _eligible(self, problem) -> bool:
+        from karpenter_tpu_torch.solver.flat import flat_viable
+
+        return (problem.num_groups > 0 and problem.pref_rows is None
+                and problem.group_var is None
+                and getattr(problem, "aff", None) is None
+                and not flat_viable(problem, self.solver.options))
+
+    def _classic(self, problem, mode: str):
+        self.classic_windows += 1
+        self.last_mode = mode
+        return self.solver.solve_encoded_async(problem)
+
+    def _admit(self, problem, prep):
+        """Delta-encode against the mirror (the resident ladder), upload
+        the pair, kick.  A failure invalidates the ring and raises."""
+        catalog = prep.catalog
+        generation = (catalog.uid, catalog.generation,
+                      catalog.availability_generation)
+        flat = prep.packed.reshape(-1)
+        reason, idx = plan_update(self.buf, flat, generation)
+        try:
+            if reason:
+                mode = "rebuild"
+                didx, dval = empty_delta(flat.size)
+                self.buf.rebuild(flat, self.solver.device, generation)
+                self.rebuilds += 1
+                self.last_reason = reason
+            elif idx.size == 0:
+                mode = "hit"
+                didx, dval = pad_delta(idx, flat[idx], flat.size)
+                self.buf.stats["hit"] += 1
+            else:
+                didx, dval = pad_delta(idx, flat[idx], flat.size)
+                mode = "delta"
+                self.buf.mirror[idx] = flat[idx]
+                self.buf.stats["delta"] += 1
+            pair = self.staging.upload(didx, dval)
+            seq = self.ring_windows
+            if mode == "rebuild":
+                self.oracle.rebuild(seq, flat)
+            else:
+                self.oracle.apply(seq, didx, dval)
+            self.ring_windows += 1
+            self.last_mode = mode
+            return self._kick(problem, prep, mode, *pair)
+        except Exception:
+            self.invalidate("dispatch_error")
+            raise
+
+    def _kick(self, problem, prep, mode: str, didx, dval) -> ServingPending:
+        """Run one loop iteration on the uploaded pair and park the result
+        in the output ring."""
+        from karpenter_tpu_torch.serving.kernels import serve_window
+        from karpenter_tpu_torch.solver.torch_backend import (
+            clamp_output_opts,
+        )
+
+        prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
+            prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
+        off_alloc, off_price, off_rank = self.solver.device_offerings(
+            prep.catalog, prep.O_pad)
+        t0 = time.perf_counter()
+        self.buf.dev, out = serve_window(
+            self.buf.dev, didx, dval, off_alloc, off_price, off_rank,
+            G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
+            right_size=self.solver.options.right_size, compact=prep.K,
+            dense16=prep.dense16, coo16=prep.coo16)
+        oseq = self.output.push(OutputSlot(
+            seq=-1, dev=out, prep=prep, problem=problem, mode=mode,
+            t_disp=t0, t_issued=time.perf_counter(), kick_seq=self.kicks))
+        self.kicks += 1
+        return ServingPending(self, oseq)
+
+    def _finish(self, seq: int):
+        """Claim and fetch one output slot and decode it on the classic
+        decode (COO growth and node escalation re-dispatch as a single
+        window would).  A failed fetch invalidates the ring and
+        raises."""
+        from karpenter_tpu_torch.solver.torch_backend import PendingSolve
+
+        slot = self.output.take(seq)
+        if slot is None:
+            raise KeyError(f"serving output slot {seq} already fetched or "
+                           f"out of window")
+        self.fetched += 1
+        if self.kicks > slot.kick_seq + 1:
+            self.overlapped += 1
+        try:
+            if slot.event is not None:
+                slot.event.synchronize()
+        except Exception:
+            self.invalidate("fetch_error")
+            raise
+        pend = PendingSolve(
+            self.solver, slot.problem, prep=slot.prep, host=slot.host,
+            t_disp=slot.t_disp, t_issued=slot.t_issued,
+            path=f"serving-{self.solver.device.type}")
+        return pend.result()
+
+
+def serving_loop_of(solver):
+    """The solver's ServingLoop, or None."""
+    return getattr(solver, "serving", None)
+
+
+__all__ = ["ServingLoop", "ServingPending", "serving_loop_of"]

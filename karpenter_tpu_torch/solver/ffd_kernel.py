@@ -16,11 +16,16 @@ Contract::
     compat   int32 or uint8 [C, G, O]   group x offering feasibility
     alloc    int32 [O, 4] (ffd_scan) or [C, O, 4] (ffd_scan_fleet)
                               per-offering allocatable
-    rank     float32 [O] or [C, O]      ranking price
+    rank     float32 [O] or [C, O]      ranking price, or one row per
+             group: [G, O] or [C, G, O] (soft preferences)
     -> node_off int32 [C, N] (-1 = unused slot), assign int32 [C, G, N],
        unplaced int32 [C, G]
 
-bit-identical to the reference's ``_ffd_step`` scan.
+bit-identical to the reference's ``_ffd_step`` scan; with one rank row
+per group, to the pref scan of ``solve_core`` (``jax_backend.py:958``),
+whose step g ranks by ``rank_g = rank * (1 + lambda * miss_g)``.  The
+kernel takes that form through a group stride beside the problem stride
+(0 = one row shared by the groups).
 
 The kernel runs in two launches (see the note in ``csrc/ffd_scan.cu``):
 an offering prologue over all C x G groups, whose plain version is
@@ -45,7 +50,7 @@ WIDE_FIT = 1 << 18
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else; a caller resets an entry to 0 before a run and reads it
 # after to prove the run went through the kernel.
-LAUNCHES = {"ffd_scan": 0, "ffd_scan_fleet": 0}
+LAUNCHES = {"ffd_scan": 0, "ffd_scan_fleet": 0, "ffd_scan_pref": 0}
 
 
 def _fit_counts(resid: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
@@ -75,7 +80,8 @@ def _offer_fits(meta, compat, alloc):
 def ffd_offers_reference(meta: torch.Tensor, compat: torch.Tensor,
                          alloc: torch.Tensor, rank: torch.Tensor):
     """Plain version of the kernel's offering prologue, for C problems
-    each with its own catalog (``alloc`` [C, O, 4], ``rank`` [C, O]).
+    each with its own catalog (``alloc`` [C, O, 4], ``rank`` [C, O], or
+    [C, G, O] with a row per group).
     Per group: ``fe0`` [C, G, O] = max(0, min(compat ? fit(alloc, req) :
     0, cap)), which does not depend on node state; ``best0`` [C, G], the
     first-index argmin of rank / fe0 over fe0 > 0 (0 when there is
@@ -83,7 +89,8 @@ def ffd_offers_reference(meta: torch.Tensor, compat: torch.Tensor,
     pods left (rem) are at least maxfe caps no offering, so its (best,
     bf) is (best0, bf0)."""
     fe0 = _offer_fits(meta, compat, alloc)
-    cpp = torch.where(fe0 > 0, rank[:, None] / fe0.to(torch.float32),
+    rank_g = rank if rank.dim() == 3 else rank[:, None]
+    cpp = torch.where(fe0 > 0, rank_g / fe0.to(torch.float32),
                       float("inf"))
     best0 = torch.argmin(cpp, dim=-1)                   # first index on ties
     bf0 = torch.gather(fe0, -1, best0[..., None])[..., 0]
@@ -152,9 +159,10 @@ def open_nodes(rem, bf, ptr, idx):
 
 
 def _ffd_scan_one(meta, compat, alloc, rank, N: int):
-    """One problem, op for op the reference's ``_ffd_step`` scan.
-    int32 sums are taken wider and cast back, which wraps exactly as the
-    reference's int32 arithmetic does."""
+    """One problem, op for op the reference's ``_ffd_step`` scan; a
+    ``rank`` of [G, O] ranks step g by its row ``rank[g]``.  int32 sums
+    are taken wider and cast back, which wraps exactly as the reference's
+    int32 arithmetic does."""
     dev = meta.device
     G = meta.shape[0]
     i32 = torch.int32
@@ -187,7 +195,8 @@ def _ffd_scan_one(meta, compat, alloc, rank, N: int):
         fit_e = torch.where(compat_g, fit_e, 0)
         fit_e = torch.minimum(fit_e, cap)
         fit_e = torch.minimum(fit_e, rem)
-        cpp = torch.where(fit_e > 0, rank / fit_e.to(torch.float32),
+        rank_g = rank[g] if rank.dim() == 2 else rank
+        cpp = torch.where(fit_e > 0, rank_g / fit_e.to(torch.float32),
                           float("inf"))
         best = torch.argmin(cpp)                      # first index on ties
         bf = fit_e[best]
@@ -219,7 +228,7 @@ def ffd_scan_reference(meta: torch.Tensor, compat: torch.Tensor,
     catalog expanded over the C problems."""
     C = meta.shape[0]
     return ffd_scan_fleet_reference(meta, compat, alloc.expand(C, -1, -1),
-                                    rank.expand(C, -1), N)
+                                    rank.expand(C, *rank.shape), N)
 
 
 def _check(meta, compat, alloc, rank, N: int, fleet: bool):
@@ -236,9 +245,11 @@ def _check(meta, compat, alloc, rank, N: int, fleet: bool):
     if alloc.shape != lead + (O, 4) or alloc.dtype != torch.int32:
         raise ValueError(f"alloc must be int32 {list(lead + (O, 4))}, got "
                          f"{alloc.dtype} {tuple(alloc.shape)}")
-    if rank.shape != lead + (O,) or rank.dtype != torch.float32:
-        raise ValueError(f"rank must be float32 {list(lead + (O,))}, got "
-                         f"{rank.dtype} {tuple(rank.shape)}")
+    if rank.shape not in (lead + (O,), lead + (G, O)) \
+            or rank.dtype != torch.float32:
+        raise ValueError(f"rank must be float32 {list(lead + (O,))} or "
+                         f"{list(lead + (G, O))}, got {rank.dtype} "
+                         f"{tuple(rank.shape)}")
     if O == 0 or N <= 0:
         raise ValueError(f"need O > 0 and N > 0 (O={O}, N={N})")
     devs = {t.device for t in (meta, compat, alloc, rank)}
@@ -266,8 +277,8 @@ def _problem_stride(t: torch.Tensor, name: str) -> int:
     return t.stride(0)
 
 
-def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride, N, C, G,
-            O):
+def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride,
+            rank_gstride, N, C, G, O):
     from karpenter_tpu_torch import cuda_build
 
     lib = cuda_build.load("ffd_scan")
@@ -290,7 +301,8 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride, N, C, G,
     err = lib.ffd_scan_launch(
         meta.data_ptr(), compat.data_ptr(),
         int(compat.dtype == torch.uint8), alloc.data_ptr(), alloc_stride,
-        rank.data_ptr(), rank_stride, rows.data_ptr(), node_off.data_ptr(),
+        rank.data_ptr(), rank_stride, rank_gstride, rows.data_ptr(),
+        node_off.data_ptr(),
         assign.data_ptr(), unplaced.data_ptr(), C, G, O, N, FIT_BIG,
         dev.index, stream)
     if err != 0:
@@ -313,33 +325,53 @@ def scan_variant(O: int, N: int) -> str:
     return VARIANTS[cuda_build.load("ffd_scan").ffd_scan_variant(O, N)]
 
 
+def _group_stride(rank: torch.Tensor, per_problem: bool, O: int) -> int:
+    """Element stride between the groups' rank rows: O for a row per
+    group (rows contiguous), 0 for one row shared by the groups."""
+    if rank.dim() == (2 if per_problem else 1):
+        return 0
+    if rank.stride(-1) != 1 or rank.stride(-2) != O:
+        raise ValueError(f"the per-group rank rows must be contiguous, got "
+                         f"strides {rank.stride()}")
+    return O
+
+
+def _count(name: str, gstride: int) -> None:
+    LAUNCHES["ffd_scan_pref" if gstride else name] += 1
+
+
 def ffd_scan(meta: torch.Tensor, compat: torch.Tensor, alloc: torch.Tensor,
              rank: torch.Tensor, N: int):
-    """The FFD scan of C problems sharing one catalog: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.  Returns
-    (node_off [C, N], assign [C, G, N], unplaced [C, G]), all int32."""
+    """The FFD scan of C problems sharing one catalog (``rank`` [O], or
+    [G, O] with a row per group): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Returns (node_off [C, N], assign
+    [C, G, N], unplaced [C, G]), all int32.  A launch with a row per
+    group counts as ``ffd_scan_pref``."""
     C, G, O = _check(meta, compat, alloc, rank, N, fleet=False)
     if meta.device.type == "cpu":
         return ffd_scan_reference(meta, compat, alloc, rank, N)
     for name, t in (("alloc", alloc), ("rank", rank)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    out = _launch(meta, compat, alloc, 0, rank, 0, N, C, G, O)
-    LAUNCHES["ffd_scan"] += 1
+    gstride = _group_stride(rank, False, O)
+    out = _launch(meta, compat, alloc, 0, rank, 0, gstride, N, C, G, O)
+    _count("ffd_scan", gstride)
     return out
 
 
 def ffd_scan_fleet(meta: torch.Tensor, compat: torch.Tensor,
                    alloc: torch.Tensor, rank: torch.Tensor, N: int):
     """The FFD scan of C problems, each with its own catalog (``alloc``
-    [C, O, 4], ``rank`` [C, O]; a catalog expanded over C with stride 0
-    is one catalog shared by all): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns (node_off [C, N], assign
-    [C, G, N], unplaced [C, G]), all int32."""
+    [C, O, 4], ``rank`` [C, O] or [C, G, O] with a row per group; a
+    catalog expanded over C with stride 0 is one catalog shared by all):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Returns (node_off [C, N], assign [C, G, N], unplaced [C, G]), all
+    int32.  A launch with a row per group counts as ``ffd_scan_pref``."""
     C, G, O = _check(meta, compat, alloc, rank, N, fleet=True)
     if meta.device.type == "cpu":
         return ffd_scan_fleet_reference(meta, compat, alloc, rank, N)
+    gstride = _group_stride(rank, True, O)
     out = _launch(meta, compat, alloc, _problem_stride(alloc, "alloc"),
-                  rank, _problem_stride(rank, "rank"), N, C, G, O)
-    LAUNCHES["ffd_scan_fleet"] += 1
+                  rank, _problem_stride(rank, "rank"), gstride, N, C, G, O)
+    _count("ffd_scan_fleet", gstride)
     return out

@@ -7,7 +7,11 @@ version on the CPU), right-size and cost (``finish_pallas_solve`` /
 ``_right_size``), and pack the result with its explain words and
 telemetry block (``_pack_result_telemetry``).  :func:`solve_packed_torch`
 returns the same int32 buffer as the reference's ``solve_packed``, word
-for word except the float cost word (equal up to summation order).
+for word except the float cost word (equal up to summation order), and
+:func:`solve_packed_pref_torch` the buffer of ``solve_packed_pref``: the
+same program with soft preferences, which rank each group by its own
+row (the FFD kernel with a [G, O] rank) and right-size by the
+presence-averaged penalty.
 
 The batched programs run C problems at once: :func:`solve_packed_batch_torch`
 (C windows sharing one catalog: ``solve_packed_batch`` /
@@ -36,6 +40,7 @@ from karpenter_tpu_torch.explain import (
     BIT, DEFICIT_CLIP, DEFICIT_MASKED, RESOURCE_BITS,
 )
 from karpenter_tpu_torch.solver.ffd_kernel import ffd_scan, ffd_scan_fleet
+from karpenter_tpu_torch.solver.presence_sum import presence_sum
 from karpenter_tpu_torch.solver.result_layout import (
     BP_SCALE, SLOT_BINDING_GROUPS, SLOT_FILL_ACCEL_BP, SLOT_FILL_CPU_BP,
     SLOT_FILL_MEM_BP, SLOT_FILL_PODS_BP, SLOT_GROUPS_PLACED,
@@ -81,11 +86,13 @@ def _load(assign: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
 
 
 def right_size(node_off, load, assign, compat, off_alloc, off_rank,
-               fits=None):
+               fits=None, miss_g=None, pref_lambda: float = 0.0):
     """Per open node, the cheapest offering that fits its final ``load``
     [N,R] and admits every group placed on it (``_right_size``).
     ``fits`` [N,O] replaces the plain capacity test (the stochastic
-    route's chance check)."""
+    route's chance check).  With soft preferences (``miss_g`` float32
+    [G,O]) an offering ranks at rank * (1 + lambda * the mean miss of
+    the groups on the node)."""
     N = node_off.shape[0]
     is_open = node_off >= 0
     safe_off = torch.clamp(node_off, min=0).long()
@@ -99,7 +106,11 @@ def right_size(node_off, load, assign, compat, off_alloc, off_rank,
     if fits is None:
         fits = (off_alloc[None, :, :] >= load[:, None, :]).all(dim=2)
     candidate = all_compat & fits & is_open[:, None]
-    rank_eff = off_rank[None, :].expand(N, off_rank.shape[0])
+    if miss_g is not None:
+        rank_eff = off_rank[None, :] * (
+            1.0 + pref_lambda * _presence_mean(present, miss_g))
+    else:
+        rank_eff = off_rank[None, :].expand(N, off_rank.shape[0])
     cand_price = torch.where(candidate, rank_eff, float("inf"))
     best = torch.argmin(cand_price, dim=1).to(I32)   # first index on ties
     best_price = cand_price.min(dim=1).values
@@ -110,14 +121,26 @@ def right_size(node_off, load, assign, compat, off_alloc, off_rank,
     return torch.where(improve, best, node_off)
 
 
+def _presence_mean(present, miss_g):
+    """[N, O] mean of ``miss_g`` [G, O] over the groups present on each
+    node (``present`` [G, N] 0/1), summed group by group in order
+    (``presence_sum``: the order of the CPU program the card is held
+    against, which a matrix product on the card does not keep)."""
+    return presence_sum(present, miss_g) \
+        / torch.clamp(present.sum(dim=0), min=1.0)[:, None]
+
+
 def finish_solve(meta, compat_i, node_off, assign, off_alloc, off_price,
-                 off_rank, right_size_on: bool):
+                 off_rank, right_size_on: bool, miss_g=None,
+                 pref_lambda: float = 0.0):
     """Right-sizing on the exact integer load + open-node cost
-    (``finish_pallas_solve``)."""
+    (``finish_pallas_solve``; with ``miss_g`` the pref branch of
+    ``_right_size``)."""
     if right_size_on:
         load = _load(assign, meta[:, :4])
         node_off = right_size(node_off, load, assign, compat_i > 0,
-                              off_alloc, off_rank)
+                              off_alloc, off_rank, miss_g=miss_g,
+                              pref_lambda=pref_lambda)
     is_open = node_off >= 0
     prices = off_price[torch.clamp(node_off, min=0).long()]
     cost = torch.where(is_open, prices, torch.zeros_like(prices)).sum()
@@ -322,6 +345,49 @@ def solve_packed_torch(packed, off_alloc, off_price, off_rank, *, G: int,
     node_off, cost = finish_solve(meta, compat_i, node_off, assign,
                                   off_alloc, off_price, off_rank,
                                   right_size)
+    return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
+                                 unplaced, cost, off_alloc, compact,
+                                 dense16, coo16)
+
+
+def pref_rank_rows(pref_rows, pref_idx, off_rank, lam: float):
+    """(miss_g [G, O], rank_g [G, O]) of the pref scan (``solve_core``,
+    ``jax_backend.py:958-966``): a group's weighted miss row (0 for a
+    group with no preference, ``pref_idx`` < 0) and its ranking price
+    rank * (1 + lam * miss), in the reference's op order.  A group with
+    no preference ranks at ``off_rank`` exactly."""
+    P = pref_rows.shape[0]
+    rows = pref_rows[torch.clamp(pref_idx, 0, P - 1).long()]
+    miss_g = torch.where((pref_idx >= 0)[:, None], rows,
+                         torch.zeros((), dtype=torch.float32,
+                                     device=rows.device))
+    return miss_g, (off_rank[None, :] * (1.0 + lam * miss_g)).contiguous()
+
+
+def solve_packed_pref_torch(packed, pref_rows, pref_idx, off_alloc,
+                            off_price, off_rank, *, G: int, O: int, U: int,
+                            N: int, P: int, right_size: bool = True,
+                            compact: int = 0, dense16: bool = False,
+                            coo16: bool = False,
+                            lam_bp: int = 1500) -> torch.Tensor:
+    """One window with soft preferences (``solve_packed_pref``):
+    ``pref_rows`` float32 [P, O] weighted miss fractions, ``pref_idx``
+    int32 [G] (-1 = none), ``lam_bp`` the penalty weight in basis points.
+    The FFD kernel ranks each group by its own row (one launch, counted
+    as ``ffd_scan_pref``); right-sizing ranks by the presence-averaged
+    penalty, whose sum is the order-fixed ``presence_sum`` kernel."""
+    if pref_rows.shape[0] != P:
+        raise ValueError(f"pref_rows has {pref_rows.shape[0]} rows, P={P}")
+    lam = lam_bp / 10000.0
+    meta, compat_i, rows_g = unpack_problem(packed, off_alloc, G, O, U)
+    miss_g, rank_g = pref_rank_rows(pref_rows, pref_idx, off_rank, lam)
+    node_off, assign, unplaced = ffd_scan(
+        meta[None].contiguous(), compat_i[None].contiguous(), off_alloc,
+        rank_g, N)
+    node_off, assign, unplaced = node_off[0], assign[0], unplaced[0]
+    node_off, cost = finish_solve(meta, compat_i, node_off, assign,
+                                  off_alloc, off_price, off_rank,
+                                  right_size, miss_g=miss_g, pref_lambda=lam)
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
                                  unplaced, cost, off_alloc, compact,
                                  dense16, coo16)

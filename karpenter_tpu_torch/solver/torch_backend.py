@@ -19,12 +19,16 @@ The routes the reference's dispatch takes on its own are served too,
 each from the same packed buffer plus a small leaf: stochastic windows
 (a pool that overcommits) through ``stochastic/kernel.py``, windows
 whose encode arms the affinity lane through ``affinity/kernel.py``
-(stochastic wins when both are armed), and flat-regime windows (G >=
-``flat_min_groups``) through ``solver/flat.py``, routed before the
-packed buffer is built.  No route catches a failure of its device
+(stochastic wins when both are armed), windows with soft preferences
+through ``solve_packed_pref_torch`` (the FFD kernel with a rank row per
+group), and flat-regime windows (G >= ``flat_min_groups``) through
+``solver/flat.py``, routed before the packed buffer is built.  The
+opt-in resident store (``resident/``) carries every preference-free
+window as a word delta against a device-resident buffer, and the
+serving loop (``serving/``, :meth:`TorchSolver.serve_stream`) streams
+such deltas through a ring.  No route catches a failure of its device
 program and runs the window down another: a failed program raises.
-Soft preferences below the flat regime and the resident, serving and
-sharded options are not served yet: the solver raises
+The sharded option is not served yet: the solver raises
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -42,7 +46,7 @@ from karpenter_tpu_torch.obs.telemetry_words import decode_window
 from karpenter_tpu_torch.solver.encode import EncodedProblem
 from karpenter_tpu_torch.solver.flat import dispatch_flat, flat_viable
 from karpenter_tpu_torch.solver.packed import (
-    solve_packed_batch_torch, solve_packed_torch,
+    solve_packed_batch_torch, solve_packed_pref_torch, solve_packed_torch,
 )
 from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
 from karpenter_tpu_torch.solver.types import (
@@ -60,6 +64,10 @@ from karpenter_tpu_torch.stochastic.kernel import (
 # ---------------------------------------------------------------------------
 # Packed wire helpers (host side)
 # ---------------------------------------------------------------------------
+
+# padded bucket ladder of the preference rows (``jax_backend.py:1710``)
+PREF_BUCKETS = (4, 16, 64, 256)
+
 
 def dedup_rows(compat) -> tuple[np.ndarray, np.ndarray]:
     """Factor a raw [G, O] mask into (label_idx [G] int32, rows [U, O]
@@ -218,6 +226,17 @@ def _env_on(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
 
 
+def pad_preferences(pref_rows: np.ndarray, pref_idx: np.ndarray, G_pad: int,
+                    O_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """The preference leaf of a window: rows float32 [P_pad, O_pad] (P
+    padded to ``PREF_BUCKETS``) and pref_idx int32 [G_pad], -1 = none."""
+    P_pad = bucket(pref_rows.shape[0], PREF_BUCKETS)
+    rows = _pad2(pref_rows.astype(np.float32), P_pad, O_pad)
+    idx = np.full(G_pad, -1, np.int32)
+    idx[:pref_idx.shape[0]] = pref_idx
+    return rows, idx
+
+
 # ---------------------------------------------------------------------------
 # Host wrapper
 # ---------------------------------------------------------------------------
@@ -229,17 +248,22 @@ class _Prepared:
     built by ``_prepare`` are cached per problem as templates; every
     dispatch works on a :meth:`clone`, and growth writes back to the
     template so later windows start grown.  ``sto`` / ``z_bp`` (the
-    stochastic leaf and z(eps) in basis points) and ``aff`` (the
-    affinity leaf, when the encode armed the device lane) pick the
-    route (:attr:`route`); ``sto_grid`` keeps the stochastic fit grids of
-    a device."""
+    stochastic leaf and z(eps) in basis points), ``aff`` (the affinity
+    leaf, when the encode armed the device lane), ``pref_rows`` /
+    ``pref_idx`` (the preference leaf) and ``resident`` (the dispatching
+    solver keeps a resident store; set on every clone, never on the
+    template a problem shares between solvers) pick the route
+    (:attr:`route`); ``sto_grid`` keeps the stochastic fit grids of a
+    device."""
 
     __slots__ = ("catalog", "G_pad", "O_pad", "U_pad", "N", "N_cap", "K0",
                  "K_cap", "K", "dense16_ok", "dense16", "coo16", "packed",
-                 "sto", "z_bp", "sto_grid", "aff", "tmpl")
+                 "sto", "z_bp", "sto_grid", "aff", "pref_rows", "pref_idx",
+                 "resident", "tmpl")
 
     def __init__(self, *, catalog, G_pad, O_pad, U_pad, N, N_cap, K0,
-                 K_cap, packed, dense16_ok, sto=None, z_bp=0, aff=None):
+                 K_cap, packed, dense16_ok, sto=None, z_bp=0, aff=None,
+                 pref_rows=None, pref_idx=None):
         self.catalog = catalog
         self.G_pad = G_pad
         self.O_pad = O_pad
@@ -256,15 +280,24 @@ class _Prepared:
         self.z_bp = z_bp
         self.sto_grid = None
         self.aff = aff
+        self.pref_rows = pref_rows
+        self.pref_idx = pref_idx
+        self.resident = False
         self.tmpl = None
 
     @property
     def route(self) -> str:
-        """The route a dispatch takes, in the reference's order:
-        stochastic, then affinity, then the FFD kernel."""
+        """The route a dispatch takes, in the reference's order
+        (``jax_backend.py:1776-1882``): stochastic, then affinity, then
+        the resident store (preference-free windows only), then soft
+        preferences, then the FFD kernel."""
         if self.sto is not None:
             return "stochastic"
-        return "ffd" if self.aff is None else "affinity"
+        if self.aff is not None:
+            return "affinity"
+        if self.pref_rows is not None:
+            return "pref"
+        return "resident" if self.resident else "ffd"
 
     def clone(self) -> "_Prepared":
         c = _Prepared.__new__(_Prepared)
@@ -291,8 +324,13 @@ class TorchSolver:
     the last window or batch; ``last_stats["path"]`` is ``"ffd-cuda"``
     when the FFD scan ran as the CUDA kernel and ``"ffd-reference"`` on
     the CPU, with ``"-batch"`` appended for a batch of windows, and
-    ``"flat-"``, ``"stochastic-"`` or ``"affinity-"`` followed by the
-    device type ("cuda" or "cpu") on the other routes."""
+    ``"flat-"``, ``"stochastic-"``, ``"affinity-"``, ``"pref-"``,
+    ``"resident-"`` or ``"serving-"`` followed by the device type
+    ("cuda" or "cpu") on the other routes.  ``resident`` is the
+    :class:`~karpenter_tpu_torch.resident.store.ResidentStore` when the
+    resident option is on, ``serving`` the
+    :class:`~karpenter_tpu_torch.serving.service.ServingLoop` when the
+    serving option is on (None otherwise)."""
 
     MAX_DEVICE_CATALOGS = 16
 
@@ -303,20 +341,25 @@ class TorchSolver:
         self.path = "ffd-cuda" if self.device.type == "cuda" \
             else "ffd-reference"
         opts = self.options
-        if opts.resident == "on" or (opts.resident == "auto"
-                                     and _env_on("KARPENTER_ENABLE_RESIDENT")):
-            raise NotImplementedError(
-                "resident solves are not ported yet (ROADMAP queue 1 item 8)")
-        if opts.serving == "on" or (opts.serving == "auto"
-                                    and _env_on("KARPENTER_ENABLE_SERVING")):
-            raise NotImplementedError(
-                "the serving loop is not ported yet (ROADMAP queue 1 item 8)")
         if opts.sharded or _env_on("KARPENTER_ENABLE_SHARDED"):
             raise NotImplementedError(
                 "sharded solves are not ported yet (ROADMAP queue 1 item 10)")
         self._device_catalog: dict[tuple, tuple] = {}
         self._coo_floor: dict[int, int] = {}
         self.last_stats: dict[str, object] = {}
+        from karpenter_tpu_torch.resident import resident_enabled
+        from karpenter_tpu_torch.serving import serving_enabled
+
+        self.resident = None
+        if resident_enabled(opts):
+            from karpenter_tpu_torch.resident.store import ResidentStore
+
+            self.resident = ResidentStore(self.device)
+        self.serving = None
+        if serving_enabled(opts):
+            from karpenter_tpu_torch.serving.service import ServingLoop
+
+            self.serving = ServingLoop(self)
 
     # -- public ------------------------------------------------------------
 
@@ -348,7 +391,6 @@ class TorchSolver:
             attempt = dispatch_flat(self, problem)
             if attempt is not None:
                 return PendingSolve(self, problem, flat=attempt)
-        self.check_route(problem)
         t_enc = time.perf_counter()
         prep = self._prepare(problem)
         t0 = time.perf_counter()
@@ -356,19 +398,6 @@ class TorchSolver:
         return PendingSolve(self, problem, prep=prep, host=host, event=event,
                             t_disp=t0, t_issued=time.perf_counter(),
                             prepare_s=t0 - t_enc)
-
-    def check_route(self, problem: EncodedProblem) -> None:
-        """Raise NotImplementedError for a window the flat program did not
-        take that goes down a route this package does not serve yet:
-        soft preferences (the reference's ``solve_packed_pref``).  The
-        stochastic and the affinity route win over preferences, as in
-        the reference."""
-        if problem.pref_rows is None or problem.group_var is not None \
-                or (problem.aff is not None and problem.aff.device_armed):
-            return
-        raise NotImplementedError(
-            "soft-preference windows below the flat regime are not ported "
-            "yet (ROADMAP queue 1 item 13)")
 
     def solve_stream(self, problems, depth: int = 2, batch: object = "auto"):
         """Solve an iterable of EncodedProblems through a depth-``depth``
@@ -438,6 +467,17 @@ class TorchSolver:
         flush()
         yield from drain_to(0)
 
+    def serve_stream(self, problems, depth: int = 2):
+        """Solve an iterable of EncodedProblems through the serving loop
+        (``serving/``): eligible windows upload their word deltas and run
+        one fused kick each, and each fetch overlaps a later window's
+        kick.  Without the serving option this is
+        :meth:`solve_stream`.  Yields Plans in order."""
+        if self.serving is None:
+            yield from self.solve_stream(problems, depth=depth)
+            return
+        yield from self.serving.serve(problems, depth=depth)
+
     def solve_encoded_batch(self, problems: list[EncodedProblem]
                             ) -> list[Plan]:
         """Solve C problems sharing one catalog in ONE dispatch and ONE
@@ -477,15 +517,14 @@ class TorchSolver:
         if cache is None:
             cache = problem._prep_cache = {}
         tmpl = cache.get(key)
-        if tmpl is not None:
-            c = tmpl.clone()
-            floor = self._coo_floor.get(c.G_pad, 0)
-            if floor > c.K0:
-                c.K0 = min(floor, c.K_cap)
-            return c
-        tmpl = self._prepare_impl(problem, u_pad)
-        cache[key] = tmpl
-        return tmpl.clone()
+        if tmpl is None:
+            tmpl = cache[key] = self._prepare_impl(problem, u_pad)
+        c = tmpl.clone()
+        floor = self._coo_floor.get(c.G_pad, 0)
+        if floor > c.K0:
+            c.K0 = min(floor, c.K_cap)
+        c.resident = self.resident is not None
+        return c
 
     @staticmethod
     def _estimate_nodes(problem: EncodedProblem, n_cap: int) -> int:
@@ -530,10 +569,15 @@ class TorchSolver:
             z_bp = z_bp_for(problem.overcommit_eps)
         if problem.aff is not None and problem.aff.device_armed:
             aff = pack_affinity(problem.aff, G_pad)
+        pref_rows = pref_idx = None
+        if problem.pref_rows is not None and problem.pref_idx is not None:
+            pref_rows, pref_idx = pad_preferences(
+                problem.pref_rows, problem.pref_idx, G_pad, O_pad)
         return _Prepared(catalog=catalog, G_pad=G_pad, O_pad=O_pad,
                          U_pad=U_pad, N=N, N_cap=N_cap, K0=K0, K_cap=K_cap,
                          packed=packed, dense16_ok=max_slots < (1 << 15),
-                         sto=sto, z_bp=z_bp, aff=aff)
+                         sto=sto, z_bp=z_bp, aff=aff, pref_rows=pref_rows,
+                         pref_idx=pref_idx)
 
     def _compact_k(self, total_pods: int, G_pad: int) -> tuple[int, int]:
         """(initial, cap) COO capacity of the compacted assign; (0, 0) =
@@ -574,16 +618,31 @@ class TorchSolver:
 
     def dispatch_packed(self, prep: _Prepared) -> torch.Tensor:
         """Issue one window on the device; returns the device result.
-        The route follows the prepared leaves, in the reference's order:
-        stochastic, then affinity, then the FFD kernel."""
+        The route follows the prepared leaves (:attr:`_Prepared.route`).
+        A failure of the resident program invalidates the store and
+        raises; no route falls back to another."""
         prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
-        off_alloc, off_price, off_rank = self.device_offerings(
-            prep.catalog, prep.O_pad)
+        catalog_t = self.device_offerings(prep.catalog, prep.O_pad)
+        route = prep.route
+        if route == "resident":
+            try:
+                return self.resident.dispatch_solve(
+                    prep, prep.packed, catalog_t, self.options.right_size)
+            except Exception:
+                self.resident.invalidate("dispatch_error")
+                raise
+        off_alloc, off_price, off_rank = catalog_t
         packed = upload(prep.packed, self.device)
         kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
                   right_size=self.options.right_size, compact=prep.K,
                   dense16=prep.dense16, coo16=prep.coo16)
+        if route == "pref":
+            return solve_packed_pref_torch(
+                packed, upload(prep.pref_rows, self.device),
+                upload(prep.pref_idx, self.device), off_alloc, off_price,
+                off_rank, P=prep.pref_rows.shape[0],
+                lam_bp=int(self.options.preference_lambda * 10000), **kw)
         if prep.sto is not None:
             sto = upload(prep.sto, self.device)
             kd, kc = self._fit_grids(prep, sto, off_alloc)
@@ -655,15 +714,18 @@ class PendingSolve:
     route: a program that fails raises."""
 
     __slots__ = ("_solver", "_problem", "_prep", "_flat", "_host", "_event",
-                 "_t_disp", "_t_issued", "_prepare_s", "_done")
+                 "_t_disp", "_t_issued", "_prepare_s", "_done", "_path")
 
     def __init__(self, solver, problem, prep=None, host=None, event=None,
                  t_disp=0.0, t_issued=0.0, prepare_s=0.0, done=None,
-                 flat=None):
+                 flat=None, path=None):
         self._solver = solver
         self._problem = problem
         self._prep = prep
         self._flat = flat
+        # the path a window reports when it did not come from dispatch
+        # (a serving kick); None = the prepared route's
+        self._path = path
         self._host = host
         self._event = event
         self._t_disp = t_disp
@@ -713,7 +775,7 @@ class PendingSolve:
                                         prep.dense16, prep.coo16)
             t_end = time.perf_counter()
             solver.last_stats = {
-                "path": solver.route_path(prep.route),
+                "path": self._path or solver.route_path(prep.route),
                 "device": str(solver.device),
                 "prepare_s": self._prepare_s, "wall_s": t_fetch - t_disp,
                 "dispatch_s": t_issued - t_disp,
@@ -726,6 +788,11 @@ class PendingSolve:
                 "telemetry": decode_window(
                     out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
                     escalations=escalations, coo_growths=coo_growths)}
+            if prep.route == "resident":
+                delta = solver.resident.last_delta
+                solver.last_stats.update(h2d_bytes=delta.h2d_bytes,
+                                         resident_mode=delta.mode,
+                                         delta_words=delta.words)
             return self._done
 
 

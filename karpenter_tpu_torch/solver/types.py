@@ -19,8 +19,9 @@ from karpenter_tpu_torch.catalog.arrays import CatalogArrays
 @dataclass
 class SolverOptions:
     """Solver configuration: the reference's options that the served
-    routes read, plus the gates of the planes not served yet (resident,
-    serving, sharded), which raise when set."""
+    routes and planes read (resident and serving: "on", "off", or
+    "auto" for their environment opt-ins), plus the gate of the sharded
+    plane, not served yet, which raises when set."""
 
     max_nodes: int = 4096           # static bound on nodes per solve
     right_size: bool = True         # post-pass: re-pick cheapest fitting offering
@@ -39,9 +40,9 @@ class SolverOptions:
                                     # for viable windows, "off" never
     flat_min_groups: int = 2048     # G threshold of the flat regime
     preference_lambda: float = 0.15  # soft-preference penalty weight of
-                                     # the flat program's class ranking
-    resident: str = "auto"          # device-resident state: not served yet
-    serving: str = "auto"           # persistent serving loop: not served yet
+                                     # the pref scan and the flat program
+    resident: str = "auto"          # device-resident state (resident/)
+    serving: str = "auto"           # persistent serving loop (serving/)
     sharded: int = 0                # sharded service: not served yet
 
 

@@ -16,7 +16,9 @@ flat regime: near-unique request shapes), ``affinity_bench_pods`` (the
 affinity plane: co-location, anti-affinity and hostname spread menus)
 and ``stochastic_pods`` (the stochastic plane: a bounded menu of usage
 distributions), copies of ``bench.py``'s ``build_hetero_workload``,
-``_affinity_bench_pods`` and the pod menu of ``run_stochastic``.
+``_affinity_bench_pods`` and the pod menu of ``run_stochastic``; and
+``with_preferences``, which gives a window soft preferences (the
+soft-preference route below the flat regime).
 
 The same seed gives the same ``CatalogArrays`` fields and the same pods
 as the reference, which ``tests/test_torch_workload.py`` checks field by
@@ -26,7 +28,7 @@ field.
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -273,3 +275,23 @@ def stochastic_pods(num_pods: int, seed: int = 13) -> list[PodSpec]:
                             requests=ResourceRequests(cpu, mem, 0, 1),
                             usage=usage))
     return pods
+
+
+def with_preferences(pods: list[PodSpec]) -> list[PodSpec]:
+    """The pods with soft preferences: pod i prefers spot capacity
+    (weight 100) when i % 7 == 0 and zone us-south-{i % 3 + 1} (weight
+    50) when i % 11 == 0, so pods with both terms miss fractionally."""
+    from dataclasses import replace
+
+    out = []
+    for i, p in enumerate(pods):
+        terms = []
+        if i % 7 == 0:
+            terms.append((100, Requirement(LABEL_CAPACITY_TYPE, Operator.IN,
+                                           (CAPACITY_TYPE_SPOT,))))
+        if i % 11 == 0:
+            terms.append((50, Requirement(LABEL_ZONE, Operator.IN,
+                                          (f"{REGION}-{i % 3 + 1}",))))
+        out.append(replace(p, preferred_requirements=tuple(terms))
+                   if terms else p)
+    return out

@@ -276,6 +276,78 @@ def test_ffd_kernel_ulp_tie_and_branches(cuda_device):
     assert branches["uncapped"] > 0 and branches["capped"] > 0
 
 
+def _group_rank(rank, G, seed):
+    """A rank row per group, formed as the pref scan forms it: the
+    shared row scaled by 1 + 0.5 * miss, with fractional misses, and no
+    preference (the shared row itself) for some groups."""
+    rng = np.random.RandomState(seed)
+    miss = rng.choice(np.float32([0, 1 / 3, 2 / 3, 1]),
+                      size=(G, rank.shape[0]))
+    miss[rng.rand(G) < 0.3] = 0
+    return rank[None, :] * (np.float32(1) + np.float32(0.5) * miss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O, variant", [(3072, 2), (4096, 1), (5000, 0)])
+def test_ffd_kernel_group_rank_rows(cuda_device, O, variant):
+    """A rank row per group ([G, O], the soft-preference scan) in each
+    instantiation of the chain kernel, against the plain version; over
+    the seeds both the uncapped and the capped branch run, each launch
+    counts as ffd_scan_pref, and a fleet of [C, G, O] ranks equals its
+    plain version too."""
+    N = 512 if variant == 2 else 8192
+    assert scan_variant(O, N) == VARIANTS[variant]
+    branches = {"uncapped": 0, "capped": 0}
+    for seed in range(3):
+        meta, compat, alloc, rank = _inputs(10 * variant + seed, G=64, O=O)
+        rank_g = _group_rank(rank, 64, seed)
+        meta, compat, alloc, rank_g = (
+            torch.from_numpy(x).to(cuda_device)
+            for x in (meta, compat, alloc, rank_g))
+        before = dict(ffd_kernel.LAUNCHES)
+        got = ffd_scan(meta[None], compat[None], alloc, rank_g, N)
+        assert ffd_kernel.LAUNCHES["ffd_scan_pref"] == \
+            before["ffd_scan_pref"] + 1
+        assert ffd_kernel.LAUNCHES["ffd_scan"] == before["ffd_scan"]
+        want = ffd_scan_reference(meta[None], compat[None], alloc, rank_g, N)
+        _exact(got, want)
+        counts = chain_branches(meta[None], compat[None], alloc, *want)
+        for k in branches:
+            branches[k] += counts[k]
+    assert branches["uncapped"] > 0 and branches["capped"] > 0
+    probs = [_inputs(100 + c, G=64, O=O) for c in range(3)]
+    meta, compat, alloc, rank = (
+        torch.from_numpy(np.stack([p[i] for p in probs])).to(cuda_device)
+        for i in range(4))
+    rank_g = torch.stack([torch.from_numpy(_group_rank(p[3], 64, c))
+                          for c, p in enumerate(probs)]).to(cuda_device)
+    _exact(ffd_scan_fleet(meta, compat, alloc, rank_g, N),
+           ffd_scan_fleet_reference(meta, compat, alloc, rank_g, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G, N, O", [(512, 512, 3072), (64, 64, 129),
+                                     (341, 384, 1), (0, 8, 16)])
+def test_presence_sum_kernel_matches_plain_version(cuda_device, G, N, O):
+    """The ordered presence sums of the pref right-size, bit for bit
+    against one ordered ``addcmul_`` per group; one launch counted."""
+    from karpenter_tpu_torch.solver.presence_sum import (
+        LAUNCHES, presence_sum, presence_sum_reference,
+    )
+
+    rng = np.random.RandomState(G + N + O)
+    present = torch.from_numpy(
+        (rng.rand(G, N) < 0.05).astype(np.float32)).to(cuda_device)
+    miss = torch.from_numpy(rng.choice(
+        np.float32([0, 1 / 3, 2 / 3, 0.1, 1]), size=(G, O))).to(cuda_device)
+    before = LAUNCHES["presence_sum"]
+    got = presence_sum(present, miss)
+    assert LAUNCHES["presence_sum"] == before + 1
+    want = presence_sum_reference(present, miss)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("segments", [1, 5, 129, 3073])
 def test_segment_sum_kernel_matches_plain_version(cuda_device, segments):
@@ -304,7 +376,7 @@ def test_segment_sum_kernel_matches_plain_version(cuda_device, segments):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["flat", "affinity", "stochastic"])
+@pytest.mark.parametrize("route", ["flat", "affinity", "stochastic", "pref"])
 def test_route_on_card_matches_cpu(cuda_device, route):
     from karpenter_tpu_torch.apis.nodeclaim import NodePool
     from karpenter_tpu_torch.solver.types import SolverOptions
@@ -319,10 +391,13 @@ def test_route_on_card_matches_cpu(cuda_device, route):
         pods = workload.affinity_bench_pods(
             "ap0", 300, np.random.RandomState(190), services=4,
             spread_sets=2)
-    else:
+    elif route == "stochastic":
         catalog = workload.build_catalog(60)
         pods = workload.stochastic_pods(300, seed=3)
         pool = NodePool(name="default", overcommit=0.05)
+    else:
+        pods, catalog = workload.build_workload(600, 60, seed=5)
+        pods = workload.with_preferences(pods)
     request = SolveRequest(pods, catalog, pool)
     card = TorchSolver(opts, device=cuda_device)
     plan = card.solve(request)
@@ -332,3 +407,30 @@ def test_route_on_card_matches_cpu(cuda_device, route):
         [(n.offering_index, n.pod_names) for n in cpu_plan.nodes]
     assert plan.unplaced_pods == cpu_plan.unplaced_pods
     assert validate_plan(plan, pods, catalog, pool) == []
+
+
+@pytest.mark.cuda
+def test_serving_staging_pinned_rotation(cuda_device):
+    """Pinned staging pairs in rotation: every upload lands on the card
+    intact, a reused slot waits for its last copy, and refilling the
+    host pair afterwards leaves the device pair as it was."""
+    from karpenter_tpu_torch.serving.ring import Staging
+
+    staging = Staging(2, device=cuda_device)
+    kept = []
+    for k in range(5):
+        n = 64 if k < 3 else 128
+        rng = np.random.RandomState(k)
+        didx = rng.randint(0, 1000, n).astype(np.int32)
+        dval = rng.randint(-9, 9, n).astype(np.int32)
+        kept.append((didx, dval, staging.upload(didx, dval)))
+        didx[:] = -1
+    torch.cuda.synchronize()
+    for k, (didx, dval, (d_idx, d_val)) in enumerate(kept):
+        rng = np.random.RandomState(k)
+        n = 64 if k < 3 else 128
+        assert d_idx.device.type == "cuda"
+        np.testing.assert_array_equal(d_idx.cpu().numpy(),
+                                      rng.randint(0, 1000, n))
+        np.testing.assert_array_equal(d_val.cpu().numpy(), dval)
+    assert staging.uploads == 5

@@ -243,11 +243,48 @@ def test_fleet_async_matches_sync():
         np.testing.assert_array_equal(a, b)
 
 
-def test_fleet_resident_buffer_is_not_served():
-    _, tfleet = build_fleet(C=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet_solve_packed(tfleet, num_nodes=128, device="cpu",
-                           resident_buf=object())
+def test_fleet_resident_buffer_matches_reference():
+    """``resident_buf`` keeps the stacked input resident: the results of
+    the reference's resident fleet, and an unchanged window is a hit."""
+    from karpenter_tpu.resident.store import ResidentBuffer as JBuffer
+
+    from karpenter_tpu_torch.resident.store import ResidentBuffer
+
+    jfleet, tfleet = build_fleet(C=2)
+    jbuf, tbuf = JBuffer("fleet"), ResidentBuffer("fleet")
+    for _ in range(2):
+        got = fleet_solve_packed(tfleet, num_nodes=128, device="cpu",
+                                 resident_buf=tbuf)
+        want = fleet_solve_pallas(jfleet, num_nodes=128, interpret=True,
+                                  resident_buf=jbuf)
+        assert_fleet_equal(got, want)
+    assert tbuf.stats == jbuf.stats == {"hit": 1, "delta": 0, "rebuild": 1}
+
+
+def test_fleet_resident_coo_regrowth_reads_its_own_window():
+    """Two pipelined windows share the resident buffer and a COO
+    capacity too small for either: the first, finalized after the second
+    has rewritten the buffer in place, re-dispatches on its own input."""
+    import copy
+
+    from karpenter_tpu_torch.resident.store import ResidentBuffer
+
+    _, first = build_fleet(C=2)
+    second = copy.deepcopy(first)
+    second.group_count[1, 0] -= 1
+    want = [fleet_solve_packed(p, num_nodes=128, device="cpu")
+            for p in (first, second)]
+    buf, coo = ResidentBuffer("fleet"), CooCapacity(8, 4096)
+    fins = [fleet_solve_packed(p, num_nodes=128, device="cpu",
+                               coo_state=coo, resident_buf=buf,
+                               async_only=True) for p in (first, second)]
+    assert buf.stats == {"hit": 0, "delta": 1, "rebuild": 1}
+    got_second = fins[1]()
+    got_first = fins[0]()
+    assert coo.k > 8
+    assert_fleet_equal(got_second, want[1])
+    assert_fleet_equal(got_first, want[0])
+    assert not np.array_equal(want[0][1], want[1][1])
 
 
 def test_fleet_default_device_is_the_card(monkeypatch):

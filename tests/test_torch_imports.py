@@ -49,11 +49,21 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     res = _probe()
     assert res["bad"] == []
     assert res["torch"]
-    # the walk really covered the package (kernel wrapper, build, carry)
+    # the walk really covered the package (kernel wrapper, build, carry,
+    # the resident store and the serving loop)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
-              "karpenter_tpu_torch.workload"):
+              "karpenter_tpu_torch.workload",
+              "karpenter_tpu_torch.solver.presence_sum",
+              "karpenter_tpu_torch.resident.delta",
+              "karpenter_tpu_torch.resident.kernels",
+              "karpenter_tpu_torch.resident.store",
+              "karpenter_tpu_torch.serving.ring",
+              "karpenter_tpu_torch.serving.oracle",
+              "karpenter_tpu_torch.serving.kernels",
+              "karpenter_tpu_torch.serving.service",
+              "karpenter_tpu_torch.serving.validate"):
         assert m in res["modules"]
 
 

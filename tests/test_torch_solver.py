@@ -9,8 +9,9 @@ order), on unplaced pods and their reasons, and on cost to a relative
 1e-5; the port's ``validate_plan`` must come back clean.  Windows that
 force node escalation and COO growth, every output mode through
 explicit options, one small window on each route the reference's
-dispatch takes on its own (affinity, stochastic and flat: served and
-equal; soft preferences below the flat regime: NotImplementedError) are
+dispatch takes on its own (soft preferences, affinity, stochastic and
+flat) and the resident and serving options (each served and equal to the
+reference's plan; the sharded option raises NotImplementedError) are
 covered too.
 """
 
@@ -309,20 +310,16 @@ def _route_windows(jcatalog, tcatalog):
 
 @pytest.mark.parametrize("route", ["preferences", "affinity", "stochastic",
                                    "flat"])
-def test_unserved_route_raises(jcatalog, tcatalog, route):
-    """Soft preferences below the flat regime are the one route the port
-    does not serve yet: it raises NotImplementedError naming the ROADMAP.
-    The affinity, stochastic and flat routes are served, and their plans
-    equal the reference's."""
+def test_route_served_and_equal(jcatalog, tcatalog, route):
+    """Every route the reference's dispatch takes on its own is served
+    (soft preferences below the flat regime on the FFD kernel with a rank
+    row per group), and its plans equal the reference's."""
     windows = _route_windows(jcatalog, tcatalog)
     args, opts = windows["t"][route]
     solver = TorchSolver(TSolverOptions(**opts), device="cpu")
-    if route == "preferences":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solver.solve(SolveRequest(*args))
-        return
     tplan = solver.solve(SolveRequest(*args))
-    assert solver.last_stats["path"] == f"{route}-cpu"
+    assert solver.last_stats["path"] == \
+        f"{'pref' if route == 'preferences' else route}-cpu"
     jargs, _ = windows["j"][route]
     assert_plans_equal(jax_solver(**opts).solve(JSolveRequest(*jargs)),
                        tplan)
@@ -331,9 +328,29 @@ def test_unserved_route_raises(jcatalog, tcatalog, route):
 
 @pytest.mark.parametrize("opts", [{"resident": "on"}, {"serving": "on"},
                                   {"sharded": 2}])
-def test_unserved_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSolver(TSolverOptions(**opts), device="cpu")
+def test_options_served_and_equal_sharded_raises(jcatalog, tcatalog, opts):
+    """The resident and serving options are served, with the reference's
+    plans under the same options; the sharded service is not ported and
+    raises NotImplementedError naming the ROADMAP."""
+    if "sharded" in opts:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchSolver(TSolverOptions(**opts), device="cpu")
+        return
+    jpods, tpods = both(mixed_specs(120, 4))
+    solver = TorchSolver(TSolverOptions(**opts), device="cpu")
+    jsolver = jax_solver(**opts)
+    jprob, tprob = encode(jpods, jcatalog), t_encode(tpods, tcatalog)
+    if "serving" in opts:
+        tplans = list(solver.serve_stream([tprob, tprob]))
+        jplans = list(jsolver.serve_stream([jprob, jprob]))
+        assert solver.serving.stats()["ring_windows"] == 2
+    else:
+        tplans = [solver.solve_encoded(tprob) for _ in range(2)]
+        jplans = [jsolver.solve_encoded(jprob) for _ in range(2)]
+        assert solver.resident.stats()["last_mode"] == "hit"
+    for jplan, tplan in zip(jplans, tplans):
+        assert_plans_equal(jplan, tplan)
+        assert validate_plan(tplan, tpods, tcatalog) == []
 
 
 def test_make_solver_is_unwrapped_torch_solver(jcatalog, tcatalog):
