@@ -15,11 +15,15 @@ routes the default dispatch takes on its own, each through ``solve`` at
 affinity plane and the stochastic plane; then the soft-preference window
 (the FFD kernel with a rank row per group), the resident store's churn
 stream, the serving loop's churn stream and the fleet with its resident
-input; and checks that each path ran through its hand-written CUDA
-kernels (the flat program's order-fixed segment sum, the pref
-right-size's order-fixed presence sum; the affinity and stochastic
-scans are PyTorch ops and run none).  Phases, in
-order; any failure exits non-zero and prints no result line:
+input, then the what-if plane (64 scenarios in one stacked plan), the
+gang plane and the preemption plane at the shapes of bench.py's
+``run_whatif``, ``run_gang`` and ``run_preempt``; and checks that each
+path ran through its hand-written CUDA kernels (the order-fixed cost sum
+on every path that writes a cost word, the flat program's order-fixed
+segment sum, the pref right-size's order-fixed presence sum; the
+affinity and stochastic scans and the gang and preemption grids are
+PyTorch ops).  Phases, in order; any failure exits non-zero and prints
+no result line:
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from ``karpenter_tpu_torch/csrc`` (one nvcc per
@@ -40,12 +44,15 @@ order; any failure exits non-zero and prints no result line:
    the chain kernel must have run, and the uncapped branch, the capped
    branch and the summed takes (groups that request nothing) of its
    step, counted on the host from the plain version's outputs; with a
-   rank row per group, every instantiation and both branches;
+   rank row per group, every instantiation and both branches; then
+   ``cost_sum`` bit for bit against its plain version over C in {1, 8,
+   64}, every N in NODE_BUCKETS and ragged lengths, with 30-70% of the
+   nodes open and totals small and near 2^24;
 4. the paths, each with every launch count set to 0 just before and
    read just after, each needing its kernels launched and no pod left
    unplaced: (a) the main path, whose plan must validate clean and
    whose packed result must equal the plain CPU solve word for word
-   (the float cost word to a relative 1e-5); (b) the fleet, whose
+   (the float cost word included); (b) the fleet, whose
    [C, Lo] result must equal the plain CPU fleet program word for word;
    (c) the stream of 64 windows at depth 32, batch 16, each plan equal
    to its single-window plan and clean; (d) the zone-candidate window,
@@ -70,8 +77,9 @@ order; any failure exits non-zero and prints no result line:
    ``torch.matmul``; (i) the resident stream
    (bench.py's ``run_resident`` churn at 10k x 500), resident on and off
    alternately, every plan equal, each resident solve launching one
-   ``ffd_scan`` and nothing else (counts zeroed before it and read after
-   it), its raw result equal to the classic dispatch's word for word,
+   ``ffd_scan``, one ``cost_sum`` and nothing else (counts zeroed
+   before it and read after it), its raw result equal to the classic
+   dispatch's word for word,
    the device state equal to the mirror after every window, the modes
    rebuild, delta and hit all seen; (j)
    the serving stream (``run_serving``'s churn at 10k x 500, depth 2, a
@@ -80,7 +88,21 @@ order; any failure exits non-zero and prints no result line:
    to the classic one, and the port's 8-seed parity checks empty; (k)
    the fleet with ``resident_buf``: a rebuild, a hit on the same window
    and a delta with one cluster churned, each equal to the fleet without
-   it;
+   it; (l) the what-if plane at ``run_whatif``'s shape (10k pods x 500
+   types, K = 64 from its menu of arrival waves, spot storm, zone
+   blackout and quota clamp): one ``ffd_scan_fleet`` and one
+   ``cost_sum`` launch for the stacked plan and nothing else, every
+   scenario's words equal to ``solve_packed_torch`` of its perturbed
+   buffer on the card (cost word included) and to the numpy oracle up to
+   the cost word, ``validate_whatif`` clean, ``ffd_scan_fleet`` exact
+   against its plain version at C = 64 and C = 128, ``cost_sum`` on the
+   plan's own prices, and the stacked p50 beside 64 sequential single
+   solves and ``plan_host``; (m) the gang plane at ``run_gang``'s shape
+   (64 gangs x 16 members, 500 accelerator types, seed 17): the torch
+   grid on the card equal to the numpy grid, ``validate_gang_plan``
+   clean, no partial gang; (n) the preemption plane at ``run_preempt``'s
+   shape (10k pending, 2000 claims, seed 31): the torch fit grid on the
+   card equal to the numpy grid, ``validate_preemption_plan`` clean;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -126,7 +148,9 @@ from karpenter_tpu_torch.parallel import (
 from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.affinity.validate import validate_affinity_plan
 from karpenter_tpu_torch.apis.nodeclaim import NodePool
-from karpenter_tpu_torch.solver import ffd_kernel, presence_sum, segment_sum
+from karpenter_tpu_torch.solver import (
+    cost_sum, ffd_kernel, presence_sum, segment_sum,
+)
 from karpenter_tpu_torch.solver import flat as flat_mod
 from karpenter_tpu_torch.solver import packed as tp
 from karpenter_tpu_torch.resident import delta as resident_delta
@@ -138,6 +162,20 @@ from karpenter_tpu_torch.solver.types import (
     FIT_BIG, GROUP_BUCKETS, NODE_BUCKETS, OFFERING_BUCKETS, bucket,
 )
 from karpenter_tpu_torch.stochastic.kernel import solve_packed_stochastic
+from karpenter_tpu_torch import whatif
+from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+from karpenter_tpu_torch.apis.podgroup import PodGroup
+from karpenter_tpu_torch.core.cluster import ClusterState
+from karpenter_tpu_torch.gang import GangOptions, GangPlanner, encode_gangs
+from karpenter_tpu_torch.preempt import (
+    PlannerOptions, PreemptionPlanner, encode_victims, group_node_compat,
+)
+from karpenter_tpu_torch.solver.validate import (
+    validate_gang_plan, validate_preemption_plan,
+)
+from karpenter_tpu_torch.whatif import kernels as whatif_kernels
+from karpenter_tpu_torch.whatif import oracle as whatif_oracle
+from karpenter_tpu_torch.whatif import scenario as whatif_scenario
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -175,6 +213,12 @@ ROUTE_WARM = 20
 # size: 1-5 departures and 1-5 arrivals of 500m/1Gi pods per window
 RESIDENT = dict(seed=77, windows=10, rng="bench-resident", tag="rw")
 SERVING = dict(seed=78, windows=8, rng="bench-serving", tag="sw", depth=2)
+# bench.py::run_whatif (10k pods x 500 types, K = 64 from the menu seeded
+# 5), run_gang (64 gangs x 16 members, 500 accelerator types, seed 17)
+# and run_preempt (10k pending, 2000 claims, 500 types, seed 31)
+WHATIF = dict(pods=10_000, types=500, K=64, menu_seed=5, iters=6)
+GANG = dict(gangs=64, members=16, types=500, seed=17, iters=10)
+PREEMPT = dict(pending=10_000, claims=2000, types=500, seed=31, iters=5)
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
@@ -191,6 +235,9 @@ KERNELS = {
     "presence_sum": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/presence_sum.cu",
         replaces="karpenter_tpu/solver/jax_backend.py:281"),
+    "cost_sum": dict(
+        route="cuda", source="karpenter_tpu_torch/csrc/cost_sum.cu",
+        replaces="karpenter_tpu/solver/jax_backend.py:746"),
 }
 # the module, not the ``encode`` function the solver package re-exports
 encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
@@ -200,7 +247,8 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-COUNTERS = (ffd_kernel.LAUNCHES, segment_sum.LAUNCHES, presence_sum.LAUNCHES)
+COUNTERS = (ffd_kernel.LAUNCHES, segment_sum.LAUNCHES, presence_sum.LAUNCHES,
+            cost_sum.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -244,21 +292,18 @@ def max_abs_err(got, want) -> int:
 
 def words_equal(label: str, card: np.ndarray, plain: np.ndarray,
                 cost_word: int) -> tuple[float, float]:
-    """A packed result row against its plain CPU twin: every word equal
-    but the float cost word, which must agree to a relative 1e-5."""
+    """A packed result row against its plain CPU twin: every word equal,
+    the float cost word (at ``cost_word``) included."""
     if card.shape != plain.shape:
         raise AssertionError(f"{label}: result lengths {card.shape} vs "
                              f"{plain.shape}")
-    mask = np.ones(card.shape[0], bool)
-    mask[cost_word] = False
-    bad = np.nonzero((card != plain) & mask)[0]
+    bad = np.nonzero(card != plain)[0]
     if bad.size:
         raise AssertionError(f"{label}: packed result differs from the CPU "
-                             f"in {bad.size} words, first at {bad[0]}")
+                             f"in {bad.size} words, first at {bad[0]} "
+                             f"(cost word at {cost_word})")
     c_card = float(card[cost_word:cost_word + 1].view(np.float32)[0])
     c_cpu = float(plain[cost_word:cost_word + 1].view(np.float32)[0])
-    if abs(c_card - c_cpu) > 1e-5 * max(abs(c_cpu), 1e-30):
-        raise AssertionError(f"{label}: cost word {c_card} vs {c_cpu}")
     return c_card, c_cpu
 
 
@@ -271,8 +316,7 @@ def plans_equal(label: str, got, want) -> None:
     if plan_view(got) != plan_view(want):
         raise AssertionError(f"{label}: plan differs from the reference "
                              f"plan")
-    if abs(got.total_cost_per_hour - want.total_cost_per_hour) > \
-            1e-5 * max(abs(want.total_cost_per_hour), 1e-30):
+    if got.total_cost_per_hour != want.total_cost_per_hour:
         raise AssertionError(f"{label}: cost {got.total_cost_per_hour} vs "
                              f"{want.total_cost_per_hour}")
 
@@ -702,7 +746,7 @@ def phase_main_path(dev, pods, catalog, tally: dict):
     cold_s = time.perf_counter() - t0
     launches = launch_counts()
     stats = dict(solver.last_stats)
-    require_launches(launches, ["ffd_scan"], "main path")
+    require_launches(launches, ["ffd_scan", "cost_sum"], "main path")
     if stats["path"] != solver.path:          # "ffd-cuda" on the card
         raise AssertionError(f"main path took {stats['path']!r}")
     clean_and_placed("main path", plan, pods, catalog)
@@ -789,7 +833,7 @@ def phase_fleet(dev) -> dict:
         N = min(N_cap, bucket(N * 4, NODE_BUCKETS))    # escalate, as bench
     cold_s = time.perf_counter() - t0
     launches = launch_counts()
-    require_launches(launches, ["ffd_scan_fleet"], "fleet path")
+    require_launches(launches, ["ffd_scan_fleet", "cost_sum"], "fleet path")
     node_off, assign, unplaced, cost = out
     if unplaced.sum():
         raise AssertionError(f"fleet left {int(unplaced.sum())} pods "
@@ -815,7 +859,7 @@ def phase_fleet(dev) -> dict:
         f"cluster {nodes}, total cost {float(cost.sum()):.4f} $/h, "
         f"validate_plan clean per cluster, launches {launches}; [C, Lo] = "
         f"{list(card.shape)} equal to the plain CPU fleet program word for "
-        f"word (cost words to 1e-5); build+encode {build_s:.3f} s, cold "
+        f"word (cost words included); build+encode {build_s:.3f} s, cold "
         f"fleet solve {cold_s * 1e3:.3f} ms")
     return {"stacked": stacked, "N": N, "U": U, "packed": packed,
             "dev_catalog": dev_catalog, "launches": launches,
@@ -850,7 +894,8 @@ def phase_stream(dev, catalog) -> dict:
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
     stats = dict(solver.last_stats)
-    require_launches(launches, ["ffd_scan_fleet"], "stream path")
+    require_launches(launches, ["ffd_scan_fleet", "cost_sum"],
+                     "stream path")
     if stats["path"] != solver.path + "-batch" or len(plans) != n:
         raise AssertionError(f"stream: path {stats['path']!r}, "
                              f"{len(plans)} plans of {n}")
@@ -893,7 +938,7 @@ def phase_zone(dev, pods, catalog) -> dict:
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
     stats = dict(solver.last_stats)
-    require_launches(launches, ["ffd_scan", "ffd_scan_fleet"],
+    require_launches(launches, ["ffd_scan", "ffd_scan_fleet", "cost_sum"],
                      "zone-candidate path")
     if stats["path"] != solver.path + "-batch":
         raise AssertionError(f"zone-candidate rounds took {stats['path']!r}"
@@ -1034,7 +1079,7 @@ def phase_flat(dev, card: str) -> dict:
             HEADLINE["pods"], HEADLINE["types"], **w)
         request = SolveRequest(pods, catalog)
         solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
-            dev, label, "flat", request, need=("segment_sum",))
+            dev, label, "flat", request, need=("segment_sum", "cost_sum"))
         clean_and_placed(label, plan, pods, catalog)
         problem = encode_mod.encode(pods, catalog)
         tmpl = flat_mod.flat_template(solver, problem)
@@ -1130,7 +1175,7 @@ def segment_sum_checks(calls, card: str) -> dict:
 
 def packed_route_check(dev, label: str, solver, problem, program_of):
     """The card's packed result of a window against the CPU solver's on
-    the same template, word for word (cost to 1e-5); returns the device
+    the same template, word for word (the cost word too); returns the device
     program (a zero-argument callable on the card's tensors) for timing,
     and the prepared shapes."""
     prep = solver._prepare(problem)
@@ -1157,7 +1202,7 @@ def phase_affinity(dev, card: str) -> dict:
         np.random.RandomState(AFFINITY["rng_seed"]))
     request = SolveRequest(pods, catalog)
     solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
-        dev, label, "affinity", request)
+        dev, label, "affinity", request, need=("cost_sum",))
     clean_and_placed(label, plan, pods, catalog,
                      placed=cpu_plan.placed_count)
     errors = validate_affinity_plan(plan, pods)
@@ -1210,7 +1255,7 @@ def phase_stochastic(dev, card: str) -> dict:
     pool = NodePool(name="default", overcommit=STOCHASTIC["overcommit"])
     request = SolveRequest(pods, catalog, pool)
     solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
-        dev, label, "stochastic", request)
+        dev, label, "stochastic", request, need=("cost_sum",))
     clean_and_placed(label, plan, pods, catalog, pool)
     problem = encode_mod.encode(pods, catalog, pool)
 
@@ -1279,7 +1324,8 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
                              f"{gate}), preferences "
                              f"{problem.pref_rows is not None}")
     solver, plan, cpu_plan, launches, stats, cold_s, cpu_s = route_run(
-        dev, label, "pref", request, need=("ffd_scan_pref", "presence_sum"))
+        dev, label, "pref", request,
+        need=("ffd_scan_pref", "presence_sum", "cost_sum"))
     clean_and_placed(label, plan, pods, catalog)
     lam_bp = int(solver.options.preference_lambda * 10000)
 
@@ -1333,12 +1379,12 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
     bound_ms, bound_by, nbytes, ops = scan_bound_ms(
         m3, c3, off_alloc, rank_g, N, assign.cpu().numpy()[None],
         node_off.cpu().numpy()[None])
-    rs_pref_ms = cuda_ms(lambda: tp.finish_solve(
+    rs_pref_ms = cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
         meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
-        True, miss_g=miss_g, pref_lambda=lam), 20)
-    rs_ms = cuda_ms(lambda: tp.finish_solve(
+        True, miss_g=miss_g, pref_lambda=lam)[1]), 20)
+    rs_ms = cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
         meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
-        True), 20)
+        True)[1]), 20)
     rank_ms = cuda_ms(lambda: tp.pref_rank_rows(pref_rows, pref_idx,
                                                 off_rank, lam), 50)
     say(f"timing [{card}]: ffd_scan_pref on the pref window G={G} O={O} "
@@ -1484,10 +1530,12 @@ def phase_resident(dev, card: str) -> dict:
         if st["path"] != "resident-cuda":
             raise AssertionError(f"resident window {w} took {st['path']!r}")
         dispatches = 1 + st["escalations"] + st["coo_growths"]
-        if got != {"ffd_scan": dispatches} or len(kept) != dispatches:
+        if got != {"ffd_scan": dispatches, "cost_sum": dispatches} \
+                or len(kept) != dispatches:
             raise AssertionError(f"resident window {w}: {len(kept)} resident "
                                  f"dispatches launched {got}, want one "
-                                 f"ffd_scan each of {dispatches}")
+                                 f"ffd_scan and one cost_sum each of "
+                                 f"{dispatches}")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
         prep, out = kept[-1]
@@ -1573,7 +1621,7 @@ def phase_serving(dev, card: str) -> dict:
         plans.append(pending.popleft().result())
     ring_ms = (time.perf_counter() - t0) * 1e3 / len(problems)
     launches = launch_counts()
-    require_launches(launches, ["ffd_scan"], "serving path")
+    require_launches(launches, ["ffd_scan", "cost_sum"], "serving path")
     st = loop.stats()
     n = 2 * len(problems)
     if (st["ring_windows"], st["classic_windows"], st["backpressured"]) \
@@ -1640,7 +1688,8 @@ def phase_fleet_resident(dev, fleet: dict) -> dict:
         got = fleet_solve_packed(problem, resident_buf=buf, **kw)
         runs.append((label, time.perf_counter() - t0, problem, got))
     launches = launch_counts()
-    require_launches(launches, ["ffd_scan_fleet"], "fleet resident path")
+    require_launches(launches, ["ffd_scan_fleet", "cost_sum"],
+                     "fleet resident path")
     for label, _, problem, got in runs:
         want = fleet_solve_packed(problem, **kw)
         for name, a, b in zip(("node_off", "assign", "unplaced", "cost"),
@@ -1656,6 +1705,433 @@ def phase_fleet_resident(dev, fleet: dict) -> dict:
         + f"; launches {launches}")
     return {"stats": dict(buf.stats), "launches": launches,
             "walls_ms": {lb: s * 1e3 for lb, s, _, _ in runs}}
+
+
+# -- phase 3 (cost sum) and phase 4 (l-n): the what-if, gang and preempt planes
+
+
+def cost_sum_bound_ms(C: int, N: int) -> tuple[float, str, int, int]:
+    """The cost sum's least time on the card: C x N float32 read once and
+    C words written, against the C x N adds the windows take (every
+    price, a closed node's 0 included) at the float32 scalar rate."""
+    nbytes = 4 * (C * N + C)
+    adds = C * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, adds
+
+
+def check_cost_sum(label: str, prices: torch.Tensor) -> float:
+    """``cost_sum`` against its plain version on the same card tensor,
+    bit for bit; returns max |diff| (0.0)."""
+    got = cost_sum.cost_sum(prices)
+    want = cost_sum.cost_sum_reference(prices)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"cost_sum differs from its plain version on "
+                             f"{label}: max |diff| "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def phase_cost_sum_checks(dev) -> dict:
+    """``cost_sum`` bit for bit against its plain version: C in {1, 8,
+    64}, every N in NODE_BUCKETS and three ragged lengths, prices with
+    30-70% of the nodes open, small totals and rows near 2^24."""
+    rng = np.random.RandomState(7)
+    cases = 0
+    for C in (1, 8, 64):
+        for N in NODE_BUCKETS + (33, 1000, 4097):
+            for scale in (4.0, 2.0 ** 25 / N):
+                prices = (rng.rand(C, N) * scale).astype(np.float32)
+                closed = rng.rand(C, N) >= rng.uniform(0.3, 0.7, (C, 1))
+                prices[closed] = 0
+                x = torch.from_numpy(prices).to(dev)
+                check_cost_sum(f"C={C} N={N}", x if C > 1 else x[0])
+                cases += 1
+    say(f"kernel check cost_sum: {cases} cases (C in 1, 8, 64; N in "
+        f"{list(NODE_BUCKETS)} and 33, 1000, 4097; 30-70% open, totals "
+        f"small and near 2^24) bit for bit against the plain version")
+    return {"max_abs_err": 0.0, "cases": cases}
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 50) -> float | None:
+    """Mean device time per call of ``fn`` of the CUDA kernels whose name
+    holds ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls;
+    None when the trace holds none.  Back-to-back CUDA events time a
+    tiny kernel's host issue instead; this reads the kernel alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / reps / 1e3 if us else None
+
+
+def cost_sum_timing(label: str, prices: torch.Tensor, card: str) -> dict:
+    """The cost sum on ``prices`` [N] or [C, N] after its bit check: the
+    kernel (back-to-back CUDA events, and its device time alone from the
+    profiler), the plain version, ``torch.sum`` (the same sum in another
+    order) and the bound."""
+    err = check_cost_sum(label, prices)
+    ms = cuda_ms(lambda: cost_sum.cost_sum(prices), 100)
+    device_ms = kernel_device_ms(lambda: cost_sum.cost_sum(prices),
+                                 "cost_sum_kernel")
+    plain_ms = cuda_ms(lambda: cost_sum.cost_sum_reference(prices), 20)
+    lib_ms = cuda_ms(lambda: prices.sum(dim=-1), 100)
+    C = 1 if prices.dim() == 1 else prices.shape[0]
+    N = prices.shape[-1]
+    bound_ms, bound_by, nbytes, adds = cost_sum_bound_ms(C, N)
+    dev_txt = "not measured (no profiler events)" if device_ms is None \
+        else f"{device_ms:.4f} ms"
+    say(f"timing [{card}]: cost_sum on {label} [C={C}, N={N}]: kernel "
+        f"{ms:.4f} ms back to back (the wrapper's host issue), its device "
+        f"time alone {dev_txt}, plain version {plain_ms:.4f} ms, torch.sum "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+        f"bytes, {adds} adds); bit-exact against the plain version")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": adds, "max_abs_err": err, "shape": [C, N]}
+
+
+def whatif_menu(baseline, catalog, k: int, rng) -> list:
+    """``bench.run_whatif``'s menu: the baseline, then arrival waves on 8
+    groups alone, with a spot storm, with a zone blackout, with a quota
+    clamp."""
+    G = baseline.problem.num_groups
+    menu = [whatif.Scenario("baseline")]
+    storm = whatif_scenario.spot_storm_mask(catalog)
+    while len(menu) < k:
+        i = len(menu)
+        gis = rng.choice(G, size=min(8, G), replace=False)
+        wave = whatif.ArrivalWave(tuple(
+            (int(g), int(rng.randint(1, 48))) for g in sorted(gis)))
+        kind = i % 4
+        if kind == 0:
+            perts: tuple = (wave,)
+        elif kind == 1:
+            perts = (wave, storm)
+        elif kind == 2:
+            zone = catalog.zones[int(rng.randint(len(catalog.zones)))]
+            perts = (wave, whatif_scenario.zone_blackout_mask(catalog, zone))
+        else:
+            perts = (wave, whatif_scenario.quota_clamp(
+                baseline, int(rng.randint(2, 8))))
+        menu.append(whatif.Scenario(f"s{i}", perts))
+    return menu[:k]
+
+
+def stacked_scan_tensors(dev, baseline, menu, ct):
+    """(metas, compats) of a lowered menu on the card: the stacked delta
+    apply and the unpack of every row, as the stacked solve forms them."""
+    st = whatif.lower_scenarios(baseline, menu)
+    bufs = whatif_kernels.apply_deltas(
+        torch.from_numpy(baseline.packed).to(dev),
+        torch.from_numpy(st.didx).to(dev), torch.from_numpy(st.dval).to(dev))
+    G, O, U = baseline.G_pad, baseline.O_pad, baseline.U_pad
+    metas, compats, _ = torch.func.vmap(
+        lambda p: tp.unpack_problem(p, ct[0], G, O, U))(bufs)
+    return metas.contiguous(), compats.contiguous()
+
+
+def phase_whatif(dev, card: str) -> dict:
+    """(l) ``bench.run_whatif``: 10k pods x 500 types, K = 64 scenarios
+    in one stacked plan on the card."""
+    pods, catalog = workload.build_workload(WHATIF["pods"], WHATIF["types"])
+    t0 = time.perf_counter()
+    baseline = whatif.build_baseline(pods, catalog)
+    build_s = time.perf_counter() - t0
+    menu = whatif_menu(baseline, catalog, WHATIF["K"],
+                       np.random.RandomState(WHATIF["menu_seed"]))
+    K = len(menu)
+    planner = whatif.WhatIfPlanner(max_k=K, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = planner.plan(baseline, menu)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if {k: v for k, v in launches.items() if v} != \
+            {"ffd_scan_fleet": 1, "cost_sum": 1} or plan.dispatches != 1:
+        raise AssertionError(f"the stacked what-if plan of {K} scenarios "
+                             f"took {plan.dispatches} solves and launched "
+                             f"{launches}, want one ffd_scan_fleet and one "
+                             f"cost_sum")
+    G, N = baseline.G_pad, plan.N
+    if plan.outcomes[0].unplaced:
+        raise AssertionError(f"what-if baseline scenario left "
+                             f"{plan.outcomes[0].unplaced} pods unplaced")
+
+    # every scenario's words: a fresh single-window solve of its
+    # perturbed buffer on the card (the cost word included), and the
+    # numpy oracle up to the cost word
+    ct = planner._catalog_tensors(catalog, baseline.O_pad)
+    bufs = [whatif_scenario.perturbed_buffer(baseline, s) for s in menu]
+    kw = dict(G=G, O=baseline.O_pad, U=baseline.U_pad, N=N,
+              compact=plan.K_coo, coo16=plan.coo16)
+
+    def sequential():
+        return [tp.solve_packed_torch(torch.from_numpy(b).to(dev), *ct,
+                                      **kw).cpu().numpy() for b in bufs]
+
+    for k, single in enumerate(sequential()):
+        words_equal(f"what-if scenario {menu[k].name}", plan.raw[k], single,
+                    N + G)
+    t0 = time.perf_counter()
+    host = planner.plan_host(baseline, menu)
+    host_s = time.perf_counter() - t0
+    for k in range(K):
+        if not whatif_oracle.words_equal_except_cost(plan.raw[k],
+                                                     host.raw[k], G, N):
+            raise AssertionError(f"what-if scenario {menu[k].name}: the "
+                                 f"card's words differ from the numpy "
+                                 f"oracle's")
+    violations = whatif.validate_whatif(plan)
+    if violations:
+        raise AssertionError(f"validate_whatif: {violations[:3]}")
+
+    # the fleet kernel at the stacked shapes: C = K and C = WHATIF_MAX_K
+    # (the largest chunk), against its plain version on the card
+    scan = {}
+    alloc, _, rank = ct
+    for C in (K, whatif.WHATIF_MAX_K):
+        big = menu if C == K else whatif_menu(
+            baseline, catalog, C, np.random.RandomState(WHATIF["menu_seed"]))
+        metas, compats = stacked_scan_tensors(dev, baseline, big, ct)
+        allocs, ranks = alloc.expand(C, *alloc.shape), rank.expand(C, -1)
+        got = ffd_kernel.ffd_scan_fleet(metas, compats, allocs, ranks, N)
+        want = ffd_kernel.ffd_scan_fleet_reference(metas, compats, allocs,
+                                                   ranks, N)
+        torch.cuda.synchronize()
+        if max_abs_err(got, want):
+            first_diff(f"ffd_scan_fleet what-if C={C}", got, want)
+        scan[C] = cuda_ms(lambda: ffd_kernel.ffd_scan_fleet(
+            metas, compats, allocs, ranks, N), 20)
+    # the cost sum on the stacked plan's own masked prices
+    metas, compats = stacked_scan_tensors(dev, baseline, menu, ct)
+    node_off, assign, _ = ffd_kernel.ffd_scan_fleet(
+        metas, compats, alloc.expand(K, *alloc.shape), rank.expand(K, -1), N)
+    _, prices = torch.func.vmap(lambda m, c, no, a: tp.finish_solve(
+        m, c, no, a, ct[0], ct[1], ct[2], True))(metas, compats, node_off,
+                                                 assign)
+    cs = cost_sum_timing(f"the stacked what-if plan", prices, card)
+
+    walls = []
+    for _ in range(WHATIF["iters"]):
+        t0 = time.perf_counter()
+        planner.plan(baseline, menu)
+        walls.append(time.perf_counter() - t0)
+    sequential()
+    t0 = time.perf_counter()
+    sequential()
+    seq_s = time.perf_counter() - t0
+    stacked_ms = p50_ms(walls)
+    outcomes = plan.outcomes
+    say(f"what-if path: {K} scenarios of {WHATIF['pods']} pods x "
+        f"{WHATIF['types']} types (G={G} O={baseline.O_pad} "
+        f"U={baseline.U_pad} N={N}, delta rung {plan.stacked.D}), one "
+        f"stacked plan: launches {launches}; every scenario's words equal "
+        f"to a single-window solve_packed_torch of its perturbed buffer on "
+        f"the card (cost words included) and to the numpy oracle up to "
+        f"the cost word; validate_whatif clean; baseline {outcomes[0].pods} "
+        f"pods all placed; placed min/max over scenarios "
+        f"{min(o.placed for o in outcomes)}/{max(o.placed for o in outcomes)}"
+        f"; ffd_scan_fleet exact against its plain version at C={K} and "
+        f"C={whatif.WHATIF_MAX_K}")
+    say(f"timing [{card}]: what-if stacked plan warm p50 {stacked_ms:.4f} "
+        f"ms (cold {cold_s * 1e3:.3f} ms, baseline build {build_s:.3f} s); "
+        f"{K} sequential single-window solves {seq_s * 1e3:.3f} ms; "
+        f"plan_host (numpy oracle) {host_s * 1e3:.3f} ms; ffd_scan_fleet at "
+        f"C={K} {scan[K]:.4f} ms, at C={whatif.WHATIF_MAX_K} "
+        f"{scan[whatif.WHATIF_MAX_K]:.4f} ms")
+    return {"launches": launches, "K": K, "N": N, "G": G,
+            "O": baseline.O_pad, "U": baseline.U_pad, "D": plan.stacked.D,
+            "stacked_p50_ms": stacked_ms, "walls_ms": [w * 1e3 for w in walls],
+            "cold_ms": cold_s * 1e3, "sequential_ms": seq_s * 1e3,
+            "plan_host_ms": host_s * 1e3, "baseline_build_s": build_s,
+            "ffd_scan_fleet_ms": {str(c): v for c, v in scan.items()},
+            "cost_sum": cs,
+            "outcomes": [o.to_dict() for o in outcomes[:4]]}
+
+
+def gang_pods(cfg: dict) -> list:
+    """``bench.run_gang``'s gangs: ``gangs`` jobs of ``members`` replicas,
+    slice shapes 4x4 / 2x2x2 / 2x2 / none."""
+    rng = np.random.RandomState(cfg["seed"])
+    shapes = ["4x4", "2x2x2", "2x2", ""]
+    pods = []
+    for g in range(cfg["gangs"]):
+        shape = shapes[int(rng.randint(len(shapes)))]
+        gang = PodGroup(name=f"job-{g:03d}", min_member=cfg["members"],
+                        slice_shape=shape or None)
+        for m in range(cfg["members"]):
+            pods.append(pod_api.PodSpec(
+                f"job-{g:03d}-{m}", requests=pod_api.ResourceRequests(
+                    int(rng.randint(100, 500)), int(rng.randint(256, 1024)),
+                    0, 1), gang=gang))
+    return pods
+
+
+def gang_fingerprint(plan):
+    return (plan.placements, plan.unplaced, plan.total_cost_per_hour,
+            [(n.offering_index, [(a.gang, a.placement_mask, a.pod_names,
+                                  a.rank_chips, a.max_hop)
+                                 for a in n.assignments])
+             for n in plan.nodes])
+
+
+def timed_p50(fn, iters: int) -> float:
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return p50_ms(walls)
+
+
+def phase_gang(dev, card: str) -> dict:
+    """(m) ``bench.run_gang``: 64 gangs x 16 members over 500 accelerator
+    types, the torch grid on the card against the numpy grid."""
+    catalog = workload.build_catalog(GANG["types"], workload.ACCEL_FAMILIES)
+    pods = gang_pods(GANG)
+    problem = encode_gangs(pods, catalog)
+    on = GangPlanner(GangOptions(use_device="on"), device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = on.plan(problem)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_no_launches(launches, "gang path")
+    steps = on.device_steps
+    off = GangPlanner(GangOptions(use_device="off"), device="cpu")
+    ref = off.plan(problem)
+    if steps < 1 or gang_fingerprint(plan) != gang_fingerprint(ref):
+        raise AssertionError(f"gang plan on the card ({steps} torch grid "
+                             f"steps) differs from the numpy grid's")
+    errors = validate_gang_plan(plan, pods, catalog)
+    if errors:
+        raise AssertionError(f"validate_gang_plan: {errors[:3]}")
+    placed = {pn for n in plan.nodes for pn in n.pod_names}
+    partial = sum(1 for g in problem.gangs
+                  if 0 < sum(pn in placed for pn in g.pod_names)
+                  < len(g.pod_names))
+    if partial:
+        raise AssertionError(f"gang plan has {partial} partial gangs")
+    on_ms = timed_p50(lambda: on.plan(problem), GANG["iters"])
+    off_ms = timed_p50(lambda: off.plan(problem), GANG["iters"])
+    say(f"gang path: {problem.num_gangs} gangs x {GANG['members']} members "
+        f"over {GANG['types']} accelerator types: {len(plan.placed_gangs)} "
+        f"placed on {len(plan.nodes)} nodes, {len(plan.unplaced_gangs)} "
+        f"unplaced, 0 partial; {steps} torch grid steps on the card, plan "
+        f"equal to the numpy grid's; validate_gang_plan clean; launches "
+        f"{launches} (the grid is PyTorch ops)")
+    say(f"timing [{card}]: gang plan warm p50 {on_ms:.4f} ms on the card "
+        f"(cold {cold_s * 1e3:.3f} ms), numpy grid {off_ms:.4f} ms")
+    return {"launches": launches, "gangs": problem.num_gangs,
+            "placed_gangs": len(plan.placed_gangs), "nodes": len(plan.nodes),
+            "device_steps": steps, "partial": partial,
+            "card_p50_ms": on_ms, "numpy_p50_ms": off_ms,
+            "cold_ms": cold_s * 1e3}
+
+
+def preempt_cluster(cfg: dict):
+    """``bench.run_preempt``'s overload: ``claims`` nodes, each ~96% full
+    with three low-priority victims, and ``pending`` pods of mixed sizes
+    and priorities.  Returns (catalog, cluster, pending pods)."""
+    catalog = workload.build_catalog(cfg["types"])
+    rng = np.random.RandomState(cfg["seed"])
+    alloc = catalog.type_alloc
+    hostable = [t for t in range(catalog.num_types)
+                if alloc[t, 0] >= 2000 and alloc[t, 1] >= 4096]
+    cluster = ClusterState()
+    for i in range(cfg["claims"]):
+        t = hostable[rng.randint(len(hostable))]
+        cluster.add_nodeclaim(NodeClaim(
+            name=f"pc{i}", instance_type=catalog.type_names[t],
+            zone=catalog.zones[rng.randint(len(catalog.zones))],
+            node_name=f"node-pc{i}", launched=True))
+        for j in range(3):
+            name = f"v{i}-{j}"
+            cluster.add_pod(pod_api.PodSpec(
+                name, requests=pod_api.ResourceRequests(
+                    int(alloc[t, 0] * 0.32), int(alloc[t, 1] * 0.32), 0, 1),
+                priority=int(rng.choice([0, 0, 0, 100]))))
+            cluster.bind_pod(f"default/{name}", f"node-pc{i}")
+    sizes = [(500, 1024), (1000, 2048), (2000, 4096)]
+    prios = [0, 0, 100, 100, 100, 1000]
+    pending = []
+    for k in range(cfg["pending"]):
+        cpu, mem = sizes[rng.randint(len(sizes))]
+        pending.append(pod_api.PodSpec(
+            f"p{k}", requests=pod_api.ResourceRequests(cpu, mem, 0, 1),
+            priority=prios[rng.randint(len(prios))]))
+    return catalog, cluster, pending
+
+
+def preempt_fingerprint(plan):
+    return ([(e.claim_name, e.pod_key, e.victim_priority,
+              e.beneficiary_priority) for e in plan.evictions],
+            plan.placements, plan.unplaced, plan.eviction_weight)
+
+
+def phase_preempt(dev, card: str) -> dict:
+    """(n) ``bench.run_preempt``: 10k pending pods against 2000 full
+    claims, the torch fit grid on the card against the numpy grid."""
+    catalog, cluster, pending = preempt_cluster(PREEMPT)
+    problem = encode_mod.encode(pending, catalog)
+    t0 = time.perf_counter()
+    victims = encode_victims(cluster, catalog)
+    victims_ms = (time.perf_counter() - t0) * 1e3
+    compat = group_node_compat(problem, victims)
+    budget = PREEMPT["claims"] * 3
+    on = PreemptionPlanner(PlannerOptions(use_device="on",
+                                          max_evictions=budget), device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = on.plan(problem, victims, compat)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_no_launches(launches, "preemption path")
+    steps = on.device_steps
+    off = PreemptionPlanner(PlannerOptions(use_device="off",
+                                           max_evictions=budget),
+                            device="cpu")
+    ref = off.plan(problem, victims, compat)
+    if steps < 1 or preempt_fingerprint(plan) != preempt_fingerprint(ref):
+        raise AssertionError(f"preemption plan on the card ({steps} torch "
+                             f"grid steps) differs from the numpy grid's")
+    errors = validate_preemption_plan(plan, pending, cluster, catalog)
+    if errors:
+        raise AssertionError(f"validate_preemption_plan: {errors[:3]}")
+    if not plan.evictions or not plan.placements:
+        raise AssertionError("the overload window evicted or placed nothing")
+    on_ms = timed_p50(lambda: on.plan(problem, victims, compat),
+                      PREEMPT["iters"])
+    off_ms = timed_p50(lambda: off.plan(problem, victims, compat),
+                       PREEMPT["iters"])
+    say(f"preemption path: {PREEMPT['pending']} pending x "
+        f"{victims.num_nodes} claims ({victims.num_victims} victims, "
+        f"{problem.num_groups} groups): {plan.eviction_count} evictions, "
+        f"{plan.placed_count} placed, {len(plan.unplaced)} unplaced; "
+        f"{steps} torch grid steps on the card, plan equal to the numpy "
+        f"grid's; validate_preemption_plan clean; launches {launches} "
+        f"(the grid is PyTorch ops)")
+    say(f"timing [{card}]: preemption plan warm p50 {on_ms:.4f} ms on the "
+        f"card (cold {cold_s * 1e3:.3f} ms), numpy grid {off_ms:.4f} ms; "
+        f"encode_victims {victims_ms:.3f} ms")
+    return {"launches": launches, "evictions": plan.eviction_count,
+            "placed": plan.placed_count, "unplaced": len(plan.unplaced),
+            "device_steps": steps, "card_p50_ms": on_ms,
+            "numpy_p50_ms": off_ms, "cold_ms": cold_s * 1e3,
+            "encode_victims_ms": victims_ms}
 
 
 # -- phase 5: timings ---------------------------------------------------------
@@ -1771,9 +2247,9 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
                                                     U), 50),
         "kernel": cuda_ms(lambda: ffd_kernel.ffd_scan(
             meta3, compat3, off_alloc, off_rank, N), 50),
-        "right_size_cost": cuda_ms(lambda: tp.finish_solve(
+        "right_size_cost": cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
             meta, compat_i, node_off, assign, off_alloc, off_price,
-            off_rank, True), 20),
+            off_rank, True)[1]), 20),
         "pack_explain_telemetry": cuda_ms(lambda: tp.pack_result_telemetry(
             meta, rows_g, compat_i, node_off, assign, unplaced,
             off_price.sum(), off_alloc, prep.K, prep.dense16, prep.coo16),
@@ -1788,6 +2264,9 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
     bound_ms, bound_by, nbytes, ops = scan_bound_ms(
         meta3, compat3, off_alloc, off_rank, N, assign.cpu().numpy(),
         node_off.cpu().numpy())
+    _, prices = tp.finish_solve(meta, compat_i, node_off, assign, off_alloc,
+                                off_price, off_rank, True)
+    cs = cost_sum_timing("the main-path window", prices, card)
 
     # encode, cold (memo and signature caches cleared) and warm
     encode_mod._ENCODE_MEMO.clear()
@@ -1834,6 +2313,7 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
                          "us_per_step": phases["kernel"] / G * 1e3,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bytes": nbytes, "ops": ops},
+            "cost_sum": cs,
             "ffd_scan_largest": largest_scan_ms(dev, card)}
 
 
@@ -2061,6 +2541,7 @@ def main() -> int:
                                                           tally)}
     design = phase_design_checks(dev, tally)
     checks["ffd_scan_pref"] = phase_pref_kernel_checks(dev, catalog, tally)
+    checks["cost_sum"] = phase_cost_sum_checks(dev)
     solver, request, problem, launches, stats, cold_s, err = \
         phase_main_path(dev, pods, catalog, tally)
     checks["ffd_scan"]["max_abs_err"] = max(
@@ -2087,6 +2568,13 @@ def main() -> int:
     resident = phase_resident(dev, card)
     serving = phase_serving(dev, card)
     fleet_resident = phase_fleet_resident(dev, fleet)
+    whatif_run = phase_whatif(dev, card)
+    gang = phase_gang(dev, card)
+    preempt = phase_preempt(dev, card)
+    checks["cost_sum"]["max_abs_err"] = max(
+        checks["cost_sum"]["max_abs_err"],
+        timing["cost_sum"]["max_abs_err"],
+        whatif_run["cost_sum"]["max_abs_err"])
     checks["segment_sum"] = {"max_abs_err": flat["segment_sum"]["max_abs_err"],
                              "calls": flat["segment_sum"]["calls"]}
     timing["segment_sum"] = flat["segment_sum"]
@@ -2104,7 +2592,10 @@ def main() -> int:
                      "pref": pref["route"]["launches"],
                      "resident": resident["launches"],
                      "serving": serving["launches"],
-                     "fleet_resident": fleet_resident["launches"]}
+                     "fleet_resident": fleet_resident["launches"],
+                     "whatif": whatif_run["launches"],
+                     "gang": gang["launches"],
+                     "preempt": preempt["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
@@ -2133,7 +2624,8 @@ def main() -> int:
             "routes": {"flat": flat["windows"], "affinity": affinity,
                        "stochastic": stochastic, "pref": pref},
             "resident": resident, "serving": serving,
-            "fleet_resident": fleet_resident,
+            "fleet_resident": fleet_resident, "whatif": whatif_run,
+            "gang": gang, "preempt": preempt,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ import torch
 from karpenter_tpu_torch.affinity import AFF_BIG, C_PAD
 from karpenter_tpu_torch.apis.pod import NUM_RESOURCES
 from karpenter_tpu_torch.explain import BIT
+from karpenter_tpu_torch.solver.cost_sum import cost_sum
 from karpenter_tpu_torch.solver.ffd_kernel import _fit_counts, open_nodes
 from karpenter_tpu_torch.solver.packed import (
     pack_result_telemetry, right_size as _right_size, unpack_problem,
@@ -158,7 +159,7 @@ def solve_packed_affinity(packed, aff, off_alloc, off_price, off_rank, *,
                                off_rank)
     is_open = node_off >= 0
     prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = torch.where(is_open, prices, torch.zeros_like(prices)).sum()
+    cost = cost_sum(torch.where(is_open, prices, torch.zeros_like(prices)))
     return pack_result_telemetry(
         meta, rows_g, compat_i, node_off, assign, unplaced, cost, off_alloc,
         compact, dense16, coo16,

@@ -1,4 +1,4 @@
-from karpenter_tpu_torch.apis.nodeclaim import NodePool
+from karpenter_tpu_torch.apis.nodeclaim import Node, NodeClaim, NodePool
 from karpenter_tpu_torch.apis.pod import (
     PodAffinityTerm, PodSpec, ResourceRequests, Taint, Toleration,
     TopologySpreadConstraint,
@@ -9,7 +9,7 @@ from karpenter_tpu_torch.apis.requirements import (
 )
 
 __all__ = [
-    "NodePool", "PodAffinityTerm", "PodGroup", "PodSpec", "ResourceRequests",
+    "Node", "NodeClaim", "NodePool", "PodAffinityTerm", "PodGroup", "PodSpec", "ResourceRequests",
     "Taint", "Toleration", "TopologySpreadConstraint", "Operator",
     "Requirement", "Requirements",
 ]

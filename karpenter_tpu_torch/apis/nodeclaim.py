@@ -1,9 +1,13 @@
-"""NodePool: the provisioning pool a solve window targets.
+"""NodeClaim, Node and NodePool: the objects the solve and the planners read.
 
-Port of ``karpenter_tpu/apis/nodeclaim.py`` restricted to what the solve
-path reads (``NodePool`` and its overcommit parse).  The NodeClaim /
-Node lifecycle objects belong to the controller layer, which this
-package does not carry yet.
+Port of ``karpenter_tpu/apis/nodeclaim.py`` restricted to what the
+encoders and validators read: ``NodePool`` and its overcommit parse,
+and the ``NodeClaim`` / ``Node`` records that the preemption plane's
+victim encoder and validator walk (``core/cluster.py``; ``Node`` is
+the registered node a claim's ``node_name`` names).  The lifecycle
+fields the controllers write (registration, finalizers, resolved
+placement) belong to the controller layer, which this package does not
+carry yet.
 """
 
 from __future__ import annotations
@@ -12,6 +16,35 @@ from dataclasses import dataclass, field
 
 from karpenter_tpu_torch.apis.pod import Taint
 from karpenter_tpu_torch.apis.requirements import Requirements
+
+@dataclass
+class NodeClaim:
+    """A node the provisioner asked for: its offering, its node, its
+    taints and whether it is launched or deleted."""
+
+    name: str
+    instance_type: str = ""
+    zone: str = ""
+    capacity_type: str = "on-demand"
+    node_name: str = ""
+    taints: tuple[Taint, ...] = ()
+    launched: bool = False
+    deleted: bool = False
+    resource_version: int = 0
+
+
+@dataclass
+class Node:
+    """A registered cluster node (the k8s Node analogue)."""
+
+    name: str
+    provider_id: str = ""
+    labels: dict[str, str] = field(default_factory=dict)
+    taints: list[Taint] = field(default_factory=list)
+    ready: bool = False
+    deleted: bool = False
+    resource_version: int = 0
+
 
 # epsilon ceiling: an overcommit bound at or above 0.5 means z(eps) <= 0
 # — "pack with no variance buffer at all", which is never what a
@@ -46,8 +79,8 @@ class NodePool:
     startup_taints: tuple[Taint, ...] = ()
     labels: dict[str, str] = field(default_factory=dict)
     # chance-constrained overcommit epsilon; 0 keeps every solve
-    # deterministic.  Windows with epsilon > 0 take the stochastic route,
-    # which this package does not serve yet.
+    # deterministic.  Windows with epsilon > 0 take the stochastic route
+    # (``stochastic/``).
     overcommit: float = 0.0
     resource_version: int = 0
 

@@ -188,6 +188,11 @@ class CatalogArrays:
         return (self.type_names[t], self.zones[int(self.off_zone[o])],
                 CAPACITY_TYPES[int(self.off_cap[o])])
 
+    def find_offering(self, instance_type: str, zone: str,
+                      capacity_type: str) -> int | None:
+        """The offering index of (type, zone, capacity type), or None."""
+        return self._offering_index.get((instance_type, zone, capacity_type))
+
     def describe_offerings(self, offs: np.ndarray):
         """Vectorized :meth:`describe_offering` over an index array —
         returns (type_names, zones, captypes, prices) as host lists.

@@ -16,6 +16,5 @@ def make_solver(options: SolverOptions | None = None, device="cuda"):
     It is returned UNWRAPPED.  The reference wraps its solver in
     ``ResilientSolver``, which degrades a failed solve to the host greedy
     oracle; here that would hide a broken kernel, so the degraded mode
-    waits for a later slice (ROADMAP queue 1, unserved routes of the
-    first slice)."""
+    waits for ROADMAP queue 1 item 13 (the unserved fallbacks)."""
     return TorchSolver(options or SolverOptions(), device=device)

@@ -9,7 +9,8 @@ and flags, so an edited source never loads a stale library.
 all of them; a kernel that fails to build raises — nothing falls back.
 
 Fast math is never enabled: the FFD scan's rank / fit divide and the
-segment sum's adds must be IEEE round-to-nearest (see ``csrc/*.cu``).
+segment, presence and cost sums' adds must be IEEE round-to-nearest
+(see ``csrc/*.cu``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> the C functions its library exports, with ctypes types
 _SIGNATURES = {
+    "cost_sum": {
+        "cost_sum_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]),
+        "cost_sum_max_len": (ctypes.c_int, []),
+        "cost_sum_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
     "ffd_scan": {
         "ffd_scan_launch": (
             ctypes.c_int,

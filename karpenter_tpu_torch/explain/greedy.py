@@ -152,8 +152,9 @@ def _risk_words_host(problem, unplaced: np.ndarray,
 def nearest_miss(problem, gi: int, precomputed: tuple | None = None
                  ) -> dict | None:
     """The "would fit if +X" payload for one group: the nearest-miss
-    offering and its per-dimension deficits.  None when the group has no
-    label-compatible offering to be near."""
+    offering and its per-dimension deficits, and for a group flagged by
+    affinity or spread whether it would fit without them.  None when the
+    group has no label-compatible offering to be near."""
     if precomputed is not None:
         lbl, nearest, deficit = precomputed
     else:
@@ -169,7 +170,7 @@ def nearest_miss(problem, gi: int, precomputed: tuple | None = None
     deficits = {name: int(max(req[r] - alloc[r], 0))
                 for r, name in enumerate(RESOURCE_NAMES)
                 if req[r] > alloc[r]}
-    return {
+    out = {
         "offering_index": off,
         "instance_type": itype,
         "zone": zone,
@@ -177,3 +178,11 @@ def nearest_miss(problem, gi: int, precomputed: tuple | None = None
         "total_deficit": int(deficit[gi, off]),
         "deficits": deficits,
     }
+    aff = getattr(problem, "aff", None)
+    if aff is not None and gi < len(aff.aff_flag) \
+            and (int(aff.aff_flag[gi]) or int(aff.spread_flag[gi])):
+        # an affinity edge or a spread bound can mask the offering after
+        # every resource check passes, so an empty deficit does not mean
+        # the group would fit: the payload says which it is
+        out["would_fit_absent_affinity"] = not deficits
+    return out

@@ -51,6 +51,7 @@ import time
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.solver.cost_sum import cost_sum
 from karpenter_tpu_torch.solver.encode import (
     BIG_CAP, EncodedProblem, estimate_nodes,
 )
@@ -301,15 +302,12 @@ def _flat_body(item_req, item_gid, item_live, rows, item_row, off_alloc,
                            >= load[:, None, :]).all(dim=2)
     # presence-averaged penalty rank, summed class by class in order
     cnt_u = torch.clamp(hrow_f.sum(dim=1, keepdim=True), min=1.0)
-    acc = torch.zeros((N, O), dtype=F32, device=dev)
-    for u in range(U):
-        acc = acc + hrow_f[:, u:u + 1] * rank_rows[u][None, :]
-    rank_eff = acc / cnt_u
+    rank_eff = presence_rank_sum(hrow_f, rank_rows) / cnt_u
     cand_price = torch.where(cand, rank_eff, float("inf"))
     node_off = torch.where(open_b, torch.argmin(cand_price, dim=1).to(I32),
                            -1).to(I32)
     prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = torch.where(open_b, prices, torch.zeros_like(prices)).sum()
+    cost = cost_sum(torch.where(open_b, prices, torch.zeros_like(prices)))
 
     # back to item space -> per-group unplaced + COO assign entries
     placed_i = _scatter_perm(order, placed_s)
@@ -332,6 +330,20 @@ def _flat_body(item_req, item_gid, item_live, rows, item_row, off_alloc,
                        K + 1)[:K]
     info = {"rounds": rounds, "host_syncs": syncs}
     return node_off, unplaced_g, cost, idx_x[:K], cnt_arr, spilled, info
+
+
+def presence_rank_sum(hrow_f: torch.Tensor,
+                      rank_rows: torch.Tensor) -> torch.Tensor:
+    """``hrow_f @ rank_rows`` ([N, U] 0/1 presence x [U, O] float32 rank
+    rows -> [N, O]) summed class by class in order, as the reference's
+    ``jnp.dot`` rounds on its CPU at the padded shapes the program runs
+    (``tests/test_torch_cost_sum.py`` pins it).  A 0/1 times a rank is
+    exact, so each present class adds its row once."""
+    acc = torch.zeros((hrow_f.shape[0], rank_rows.shape[1]), dtype=F32,
+                      device=hrow_f.device)
+    for u in range(rank_rows.shape[0]):
+        acc = acc + hrow_f[:, u:u + 1] * rank_rows[u][None, :]
+    return acc
 
 
 def flat_solve_torch(item_req, item_gid, item_live, rows, item_row,

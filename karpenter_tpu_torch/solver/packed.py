@@ -7,11 +7,11 @@ version on the CPU), right-size and cost (``finish_pallas_solve`` /
 ``_right_size``), and pack the result with its explain words and
 telemetry block (``_pack_result_telemetry``).  :func:`solve_packed_torch`
 returns the same int32 buffer as the reference's ``solve_packed``, word
-for word except the float cost word (equal up to summation order), and
-:func:`solve_packed_pref_torch` the buffer of ``solve_packed_pref``: the
-same program with soft preferences, which rank each group by its own
-row (the FFD kernel with a [G, O] rank) and right-size by the
-presence-averaged penalty.
+for word (the cost word too: ``solver/cost_sum.py`` sums the open-node
+prices in the reference's order), and :func:`solve_packed_pref_torch`
+the buffer of ``solve_packed_pref``: the same program with soft
+preferences, which rank each group by its own row (the FFD kernel with
+a [G, O] rank) and right-size by the presence-averaged penalty.
 
 The batched programs run C problems at once: :func:`solve_packed_batch_torch`
 (C windows sharing one catalog: ``solve_packed_batch`` /
@@ -19,8 +19,9 @@ The batched programs run C problems at once: :func:`solve_packed_batch_torch`
 clusters, each with its own catalog: ``parallel/fleet.py::
 fleet_packed_pallas``).  Each unpacks and finishes every row with
 ``torch.func.vmap`` over the single-window functions (``jax.vmap`` in
-the reference) around ONE launch of the fleet kernel, so a batch costs
-one window's launches, never C times as many.
+the reference) around ONE launch of the fleet kernel and ONE launch of
+the cost sum (taken outside vmap over the [C, N] masked prices), so a
+batch costs one window's launches, never C times as many.
 
 Everything here is shape-static and issues no host synchronization (no
 ``.item()``, no boolean-mask indexing, no tensors built from Python
@@ -39,6 +40,7 @@ from torch.func import vmap
 from karpenter_tpu_torch.explain import (
     BIT, DEFICIT_CLIP, DEFICIT_MASKED, RESOURCE_BITS,
 )
+from karpenter_tpu_torch.solver.cost_sum import cost_sum
 from karpenter_tpu_torch.solver.ffd_kernel import ffd_scan, ffd_scan_fleet
 from karpenter_tpu_torch.solver.presence_sum import presence_sum
 from karpenter_tpu_torch.solver.result_layout import (
@@ -133,9 +135,11 @@ def _presence_mean(present, miss_g):
 def finish_solve(meta, compat_i, node_off, assign, off_alloc, off_price,
                  off_rank, right_size_on: bool, miss_g=None,
                  pref_lambda: float = 0.0):
-    """Right-sizing on the exact integer load + open-node cost
+    """Right-sizing on the exact integer load + the open-node prices
     (``finish_pallas_solve``; with ``miss_g`` the pref branch of
-    ``_right_size``)."""
+    ``_right_size``) -> (node_off [N], prices [N], 0 where a node is
+    closed).  The caller sums the prices with :func:`cost_sum`, outside
+    any vmap (a kernel launched through ctypes has no batching rule)."""
     if right_size_on:
         load = _load(assign, meta[:, :4])
         node_off = right_size(node_off, load, assign, compat_i > 0,
@@ -143,8 +147,7 @@ def finish_solve(meta, compat_i, node_off, assign, off_alloc, off_price,
                               pref_lambda=pref_lambda)
     is_open = node_off >= 0
     prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = torch.where(is_open, prices, torch.zeros_like(prices)).sum()
-    return node_off, cost
+    return node_off, torch.where(is_open, prices, torch.zeros_like(prices))
 
 
 def compact_assign(assign: torch.Tensor, K: int):
@@ -342,12 +345,12 @@ def solve_packed_torch(packed, off_alloc, off_price, off_rank, *, G: int,
         meta[None].contiguous(), compat_i[None].contiguous(), off_alloc,
         off_rank, N)
     node_off, assign, unplaced = node_off[0], assign[0], unplaced[0]
-    node_off, cost = finish_solve(meta, compat_i, node_off, assign,
-                                  off_alloc, off_price, off_rank,
-                                  right_size)
+    node_off, prices = finish_solve(meta, compat_i, node_off, assign,
+                                    off_alloc, off_price, off_rank,
+                                    right_size)
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
-                                 unplaced, cost, off_alloc, compact,
-                                 dense16, coo16)
+                                 unplaced, cost_sum(prices), off_alloc,
+                                 compact, dense16, coo16)
 
 
 def pref_rank_rows(pref_rows, pref_idx, off_rank, lam: float):
@@ -385,12 +388,13 @@ def solve_packed_pref_torch(packed, pref_rows, pref_idx, off_alloc,
         meta[None].contiguous(), compat_i[None].contiguous(), off_alloc,
         rank_g, N)
     node_off, assign, unplaced = node_off[0], assign[0], unplaced[0]
-    node_off, cost = finish_solve(meta, compat_i, node_off, assign,
-                                  off_alloc, off_price, off_rank,
-                                  right_size, miss_g=miss_g, pref_lambda=lam)
+    node_off, prices = finish_solve(meta, compat_i, node_off, assign,
+                                    off_alloc, off_price, off_rank,
+                                    right_size, miss_g=miss_g,
+                                    pref_lambda=lam)
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
-                                 unplaced, cost, off_alloc, compact,
-                                 dense16, coo16)
+                                 unplaced, cost_sum(prices), off_alloc,
+                                 compact, dense16, coo16)
 
 
 def _cost_words(cost: torch.Tensor) -> torch.Tensor:
@@ -406,20 +410,21 @@ def solve_packed_batch_torch(packed_rows, off_alloc, off_price, off_rank, *,
     """C same-catalog windows: packed int32 problems [C, Li] -> packed
     int32 results [C, Lo], each row equal to :func:`solve_packed_torch`
     of that row.  One fleet-kernel launch with the catalog expanded over
-    the C problems (stride 0)."""
+    the C problems (stride 0), and one cost-sum launch."""
     metas, compats, rows = vmap(
         lambda p: unpack_problem(p, off_alloc, G, O, U))(packed_rows)
     node_off, assign, unplaced = ffd_scan_fleet(
         metas.contiguous(), compats.contiguous(),
         off_alloc.expand(C, O, 4), off_rank.expand(C, O), N)
-    node_off, cost = vmap(
+    node_off, prices = vmap(
         lambda m, ci, no, a: finish_solve(m, ci, no, a, off_alloc,
                                           off_price, off_rank, right_size)
     )(metas, compats, node_off, assign)
     return vmap(
         lambda m, r, ci, no, a, u, cw: pack_result_telemetry(
             m, r, ci, no, a, u, cw, off_alloc, compact, dense16, coo16)
-    )(metas, rows, compats, node_off, assign, unplaced, _cost_words(cost))
+    )(metas, rows, compats, node_off, assign, unplaced,
+      _cost_words(cost_sum(prices)))
 
 
 def fleet_packed_torch(packed_rows, alloc_all, rank_all, price_all, *,
@@ -431,14 +436,14 @@ def fleet_packed_torch(packed_rows, alloc_all, rank_all, price_all, *,
     problems [C, Li] -> packed results [C, Lo] in the bare
     :func:`pack_result` layout (no explain words, no telemetry: the
     fleet wire's parser is ``fleet_parse_outputs``).  One fleet-kernel
-    launch."""
+    launch and one cost-sum launch."""
     metas, compats, _ = vmap(
         lambda p, a: unpack_problem(p, a, G, O, U))(packed_rows, alloc_all)
     node_off, assign, unplaced = ffd_scan_fleet(
         metas.contiguous(), compats.contiguous(), alloc_all, rank_all, N)
-    node_off, cost = vmap(
+    node_off, prices = vmap(
         lambda m, ci, no, a, alloc, price, rank: finish_solve(
             m, ci, no, a, alloc, price, rank, right_size)
     )(metas, compats, node_off, assign, alloc_all, price_all, rank_all)
     return vmap(lambda no, a, u, cw: pack_result(no, a, u, cw, compact))(
-        node_off, assign, unplaced, _cost_words(cost))
+        node_off, assign, unplaced, _cost_words(cost_sum(prices)))

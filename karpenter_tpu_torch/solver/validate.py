@@ -1,8 +1,10 @@
-"""Independent plan feasibility validator.
+"""Independent plan feasibility validators.
 
-Port of ``validate_plan`` from ``karpenter_tpu/solver/validate.py``:
-checks a Plan against the raw pods + catalog with no shared code path
-with the solver's device half:
+Port of ``validate_plan``, ``validate_gang_plan`` and
+``validate_preemption_plan`` from ``karpenter_tpu/solver/validate.py``
+(the gang and preemption checks are listed on their functions).
+``validate_plan`` checks a Plan against the raw pods + catalog with no
+shared code path with the solver's device half:
 
 - every pod appears exactly once (some node, or unplaced);
 - per-node capacity: sum of requests <= allocatable of the node's type;
@@ -165,4 +167,299 @@ def validate_plan(plan: Plan, pods: Sequence[PodSpec], catalog: CatalogArrays,
     if abs(expected - plan.total_cost_per_hour) > 1e-3 * max(1.0, expected):
         errors.append(f"cost mismatch: nodes sum {expected} != "
                       f"plan {plan.total_cost_per_hour}")
+    return errors
+
+
+def validate_gang_plan(plan, pods: Sequence[PodSpec], catalog: CatalogArrays,
+                       nodepool: NodePool | None = None) -> list[str]:
+    """Independent feasibility oracle for a :class:`gang.types.GangPlan`
+    — no shared code path with either planner backend.  Checks against
+    the raw gang pods + catalog:
+
+    - every gang is placed WHOLE on exactly one node (atomicity), with
+      at least ``min_member`` members present, or fully unplaced;
+    - slice geometry: each assignment's placement bitmask has exactly
+      ``chips`` bits, lies within the node type's torus, and is one of
+      the enumerated contiguous placements; assignments sharing a node
+      are pairwise chip-disjoint;
+    - per-node capacity: total member demand fits the offering's
+      allocatable; offering is available and label-compatible with the
+      members' scheduling requirements; pool taints tolerated;
+    - cost accounting matches the node prices.
+    """
+    import math
+
+    from karpenter_tpu_torch.gang.topology import (
+        mask_chips, type_placements,
+    )
+
+    nodepool = nodepool or NodePool(name="default")
+    errors: list[str] = []
+    by_name: dict[str, PodSpec] = {pod_key(p): p for p in pods}
+    members_of: dict[str, set[str]] = defaultdict(set)
+    spec_of: dict[str, object] = {}
+    for p in pods:
+        if p.gang is not None:
+            members_of[p.gang.name].add(pod_key(p))
+            spec_of[p.gang.name] = p.gang
+
+    placed_of: dict[str, set[str]] = defaultdict(set)
+    node_of: dict[str, set[int]] = defaultdict(set)
+    seen: set[str] = set()
+    for ni, node in enumerate(plan.nodes):
+        o = node.offering_index
+        if o < 0 or o >= catalog.num_offerings:
+            errors.append(f"node{ni}: bad offering index {o}")
+            continue
+        if not catalog.off_avail[o]:
+            errors.append(f"node{ni}: offering {node.instance_type}/"
+                          f"{node.zone}/{node.capacity_type} is blacked out")
+        if (node.instance_type, node.zone, node.capacity_type) != \
+                catalog.describe_offering(o):
+            errors.append(f"node{ni}: offering index mismatch")
+        t = int(catalog.off_type[o])
+        labels = dict(nodepool.labels)
+        labels.update(catalog.offering_label_values(o))
+        alloc = catalog.offering_alloc()[o]
+        used = [0, 0, 0, 0]
+        occupied = 0
+        for a in node.assignments:
+            spec = spec_of.get(a.gang)
+            if spec is None:
+                errors.append(f"node{ni}: assignment for unknown gang "
+                              f"{a.gang}")
+                continue
+            placed_of[a.gang].update(a.pod_names)
+            node_of[a.gang].add(ni)
+            if spec.slice_shape:
+                want = math.prod(spec.slice_shape)
+                if mask_chips(a.placement_mask) != want:
+                    errors.append(f"node{ni}: gang {a.gang} mask has "
+                                  f"{mask_chips(a.placement_mask)} chips, "
+                                  f"shape needs {want}")
+                if a.placement_mask not in type_placements(
+                        catalog, t, spec.slice_shape):
+                    errors.append(f"node{ni}: gang {a.gang} mask is not a "
+                                  f"contiguous {spec.slice_shape} placement "
+                                  f"on {node.instance_type}'s torus")
+                if a.placement_mask & occupied:
+                    errors.append(f"node{ni}: gang {a.gang} slice overlaps "
+                                  f"another gang's chips")
+                occupied |= a.placement_mask
+                # rank-aware assignment: the rank->chip map must be a
+                # bijection onto exactly the slice's chips, and the
+                # claimed max hop must match an independent recount
+                # over the torus geometry (and never exceed the
+                # provable optimum for the block)
+                if a.rank_chips:
+                    from karpenter_tpu_torch.gang.topology import (
+                        _block_dims, max_hop_of_chips, optimal_max_hop,
+                    )
+
+                    torus = tuple(catalog.type_torus[t]) \
+                        if t < len(catalog.type_torus) else ()
+                    mask_bits = {c for c in range(64)
+                                 if (a.placement_mask >> c) & 1}
+                    if set(a.rank_chips) != mask_bits \
+                            or len(a.rank_chips) != len(mask_bits):
+                        errors.append(
+                            f"node{ni}: gang {a.gang} rank assignment is "
+                            f"not a bijection onto the slice's chips")
+                    else:
+                        recount = max_hop_of_chips(torus, a.rank_chips)
+                        if recount != a.max_hop:
+                            errors.append(
+                                f"node{ni}: gang {a.gang} claims max hop "
+                                f"{a.max_hop}, recount says {recount}")
+                        bound = optimal_max_hop(
+                            _block_dims(torus, a.placement_mask))
+                        if recount > bound:
+                            errors.append(
+                                f"node{ni}: gang {a.gang} rank assignment "
+                                f"hop {recount} exceeds the optimal bound "
+                                f"{bound} for its block")
+            for pn in a.pod_names:
+                if pn in seen:
+                    errors.append(f"pod {pn} assigned twice")
+                seen.add(pn)
+                pod = by_name.get(pn)
+                if pod is None:
+                    errors.append(f"pod {pn} not in request")
+                    continue
+                for i, v in enumerate(pod.requests.as_tuple()):
+                    used[i] += v if i != 3 else max(v, 1)
+                reqs = pod.scheduling_requirements().merged(
+                    nodepool.requirements)
+                if not reqs.matches(labels):
+                    errors.append(f"node{ni}: pod {pn} requirements "
+                                  f"unsatisfied by labels")
+                if nodepool.taints and not tolerates_all(pod.tolerations,
+                                                         nodepool.taints):
+                    errors.append(f"node{ni}: pod {pn} does not tolerate "
+                                  f"pool taints")
+        if any(u > a_ for u, a_ in zip(used, alloc)):
+            errors.append(f"node{ni} ({node.instance_type}): capacity "
+                          f"exceeded used={used} alloc={list(alloc)}")
+
+    for name, members in members_of.items():
+        placed = placed_of.get(name, set())
+        if not placed:
+            continue
+        if placed != members:
+            errors.append(f"gang {name}: partial placement "
+                          f"{len(placed)}/{len(members)} members")
+        if len(node_of[name]) > 1:
+            errors.append(f"gang {name}: members split across "
+                          f"{len(node_of[name])} nodes")
+        if len(placed) < spec_of[name].min_member:
+            errors.append(f"gang {name}: placed below min_member "
+                          f"{spec_of[name].min_member}")
+    for pn in plan.unplaced:
+        if pn in seen:
+            errors.append(f"pod {pn} both placed and unplaced")
+
+    expected = sum(n.price for n in plan.nodes)
+    if abs(expected - plan.total_cost_per_hour) > 1e-3 * max(1.0, expected):
+        errors.append(f"cost mismatch: nodes sum {expected} != "
+                      f"plan {plan.total_cost_per_hour}")
+    return errors
+
+
+def validate_preemption_plan(plan, pending_pods: Sequence[PodSpec], cluster,
+                             catalog: CatalogArrays,
+                             nodepool: NodePool | None = None,
+                             occupancy: dict | None = None) -> list[str]:
+    """Independent feasibility oracle for a PreemptionPlan — no shared
+    code path with either planner backend.  Checks against ground truth
+    (cluster claims + bound pods + catalog):
+
+    - every eviction names a live claim and a pod actually occupying it;
+      no pod is evicted twice, or both evicted and placed;
+    - **no priority inversion**: every victim's priority is strictly
+      below the lowest priority among the pods the plan places on that
+      claim (and below the recorded beneficiary priority);
+    - per-claim capacity: surviving occupants + placements fit the
+      claim's offering allocatable;
+    - placed pods come from the pending request, each placed once, their
+      scheduling requirements are satisfied by the target's offering
+      labels (availability deliberately NOT required — the node exists)
+      and they tolerate the claim's and pool's taints.
+    """
+    from karpenter_tpu_torch.preempt.encode import (
+        claim_pods, occupancy_index,
+    )
+
+    nodepool = nodepool or NodePool(name="default")
+    errors: list[str] = []
+    by_name: dict[str, PodSpec] = {pod_key(p): p for p in pending_pods}
+    claims = {c.name: c for c in cluster.nodeclaims()
+              if not c.deleted and c.launched}
+    if occupancy is None:
+        occupancy = occupancy_index(cluster)
+
+    evicted: dict[str, str] = {}           # pod key -> claim
+    for ev in plan.evictions:
+        claim = claims.get(ev.claim_name)
+        if claim is None:
+            errors.append(f"eviction {ev.pod_key}: unknown/dead claim "
+                          f"{ev.claim_name}")
+            continue
+        occupants = {pod_key(p.spec): p
+                     for p in claim_pods(cluster, claim, index=occupancy)}
+        if ev.pod_key not in occupants:
+            errors.append(f"eviction {ev.pod_key}: pod not on claim "
+                          f"{ev.claim_name}")
+        elif occupants[ev.pod_key].spec.priority != ev.victim_priority:
+            errors.append(f"eviction {ev.pod_key}: recorded priority "
+                          f"{ev.victim_priority} != actual "
+                          f"{occupants[ev.pod_key].spec.priority}")
+        if ev.pod_key in evicted:
+            errors.append(f"pod {ev.pod_key} evicted twice")
+        evicted[ev.pod_key] = ev.claim_name
+        if ev.victim_priority >= ev.beneficiary_priority:
+            errors.append(
+                f"priority inversion: victim {ev.pod_key} (prio "
+                f"{ev.victim_priority}) evicted for beneficiary prio "
+                f"{ev.beneficiary_priority}")
+
+    placed_by_claim: dict[str, list[str]] = {}
+    seen: set[str] = set()
+    for pn, claim_name in plan.placements.items():
+        if pn in seen:
+            errors.append(f"pod {pn} placed twice")
+        seen.add(pn)
+        if pn in evicted:
+            errors.append(f"pod {pn} both placed and evicted")
+        if pn not in by_name:
+            errors.append(f"placed pod {pn} not in the pending request")
+        if claim_name not in claims:
+            errors.append(f"pod {pn} placed on unknown claim {claim_name}")
+            continue
+        placed_by_claim.setdefault(claim_name, []).append(pn)
+
+    for claim_name, placed in placed_by_claim.items():
+        claim = claims[claim_name]
+        o = catalog.find_offering(claim.instance_type, claim.zone,
+                                  claim.capacity_type)
+        if o is None:
+            errors.append(f"claim {claim_name}: offering "
+                          f"{claim.instance_type}/{claim.zone} not in catalog")
+            continue
+        labels = dict(nodepool.labels)
+        labels.update(catalog.offering_label_values(o))
+        alloc = catalog.offering_alloc()[o]
+        used = [0, 0, 0, 0]
+        # surviving occupants keep their footprint
+        for p in claim_pods(cluster, claim, index=occupancy):
+            key = pod_key(p.spec)
+            if evicted.get(key) == claim_name:
+                continue
+            for i, v in enumerate(p.spec.requests.as_tuple()):
+                used[i] += v if i != 3 else max(v, 1)
+        max_placed_prio = None
+        for pn in placed:
+            pod = by_name.get(pn)
+            if pod is None:
+                continue
+            for i, v in enumerate(pod.requests.as_tuple()):
+                used[i] += v if i != 3 else max(v, 1)
+            max_placed_prio = pod.priority if max_placed_prio is None \
+                else max(max_placed_prio, pod.priority)
+            reqs = pod.scheduling_requirements().merged(nodepool.requirements)
+            if not reqs.matches(labels):
+                errors.append(f"claim {claim_name}: pod {pn} requirements "
+                              f"unsatisfied by labels")
+            if claim.taints and not tolerates_all(pod.tolerations,
+                                                  claim.taints):
+                errors.append(f"claim {claim_name}: pod {pn} does not "
+                              f"tolerate claim taints")
+            if nodepool.taints and not tolerates_all(pod.tolerations,
+                                                     nodepool.taints):
+                errors.append(f"claim {claim_name}: pod {pn} does not "
+                              f"tolerate pool taints")
+        if any(u > a for u, a in zip(used, alloc)):
+            errors.append(f"claim {claim_name} ({claim.instance_type}): "
+                          f"capacity exceeded used={used} "
+                          f"alloc={list(alloc)}")
+        # independent inversion check: recompute from the placements,
+        # not the plan's own beneficiary stamps.  Every victim must have
+        # yielded to SOME strictly-higher-priority pod placed on the
+        # claim (the max, not the min: lower-priority pods may ride
+        # along into leftover slack without evicting anyone).
+        if max_placed_prio is not None:
+            for ev in plan.evictions:
+                if ev.claim_name == claim_name \
+                        and ev.victim_priority >= max_placed_prio:
+                    errors.append(
+                        f"claim {claim_name}: victim {ev.pod_key} (prio "
+                        f"{ev.victim_priority}) >= placed max prio "
+                        f"{max_placed_prio}")
+
+    # evictions that freed capacity nothing uses are waste, not a
+    # feasibility violation — but an eviction on a claim with NO
+    # placements at all serves nobody and is flagged
+    for ev in plan.evictions:
+        if ev.claim_name in claims and ev.claim_name not in placed_by_claim:
+            errors.append(f"eviction {ev.pod_key} on claim {ev.claim_name} "
+                          f"serves no placement")
     return errors

@@ -141,9 +141,16 @@ def build_instance_types(profiles: list[InstanceProfile],
     return out
 
 
-def build_catalog(num_types: int) -> CatalogArrays:
+# the families of ``bench.run_gang``'s accelerator catalog (gx3 types
+# carry a torus)
+ACCEL_FAMILIES = ("gx3", "bx2", "cx2", "mx2")
+
+
+def build_catalog(num_types: int,
+                  families: tuple[str, ...] = ("bx2", "cx2", "mx2")
+                  ) -> CatalogArrays:
     return CatalogArrays.build(build_instance_types(
-        generate_profiles(num_types)))
+        generate_profiles(num_types, families=families)))
 
 
 def build_workload(num_pods: int, num_types: int, seed: int = 42):

@@ -2,8 +2,8 @@
 
 ``solve_packed_batch_torch`` must give, row for row and word for word,
 what the reference's ``solve_packed_batch`` gives on the same stacked
-packed buffers (every output mode; the float cost word to a relative
-1e-5), and what ``solve_packed_torch`` gives on each row.
+packed buffers (every output mode; the float cost word included), and
+what ``solve_packed_torch`` gives on each row.
 ``TorchSolver(device="cpu").solve_encoded_batch`` must give the plans of
 ``JaxSolver(use_pallas="off").solve_encoded_batch`` on windows carried
 over from the reference encoder — plain, with forced node escalation and

@@ -96,8 +96,7 @@ def test_solver_on_card_matches_cpu(cuda_device, seed):
     assert [(n.offering_index, n.pod_names) for n in plan.nodes] == \
         [(n.offering_index, n.pod_names) for n in ref.nodes]
     assert plan.unplaced_pods == ref.unplaced_pods
-    assert plan.total_cost_per_hour == pytest.approx(
-        ref.total_cost_per_hour, rel=1e-5)
+    assert plan.total_cost_per_hour == ref.total_cost_per_hour
     assert validate_plan(plan, pods, catalog) == []
 
 
@@ -168,8 +167,7 @@ def test_solve_encoded_batch_on_card_matches_cpu(cuda_device):
         [p for _, p in windows])
     for (pods, _), plan, want in zip(windows, plans, ref):
         assert _plan_view(plan) == _plan_view(want)
-        assert plan.total_cost_per_hour == pytest.approx(
-            want.total_cost_per_hour, rel=1e-5)
+        assert plan.total_cost_per_hour == want.total_cost_per_hour
         assert validate_plan(plan, pods, catalog) == []
 
 
@@ -434,3 +432,108 @@ def test_serving_staging_pinned_rotation(cuda_device):
                                       rng.randint(0, 1000, n))
         np.testing.assert_array_equal(d_val.cpu().numpy(), dval)
     assert staging.uploads == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8, 64])
+def test_cost_sum_kernel_matches_plain_version(cuda_device, C):
+    """The order-fixed cost sum bit for bit against its plain version at
+    every N in NODE_BUCKETS, ragged lengths and rows near 2^24 totals."""
+    from karpenter_tpu_torch.solver import cost_sum as cs
+    from karpenter_tpu_torch.solver.types import NODE_BUCKETS
+
+    rng = np.random.RandomState(C)
+    for N in NODE_BUCKETS + (0, 1, 33, 1000):
+        for scale in (4.0, 2.0 ** 25 / max(N, 1)):
+            prices = (rng.rand(C, N) * scale).astype(np.float32)
+            prices[rng.rand(C, N) < rng.uniform(0.3, 0.7, (C, 1))] = 0
+            x = torch.from_numpy(prices).to(cuda_device)
+            before = cs.LAUNCHES["cost_sum"]
+            got = cs.cost_sum(x)
+            torch.cuda.synchronize()
+            assert cs.LAUNCHES["cost_sum"] == before + 1
+            want = cs.cost_sum_reference(x.cpu())
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), (N, scale)
+
+
+@pytest.mark.cuda
+def test_whatif_on_card_matches_cpu(cuda_device):
+    """The stacked what-if plan on the card: one fleet-kernel launch and
+    one cost-sum launch, the CPU plan's words, the validator clean."""
+    from karpenter_tpu_torch.solver import cost_sum as cs
+    from karpenter_tpu_torch.whatif import (
+        Scenario, WhatIfPlanner, build_baseline, validate_whatif,
+    )
+    from karpenter_tpu_torch.whatif import scenario as sc
+
+    pods, catalog = workload.build_workload(1500, 40, seed=4)
+    base = build_baseline(pods, catalog)
+    menu = [Scenario("baseline"),
+            Scenario("wave", (sc.ArrivalWave(((0, 9), (1, 5))),)),
+            Scenario("storm", (sc.spot_storm_mask(catalog),)),
+            Scenario("quota", (sc.quota_clamp(base, 3),))]
+    on_card = WhatIfPlanner(device="cuda")
+    before = (ffd_kernel.LAUNCHES["ffd_scan_fleet"],
+              cs.LAUNCHES["cost_sum"])
+    plan = on_card.plan(base, menu)
+    assert (ffd_kernel.LAUNCHES["ffd_scan_fleet"] - before[0],
+            cs.LAUNCHES["cost_sum"] - before[1]) == (1, 1)
+    ref = WhatIfPlanner(device="cpu").plan(base, menu)
+    np.testing.assert_array_equal(plan.raw, ref.raw)
+    assert validate_whatif(plan) == []
+
+
+@pytest.mark.cuda
+def test_gang_and_preempt_grids_on_card_match_numpy(cuda_device):
+    """The torch grids of the gang and preemption planners on the card
+    give the numpy grids' plans."""
+    from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.apis.pod import PodSpec, ResourceRequests
+    from karpenter_tpu_torch.apis.podgroup import PodGroup
+    from karpenter_tpu_torch.core.cluster import ClusterState
+    from karpenter_tpu_torch.gang import GangOptions, GangPlanner, encode_gangs
+    from karpenter_tpu_torch.preempt import (
+        PlannerOptions, PreemptionPlanner, encode_victims,
+    )
+
+    gcat = workload.build_catalog(60, workload.ACCEL_FAMILIES)
+    rng = np.random.RandomState(17)
+    pods = []
+    for g in range(16):
+        shape = ["4x4", "2x2x2", "2x2", ""][rng.randint(4)]
+        gang = PodGroup(name=f"job-{g}", min_member=4,
+                        slice_shape=shape or None)
+        pods += [PodSpec(f"job-{g}-{m}", requests=ResourceRequests(
+            int(rng.randint(100, 500)), 512, 0, 1), gang=gang)
+            for m in range(4)]
+    problem = encode_gangs(pods, gcat)
+    plans = [GangPlanner(GangOptions(use_device=u), device=d).plan(problem)
+             for u, d in (("on", "cuda"), ("off", "cpu"))]
+    assert plans[0].placements == plans[1].placements
+    assert [(n.offering_index, [(a.gang, a.placement_mask)
+                                for a in n.assignments])
+            for n in plans[0].nodes] == \
+        [(n.offering_index, [(a.gang, a.placement_mask)
+                             for a in n.assignments]) for n in plans[1].nodes]
+
+    catalog = workload.build_catalog(40)
+    cluster = ClusterState()
+    for i in range(50):
+        cluster.add_nodeclaim(NodeClaim(
+            name=f"c{i}", instance_type=catalog.type_names[10 + i % 5],
+            zone=catalog.zones[i % 3], node_name=f"n{i}", launched=True))
+        for j in range(3):
+            cluster.add_pod(PodSpec(f"v{i}-{j}", requests=ResourceRequests(
+                600, 1024, 0, 1), priority=int(rng.choice([0, 100]))))
+            cluster.bind_pod(f"default/v{i}-{j}", f"n{i}")
+    pending = [PodSpec(f"p{k}", requests=ResourceRequests(
+        1000, 2048, 0, 1), priority=1000) for k in range(80)]
+    prob = encode(pending, catalog)
+    victims = encode_victims(cluster, catalog)
+    out = [PreemptionPlanner(PlannerOptions(use_device=u),
+                             device=d).plan(prob, victims)
+           for u, d in (("on", "cuda"), ("off", "cpu"))]
+    assert out[0].placements == out[1].placements
+    assert [(e.claim_name, e.pod_key) for e in out[0].evictions] == \
+        [(e.claim_name, e.pod_key) for e in out[1].evictions]

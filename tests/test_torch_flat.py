@@ -4,7 +4,7 @@ Heterogeneous windows (``bench.build_hetero_workload`` and the port's
 copy, the same seed) go through the reference's ``flat_solve_kernel``
 and the port's ``flat_solve_torch`` on the CPU, in the classic and the
 slim layout, with and without soft preferences: the result buffers must
-be equal word for word (the float cost word to a relative 1e-5).
+be equal word for word, the float cost word included.
 ``TorchSolver`` must take the flat route where ``JaxSolver`` does and
 give its plans, through node escalation on spill, a tight node budget
 and unplaceable items.  The float32 segment sums the program's plan
@@ -136,14 +136,10 @@ def _both_programs(js, ts, ja, ta, catalog, slim, lam_bp=1500):
 def assert_flat_words_equal(ref, got, a, slim):
     assert ref.shape == got.shape
     cost_w = (a.N // 2 + a.G_pad // 2) if slim else a.N + a.G_pad
-    mask = np.ones(ref.shape[0], bool)
-    mask[cost_w] = False
-    bad = np.nonzero((ref != got) & mask)[0]
-    assert bad.size == 0, (f"{bad.size} words differ, first at {bad[0]}: "
-                           f"{ref[bad[0]]} vs {got[bad[0]]}")
-    assert float(got[cost_w:cost_w + 1].view(np.float32)[0]) == \
-        pytest.approx(float(ref[cost_w:cost_w + 1].view(np.float32)[0]),
-                      rel=1e-5)
+    bad = np.nonzero(ref != got)[0]
+    assert bad.size == 0, (f"{bad.size} words differ, first at {bad[0]} "
+                           f"(cost word at {cost_w}): {ref[bad[0]]} vs "
+                           f"{got[bad[0]]}")
 
 
 @pytest.mark.parametrize("slim", [False, True], ids=["classic", "slim"])

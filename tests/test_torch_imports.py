@@ -49,8 +49,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     res = _probe()
     assert res["bad"] == []
     assert res["torch"]
-    # the walk really covered the package (kernel wrapper, build, carry,
-    # the resident store and the serving loop)
+    # the walk really covered the package (kernel wrappers, build, carry,
+    # the resident store, the serving loop and the what-if, gang and
+    # preemption planes)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -63,7 +64,21 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.serving.oracle",
               "karpenter_tpu_torch.serving.kernels",
               "karpenter_tpu_torch.serving.service",
-              "karpenter_tpu_torch.serving.validate"):
+              "karpenter_tpu_torch.serving.validate",
+              "karpenter_tpu_torch.solver.cost_sum",
+              "karpenter_tpu_torch.core.cluster",
+              "karpenter_tpu_torch.whatif.scenario",
+              "karpenter_tpu_torch.whatif.kernels",
+              "karpenter_tpu_torch.whatif.oracle",
+              "karpenter_tpu_torch.whatif.planner",
+              "karpenter_tpu_torch.whatif.validate",
+              "karpenter_tpu_torch.gang.types",
+              "karpenter_tpu_torch.gang.topology",
+              "karpenter_tpu_torch.gang.encode",
+              "karpenter_tpu_torch.gang.planner",
+              "karpenter_tpu_torch.preempt.types",
+              "karpenter_tpu_torch.preempt.encode",
+              "karpenter_tpu_torch.preempt.planner"):
         assert m in res["modules"]
 
 

@@ -3,9 +3,9 @@
 Both sides take the same packed problem buffer, built by the reference
 ``pack_input`` from an encoded seeded window, and the same padded
 catalog tensors.  Every word of the result must be equal — node_off,
-unplaced, the assign tail, the explain words and the telemetry block —
-except the float cost word, which is a sum taken in another order and
-must agree to a relative 1e-5.  All four output modes of
+unplaced, the float cost word (summed in the reference's order by
+``solver/cost_sum.py``), the assign tail, the explain words and the
+telemetry block.  All four output modes of
 ``clamp_output_opts`` are covered (dense, dense16, COO, coo16), over the
 shapes tests/test_packed_io.py (200 pods, N=256) and
 tests/test_telemetry.py (100+ pods with an unplaceable one, N=64) sweep.
@@ -84,16 +84,12 @@ def _window(catalog, seed, shape):
 
 
 def assert_words_equal(ref, got, G, N):
+    """Every word equal, the cost word (at N + G) included."""
     assert ref.shape == got.shape, (ref.shape, got.shape)
-    cost_w = N + G
-    mask = np.ones(ref.shape[0], bool)
-    mask[cost_w] = False
-    bad = np.nonzero((ref != got) & mask)[0]
-    assert bad.size == 0, (f"{bad.size} words differ, first at {bad[0]}: "
-                           f"{ref[bad[0]]} vs {got[bad[0]]}")
-    rc = float(ref[cost_w:cost_w + 1].view(np.float32)[0])
-    gc = float(got[cost_w:cost_w + 1].view(np.float32)[0])
-    assert gc == pytest.approx(rc, rel=1e-5)
+    bad = np.nonzero(ref != got)[0]
+    assert bad.size == 0, (f"{bad.size} words differ, first at {bad[0]} "
+                           f"(cost word at {N + G}): {ref[bad[0]]} vs "
+                           f"{got[bad[0]]}")
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))

@@ -3,7 +3,7 @@
 ``solve_packed_pref_torch`` must return the words of the reference's
 ``solve_packed_pref`` (the scan with a rank row per group, and the
 presence-averaged penalty right-size) on the same packed buffer and
-preference leaf, the cost word to a relative 1e-5.  The windows mix two
+preference leaf, the cost word included.  The windows mix two
 preference terms per pod (capacity type at weight 100, zone at weight
 50), so groups carry fractional misses (1/3, 2/3) and nodes hold several
 such groups, at two shapes: (G=128, N=64) and (G=32, N=512), the shapes

@@ -3,8 +3,8 @@
 ``update_resident`` must scatter a padded word delta as the reference's
 ``.at[].set(mode="drop")`` does, at every ``DELTA_BUCKETS`` rung (the
 port writes the padding into a spare last word); ``solve_resident`` must
-return the reference's words over a churn stream, the cost word to a
-relative 1e-5; ``TorchSolver(resident="on")`` must plan as resident off
+return the reference's words over a churn stream, the cost word
+included; ``TorchSolver(resident="on")`` must plan as resident off
 and as ``JaxSolver(resident="on")``; the store's ladder (rebuild, delta,
 hit) and its rebuild reasons must follow the reference's; the fleet's
 ``resident_buf`` must give the results of a fleet without it.  A failing

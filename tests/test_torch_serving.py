@@ -6,7 +6,7 @@ staging uploads each pair as a copy of its own, in rotation;
 ``apply_ring`` scatters as ``apply_ring_np`` and the reference's
 ``apply_ring`` do at every ``DELTA_BUCKETS`` rung; ``serve_window``
 returns the reference's ``serve_window`` words over a churn stream (cost
-word to a relative 1e-5); the port's own parity checks
+word included); the port's own parity checks
 (``raw_parity_violations``, ``plan_parity_violations``) come back empty
 over 8 seeds and ``ring_state_violations`` catches a corrupted state;
 ``serve_stream`` plans equal ``JaxSolver(serving="on")``'s.  Backpressured

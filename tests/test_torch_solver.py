@@ -5,8 +5,8 @@ The seeded windows of tests/test_solver.py go through both solvers'
 ``solve_encoded`` on one window carried over from the reference
 (``karpenter_tpu_torch.carry``), so solver parity does not hang on
 encoder parity.  Plans must agree node for node (offering, pods in
-order), on unplaced pods and their reasons, and on cost to a relative
-1e-5; the port's ``validate_plan`` must come back clean.  Windows that
+order), on unplaced pods, their reasons and nearest misses, and on the
+cost to the bit; the port's ``validate_plan`` must come back clean.  Windows that
 force node escalation and COO growth, every output mode through
 explicit options, one small window on each route the reference's
 dispatch takes on its own (soft preferences, affinity, stochastic and
@@ -104,8 +104,8 @@ def assert_plans_equal(jplan, tplan):
     assert tplan.unplaced_pods == jplan.unplaced_pods
     assert tplan.unplaced_reasons == jplan.unplaced_reasons
     assert tplan.unplaced_words == jplan.unplaced_words
-    assert tplan.total_cost_per_hour == pytest.approx(
-        jplan.total_cost_per_hour, rel=1e-5)
+    assert tplan.unplaced_nearest == jplan.unplaced_nearest
+    assert tplan.total_cost_per_hour == jplan.total_cost_per_hour
 
 
 def jax_solver(**kw):
@@ -268,6 +268,44 @@ def test_zone_affinity_window_matches(jcatalog, tcatalog):
     # the last candidate round ran as one batch (solve_encoded_batch)
     assert ts.last_stats["path"] == "ffd-reference-batch"
     assert ts.last_stats["batch"] >= 2
+
+
+def _split_window(pod_mod, req_mod, seed):
+    """400 pods: a seeded mixed window, three apps of 10 with hostname
+    anti-affinity and three of 10 with zone affinity."""
+    pods = build_pods(mixed_specs(340, seed), pod_mod, req_mod)
+    for kind in ("web", "za"):
+        for a in range(3):
+            app = f"{kind}{a}"
+            if kind == "web":
+                term = pod_mod.PodAffinityTerm(
+                    (("app", app),), pod_mod.HOSTNAME_TOPOLOGY_KEY,
+                    anti=True)
+                req = pod_mod.ResourceRequests(500, 1024, 0, 1)
+            else:
+                term = pod_mod.PodAffinityTerm((("app", app),),
+                                               req_mod.LABEL_ZONE)
+                req = pod_mod.ResourceRequests(1000, 2048, 0, 1)
+            pods += [pod_mod.PodSpec(f"{app}-{i}", requests=req,
+                                     labels=(("app", app),),
+                                     affinity=(term,))
+                     for i in range(10)]
+    return pods
+
+
+def test_zone_candidate_plan_split_regression(jcatalog, tcatalog):
+    """A window whose zone candidates cost the same plan summed in two
+    node orders: the cheaper by more than 1e-9 wins, so the cost word
+    must round as the reference's does.  Summed with ``torch.sum`` the
+    port picked another zone and its plan split from the reference's."""
+    jpods = _split_window(j_pod, j_req, 6)
+    tpods = _split_window(t_pod, t_req, 6)
+    jplan = jax_solver(max_nodes=64).solve(JSolveRequest(jpods, jcatalog))
+    ts = torch_solver(max_nodes=64)
+    tplan = ts.solve(SolveRequest(tpods, tcatalog))
+    assert ts.last_stats["path"] == "ffd-reference-batch"
+    assert_plans_equal(jplan, tplan)
+    assert validate_plan(tplan, tpods, tcatalog) == []
 
 
 def test_dedup_rows_matches_reference(jcatalog):

@@ -3,8 +3,9 @@
 The same windows, built from a numpy seed, go through the reference's
 ``build_fit_grids`` / ``solve_packed_stochastic`` and the port's on the
 CPU: the fit grids must be equal, the packed result word for word (the
-float cost word to a relative 1e-5), and both must equal the numpy
-oracle ``stochastic/greedy.solve_stochastic_host``.  ``TorchSolver``
+float cost word included), and both must equal the numpy oracle
+``stochastic/greedy.solve_stochastic_host`` (whose cost is a numpy sum:
+its plan, priced in the reference's order, must give the cost word).  ``TorchSolver``
 must route overcommitting-pool windows to the stochastic scan and give
 ``JaxSolver``'s plans; a zero-variance window packs exactly as the
 deterministic scan; the port's ``validate_plan`` applies the chance rule
@@ -44,6 +45,7 @@ from karpenter_tpu_torch.solver import (
     validate_plan,
 )
 from karpenter_tpu_torch.solver import encode as t_encode
+from karpenter_tpu_torch.solver.cost_sum import cost_sum
 from karpenter_tpu_torch.solver import torch_backend
 from karpenter_tpu_torch.stochastic import encode as t_sto_encode
 from karpenter_tpu_torch.stochastic import kernel as t_kernel
@@ -180,7 +182,13 @@ def test_scan_matches_reference_and_oracle(catalogs, seed):
     np.testing.assert_array_equal(assign[:g], h_assign)
     np.testing.assert_array_equal(unplaced[:g], h_unp)
     np.testing.assert_array_equal(words[:g], h_words)
-    assert cost == pytest.approx(h_cost, rel=1e-5)
+    # the oracle sums its prices with numpy; its plan summed in the
+    # reference's order is the cost word, to the bit
+    price = np.asarray(jprob.catalog.off_price, dtype=np.float32)
+    h_prices = np.where(h_off >= 0, price[np.clip(h_off, 0, None)],
+                        np.float32(0)).astype(np.float32)
+    want = cost_sum(torch.from_numpy(h_prices)).numpy()
+    assert np.float32(cost).view(np.int32) == want.view(np.int32)
 
 
 def test_pack_stochastic_matches(catalogs):
