@@ -17,12 +17,15 @@ affinity plane and the stochastic plane; then the soft-preference window
 stream, the serving loop's churn stream and the fleet with its resident
 input, then the what-if plane (64 scenarios in one stacked plan), the
 gang plane and the preemption plane at the shapes of bench.py's
-``run_whatif``, ``run_gang`` and ``run_preempt``; and checks that each
+``run_whatif``, ``run_gang`` and ``run_preempt``, then the sharded
+service (the headline window, ``run_sharded``'s churn and hash-skewed
+streams, its serving loop) and the repack plane at ``run_repack``'s
+fleet; and checks that each
 path ran through its hand-written CUDA kernels (the order-fixed cost sum
 on every path that writes a cost word, the flat program's order-fixed
 segment sum, the pref right-size's order-fixed presence sum; the
-affinity and stochastic scans and the gang and preemption grids are
-PyTorch ops).  Phases, in order; any failure exits non-zero and prints
+affinity and stochastic scans and the gang, preemption and repack
+grids are PyTorch ops).  Phases, in order; any failure exits non-zero and prints
 no result line:
 
 1. the card's name and power limit, as nvidia-smi reports them;
@@ -103,6 +106,26 @@ no result line:
    clean, no partial gang; (n) the preemption plane at ``run_preempt``'s
    shape (10k pending, 2000 claims, seed 31): the torch fit grid on the
    card equal to the numpy grid, ``validate_preemption_plan`` clean;
+   (o) the headline window through ``make_solver(SolverOptions(
+   sharded=2))`` (the sharded service: the shards are the fleet kernel's
+   problem axis): one ``ffd_scan_fleet`` and one ``cost_sum`` launch per
+   window over 21 windows, each shard's raw row equal to the plain CPU
+   solve of its buffer word for word, the plan equal to the CPU sharded
+   solver's and clean, its warm p50 beside ``TorchSolver``'s; then the
+   window through ``ShardedSolveService(4)``; (p) ``run_sharded``'s churn
+   at 10k pods x 500 types (4 seeds x 4 rounds): every window one launch
+   of each, its rows equal to single solves of its shards' buffers on the
+   card, the state and partition checks clean, the resident modes and
+   delta words; the hash-skewed stream migrating, every decision equal to
+   ``rebalance_oracle``; aggregate and single-shard pods/s; (q) seed 0's
+   churn through ``ShardedServingLoop(capacity=2)``: plans equal to
+   ``solve_window``'s, the overlap fraction, the port's sharded parity
+   checks, the wall of every submit, result and window with the garbage
+   collections of each pass, and a ``cProfile`` of warm windows; (r) ``run_repack``'s fleet (2000 claims x 500 types): the
+   repack grid as torch ops on the card reading the resident occupancy
+   rows, its plan equal to the numpy grid's and
+   ``validate_repack_plan`` clean, both warm p50s; and the torus-defrag
+   case reopening a slice on both routes;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -122,8 +145,11 @@ measured also lands in the JSON file PATH.
 from __future__ import annotations
 
 import argparse
+import cProfile
+import gc
 import importlib
 import json
+import pstats
 import random
 import subprocess
 import sys
@@ -219,6 +245,20 @@ SERVING = dict(seed=78, windows=8, rng="bench-serving", tag="sw", depth=2)
 WHATIF = dict(pods=10_000, types=500, K=64, menu_seed=5, iters=6)
 GANG = dict(gangs=64, members=16, types=500, seed=17, iters=10)
 PREEMPT = dict(pending=10_000, claims=2000, types=500, seed=31, iters=5)
+# the sharded service: the headline window through make_solver(sharded=2)
+# (20 warm windows) and ShardedSolveService(4); bench.py::run_sharded's
+# churn (pods of 100-900m / 256-2048 Mi, per round 1-15 departures and
+# 8-24 arrivals) at 10k pods x 500 types, 4 rounds, 4 seeds, and its
+# hash-skewed stream (24 hot sizes on shard 0, 2-5 pods each, seed 7, 4
+# windows); the serving loop over seed 0's stream at capacity 2
+SHARDED = dict(shards=2, warm=20, wide=4, pods=10_000, types=500, rounds=4,
+               seeds=4, seed0=1000, hot=24, hot_seed=7, hot_windows=4,
+               tput_windows=10, capacity=2)
+# bench.py::run_repack's fleet (2000 bx2-16x64 claims at 0.8 $/h, 2 pods
+# each of 100-1000m / 256-2048 Mi, seed 13, 500 types) and
+# _run_repack_defrag's torus case (two gx3-64x512 nodes, gpu=2
+# singletons 3 and 1, a parked 2x2x2 gang)
+REPACK = dict(claims=2000, types=500, pods_per_claim=2, seed=13, iters=8)
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
@@ -1485,6 +1525,10 @@ def p50_ms(xs) -> float:
     return float(np.percentile(xs, 50)) * 1e3
 
 
+def fmt_ms(xs) -> str:
+    return "/".join(f"{x:.4f}" for x in xs)
+
+
 def phase_resident(dev, card: str) -> dict:
     """(i) The resident stream: resident on and off alternately (the
     order flips each window), every plan equal, the device state equal
@@ -2134,6 +2178,616 @@ def phase_preempt(dev, card: str) -> dict:
             "encode_victims_ms": victims_ms}
 
 
+# -- phase 4 (o-r): the sharded service, its serving loop, the repack plane --
+
+
+def keep_kicks(svc) -> list:
+    """Keep every kick of a sharded service (its window and its pinned
+    result buffer, read after the fetch)."""
+    kicks = []
+    kick = svc._kick_window
+
+    def keep(*args, **kwargs):
+        out = kick(*args, **kwargs)
+        kicks.append(out)
+        return out
+
+    svc._kick_window = keep
+    return kicks
+
+
+def single_rows(window, catalog_t, device) -> list:
+    """``solve_packed_torch`` of each shard's buffer on ``device``."""
+    kw = dict(G=window.G_pad, O=window.O_pad, U=window.U_pad, N=window.N)
+    ct = [t.to(device) for t in catalog_t]
+    return [tp.solve_packed_torch(torch.from_numpy(window.stacked[s])
+                                  .to(device), *ct, **kw).cpu().numpy()
+            for s in range(window.num_shards)]
+
+
+def rows_equal_singles(label: str, kick, catalog_t, device) -> None:
+    """A kicked window's raw rows, fetched, against the single solves of
+    its shards' buffers on ``device`` (the cost words included)."""
+    w = kick.window
+    rows = kick.host.numpy()
+    for s, single in enumerate(single_rows(w, catalog_t, device)):
+        words_equal(f"{label} shard {s}", rows[s], single, w.N + w.G_pad)
+
+
+def shard_scan_check(dev, label: str, window, ct, card: str) -> dict:
+    """The fleet kernel on a sharded window's own unpacked tensors (C =
+    S, the catalog expanded with stride 0), exact against its plain
+    version on the card, with both timed and the bound."""
+    alloc, _, rank = ct
+    S, N = window.num_shards, window.N
+    metas, compats, _ = torch.func.vmap(lambda p: tp.unpack_problem(
+        p, alloc, window.G_pad, window.O_pad, window.U_pad))(
+        torch.from_numpy(window.stacked).to(dev))
+    metas, compats = metas.contiguous(), compats.contiguous()
+    allocs, ranks = alloc.expand(S, *alloc.shape), rank.expand(S, -1)
+    got = ffd_kernel.ffd_scan_fleet(metas, compats, allocs, ranks, N)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ffd_kernel.ffd_scan_fleet_reference(metas, compats, allocs,
+                                               ranks, N)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    err = max_abs_err(got, want)
+    if err:
+        first_diff(f"ffd_scan_fleet {label}", got, want)
+    ms = cuda_ms(lambda: ffd_kernel.ffd_scan_fleet(metas, compats, allocs,
+                                                   ranks, N), 10)
+    bound_ms, bound_by, nbytes, ops = scan_bound_ms(
+        metas, compats, allocs, ranks, N, got[1].cpu().numpy(),
+        got[0].cpu().numpy())
+    G, O = compats.shape[1:]
+    say(f"kernel check ffd_scan_fleet on the {label} (C={S} stride 0, "
+        f"G={G} O={O} N={N}): exact against its plain version; timing "
+        f"[{card}]: kernel {ms:.4f} ms ({ms / G * 1e3:.4f} us per group "
+        f"step), plain PyTorch version {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {ops} scalar "
+        f"ops)")
+    return {"C": S, "G": G, "O": O, "N": N, "ms": ms, "plain_ms": plain_ms,
+            "us_per_step": ms / G * 1e3, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def require_window_launches(launches: dict, label: str,
+                            windows: int = 1) -> None:
+    """Exactly one ``ffd_scan_fleet`` and one ``cost_sum`` launch per
+    sharded window, and no other kernel."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != {"ffd_scan_fleet": windows, "cost_sum": windows}:
+        raise AssertionError(f"{label}: {windows} sharded window(s) "
+                             f"launched {got}, want one ffd_scan_fleet and "
+                             f"one cost_sum each")
+
+
+def phase_sharded(dev, card: str, pods, catalog) -> dict:
+    """(o) The headline window through ``make_solver(SolverOptions(
+    sharded=2))``: one ``ffd_scan_fleet`` and one ``cost_sum`` launch per
+    window, each shard's raw row equal to the plain CPU solve of its
+    buffer, the plan equal to the CPU sharded solver's and clean; warm
+    p50 of 20 windows beside ``TorchSolver``'s; then the same window
+    through ``ShardedSolveService(4)``."""
+    from karpenter_tpu_torch import make_solver
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+    from karpenter_tpu_torch.sharded.solver import ShardedSolver
+
+    S = SHARDED["shards"]
+    solver = make_solver(SolverOptions(sharded=S), device=dev)
+    if type(solver) is not ShardedSolver or solver.service.num_shards != S:
+        raise AssertionError(f"make_solver(sharded={S}) gave {solver!r}")
+    kicks = keep_kicks(solver.service)
+    request = SolveRequest(pods, catalog)
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = solver.solve(request)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_window_launches(launches, "sharded window")
+    window = kicks[-1].window
+    cpu_ct = [t.cpu() for t in solver.service._catalog_tensors(
+        catalog, window.O_pad)]
+    rows_equal_singles("sharded window", kicks[-1], cpu_ct, "cpu")
+    plans_equal("sharded window", plan, ShardedSolver(
+        S, device="cpu").solve(request))
+    scan = shard_scan_check(dev, "sharded headline window", window,
+                            solver.service._catalog_tensors(
+                                catalog, window.O_pad), card)
+    clean_and_placed("sharded window", plan, pods, catalog,
+                     placed=plan.placed_count)
+    walls = []
+    for _ in range(SHARDED["warm"]):
+        reset_launches()
+        t0 = time.perf_counter()
+        solver.solve(request)
+        walls.append(time.perf_counter() - t0)
+        require_window_launches(launch_counts(), "warm sharded window")
+    mode = solver.last_stats["resident_mode"]
+    if mode != "hit":
+        raise AssertionError(f"warm sharded window took mode {mode!r}")
+    single = TorchSolver(device=dev)
+    single.solve(request)
+    torch_walls = warm_walls(single, request, SHARDED["warm"])
+
+    wide = ShardedSolveService(SHARDED["wide"], device=dev)
+    wkicks = keep_kicks(wide)
+    reset_launches()
+    t0 = time.perf_counter()
+    wplan = wide.solve_window(catalog, pods=pods)
+    wide_cold_s = time.perf_counter() - t0
+    wl = launch_counts()
+    require_window_launches(wl, f"ShardedSolveService({SHARDED['wide']})")
+    rows_equal_singles(f"{SHARDED['wide']}-shard window", wkicks[-1],
+                       cpu_ct, "cpu")
+    merged = wplan.merged()
+    clean_and_placed(f"{SHARDED['wide']}-shard window", merged, pods,
+                     catalog, placed=merged.placed_count)
+    wide_walls = []
+    for _ in range(SHARDED["warm"] // 2):
+        t0 = time.perf_counter()
+        wide.solve_window(catalog, pods=pods)
+        wide_walls.append(time.perf_counter() - t0)
+    out = {"launches": {k: launches.get(k, 0) + wl.get(k, 0)
+                        for k in set(launches) | set(wl)},
+           "p50_ms": p50_ms(walls), "torch_p50_ms": p50_ms(torch_walls),
+           "cold_ms": cold_s * 1e3, "walls_ms": [x * 1e3 for x in walls],
+           "shapes": window.shapes, "shard_pods": window.shard_pods,
+           "nodes": len(plan.nodes), "placed": plan.placed_count,
+           "cost": plan.total_cost_per_hour, "scan": scan,
+           "wide": {"shards": SHARDED["wide"],
+                    "shapes": wkicks[-1].window.shapes,
+                    "shard_pods": wkicks[-1].window.shard_pods,
+                    "cold_ms": wide_cold_s * 1e3,
+                    "p50_ms": p50_ms(wide_walls),
+                    "placed": merged.placed_count}}
+    say(f"sharded window: the headline through make_solver(sharded={S}) "
+        f"(G, O, U, N = {window.shapes}, pods per shard "
+        f"{window.shard_pods}): {len(plan.nodes)} nodes, "
+        f"{plan.placed_count} placed, cost {plan.total_cost_per_hour:.4f} "
+        f"$/h; one ffd_scan_fleet and one cost_sum per window over "
+        f"{1 + SHARDED['warm']} windows; every shard row equal to the plain "
+        f"CPU solve of its buffer word for word; plan equal to the CPU "
+        f"sharded solver's and clean; ShardedSolveService({SHARDED['wide']}"
+        f"): pods per shard {out['wide']['shard_pods']}, rows equal, "
+        f"{merged.placed_count} placed, clean")
+    say(f"timing [{card}]: sharded window warm p50 {out['p50_ms']:.4f} ms "
+        f"(cold {out['cold_ms']:.3f} ms) against TorchSolver "
+        f"{out['torch_p50_ms']:.4f} ms on the same window; "
+        f"{SHARDED['wide']} shards {out['wide']['p50_ms']:.4f} ms (cold "
+        f"{out['wide']['cold_ms']:.3f} ms)")
+    return out
+
+
+def sharded_stream_pods(rng, n: int, tag: str) -> list:
+    """``bench.py::run_sharded``'s pods: 100-900m CPU, 256-2048 Mi."""
+    return [pod_api.PodSpec(f"{tag}{rng.randint(1 << 30)}-{i}",
+                            requests=pod_api.ResourceRequests(
+                                int(rng.randint(100, 900)),
+                                int(rng.randint(256, 2048)), 0, 1))
+            for i in range(n)]
+
+
+def sharded_churn(seed: int) -> list:
+    """One seed's churn: ``rounds`` windows of SHARDED["pods"] pods, each
+    round dropping 1-15 pods and adding 8-24."""
+    rng = np.random.RandomState(seed)
+    pods = sharded_stream_pods(rng, SHARDED["pods"], "s")
+    seqs = []
+    for _ in range(SHARDED["rounds"]):
+        seqs.append(list(pods))
+        pods = pods[int(rng.randint(1, 16)):] \
+            + sharded_stream_pods(rng, int(rng.randint(8, 24)), "s")
+    return seqs
+
+
+def phase_sharded_churn(dev, card: str, catalog) -> dict:
+    """(p) ``bench.py::run_sharded`` at 10k pods x 500 types: 4 seeds of
+    4 churn rounds through one ``ShardedSolveService(2)`` each, every
+    window's rows equal to single solves of its shards' buffers on the
+    card, its resident mode and delta words; the hash-skewed stream's
+    decisions against ``rebalance_oracle``; aggregate and single-shard
+    pods/s."""
+    from karpenter_tpu_torch.resident.kernels import new_state
+    from karpenter_tpu_torch.sharded.kernels import (
+        rebalance_oracle, solve_shards,
+    )
+    from karpenter_tpu_torch.sharded.router import craft_hot_requests
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+    from karpenter_tpu_torch.sharded.validate import (
+        partition_violations, rebalance_violations, state_violations,
+    )
+
+    S = SHARDED["shards"]
+    launches: dict = {}
+    modes, words, walls, shapes = [], [], [], set()
+    windows = 0
+    for k in range(SHARDED["seeds"]):
+        svc = ShardedSolveService(S, device=dev)
+        kicks = keep_kicks(svc)
+        for r, pods in enumerate(sharded_churn(SHARDED["seed0"] + k)):
+            reset_launches()
+            t0 = time.perf_counter()
+            svc.solve_window(catalog, pods=pods)
+            walls.append(time.perf_counter() - t0)
+            got = launch_counts()
+            require_window_launches(got, f"churn seed {k} round {r}")
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+            kick = kicks[-1]
+            rows_equal_singles(f"churn seed {k} round {r}", kick,
+                               svc._catalog_tensors(catalog,
+                                                    kick.window.O_pad), dev)
+            modes.append(kick.delta.mode)
+            words.append(kick.delta.words)
+            shapes.add(kick.window.shapes)
+            errors = state_violations(svc, pods, catalog) \
+                + partition_violations(svc, pods)
+            if errors:
+                raise AssertionError(f"churn seed {k} round {r}: "
+                                     f"{errors[:3]}")
+            windows += 1
+    if "rebuild" not in modes or "delta" not in modes:
+        raise AssertionError(f"sharded churn modes {modes}")
+
+    # the hash-skewed stream: must migrate, every decision the oracle's
+    rng = np.random.RandomState(SHARDED["hot_seed"])
+    skewed = [pod_api.PodSpec(f"hot{made}-{i}",
+                              requests=pod_api.ResourceRequests(
+                                  hcpu, hmem, 0, 1))
+              for made, (hcpu, hmem) in enumerate(
+                  craft_hot_requests(S, 0, count=SHARDED["hot"]))
+              for i in range(int(rng.randint(2, 6)))]
+    hot = ShardedSolveService(S, device=dev)
+    hot.admit(skewed)
+    migrations, decisions = 0, []
+    for _ in range(SHARDED["hot_windows"]):
+        hot.solve_window(catalog)
+        dec = hot.rebalance()
+        bad = rebalance_violations(hot, dec)
+        if bad or tuple(int(v) for v in dec.tile[0, :4]) \
+                != rebalance_oracle(dec.pressure):
+            raise AssertionError(f"rebalance decision: {bad}")
+        migrations += len(dec.moved_keys)
+        decisions.append((dec.donor, dec.receiver, dec.amount, dec.skew,
+                          len(dec.moved_keys)))
+    if migrations <= 0:
+        raise AssertionError("the hash-skewed stream migrated nothing")
+
+    # throughput: the stacked solve of one window against shard 0 alone
+    pods = sharded_stream_pods(np.random.RandomState(11), SHARDED["pods"],
+                               "t")
+    svc = ShardedSolveService(S, device=dev)
+    kicks = keep_kicks(svc)
+    svc.solve_window(catalog, pods=pods)
+    w = kicks[-1].window
+    ct = svc._catalog_tensors(catalog, w.O_pad)
+    L = w.stacked.shape[1]
+    didx = torch.full((S, 64), L, dtype=torch.int32, device=dev)
+    dval = torch.zeros((S, 64), dtype=torch.int32, device=dev)
+    kw = dict(G=w.G_pad, O=w.O_pad, U=w.U_pad, N=w.N)
+    scan = shard_scan_check(dev, "10k-pod churn window", w, ct, card)
+
+    def agg_once():
+        _, out = solve_shards(new_state(w.stacked, dev), didx, dval,
+                              *ct, **kw)
+        out.cpu()
+
+    def single_once():
+        tp.solve_packed_torch(torch.from_numpy(w.stacked[0]).to(dev), *ct,
+                              **kw).cpu()
+
+    agg_once()
+    single_once()
+    agg_s, single_s = [], []
+    for _ in range(SHARDED["tput_windows"]):
+        t0 = time.perf_counter()
+        agg_once()
+        agg_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        single_once()
+        single_s.append(time.perf_counter() - t0)
+    agg_rate = len(pods) / (p50_ms(agg_s) / 1e3)
+    single_rate = w.shard_pods[0] / (p50_ms(single_s) / 1e3)
+    warm = [x for x, m in zip(walls, modes) if m != "rebuild"]
+    out = {"launches": launches, "windows": windows, "modes": modes,
+           "delta_words": words, "shapes": sorted(shapes),
+           "window_p50_ms": p50_ms(walls),
+           "warm_window_p50_ms": p50_ms(warm) if warm else None,
+           "migrations": migrations, "decisions": decisions,
+           "agg_pods_per_s": agg_rate, "single_pods_per_s": single_rate,
+           "linearity": agg_rate / (S * single_rate),
+           "agg_p50_ms": p50_ms(agg_s), "single_p50_ms": p50_ms(single_s),
+           "tput_shapes": w.shapes, "tput_shard_pods": w.shard_pods,
+           "scan": scan}
+    say(f"sharded churn: {SHARDED['seeds']} seeds x {SHARDED['rounds']} "
+        f"rounds of {SHARDED['pods']} pods x {SHARDED['types']} types "
+        f"(shapes {sorted(shapes)}): every window one ffd_scan_fleet and "
+        f"one cost_sum, every shard row equal to a single solve of its "
+        f"buffer on the card word for word, state and partition checks "
+        f"clean; modes {modes}; delta words {words}; hash-skewed stream: "
+        f"{migrations} migrations, decisions {decisions}, each equal to "
+        f"rebalance_oracle")
+    say(f"timing [{card}]: sharded churn window p50 {out['window_p50_ms']:.4f}"
+        f" ms (warm {out['warm_window_p50_ms']} ms); stacked solve "
+        f"{out['agg_p50_ms']:.4f} ms for {len(pods)} pods = "
+        f"{agg_rate:.1f} pods/s, shard 0 alone {out['single_p50_ms']:.4f} "
+        f"ms for {w.shard_pods[0]} pods = {single_rate:.1f} pods/s, ratio "
+        f"{out['linearity']:.4f} of {S} x single (one card: not gated)")
+    return out
+
+
+class GcCount:
+    """Python garbage collections (count and seconds) while it is on."""
+
+    def __init__(self):
+        self.n, self.s, self._t0 = 0, 0.0, 0.0
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.n += 1
+            self.s += time.perf_counter() - self._t0
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def read(self) -> dict:
+        return {"collections": self.n, "seconds": self.s}
+
+
+def host_profile(fn, top: int = 16) -> list:
+    """``cProfile`` of ``fn()``: the port's ``top`` functions by
+    cumulative seconds, as ``[file:line(function), seconds]``."""
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = sorted(((v[3], f"{k[0].rsplit('karpenter_tpu_torch/', 1)[-1]}:"
+                          f"{k[1]}({k[2]})")
+                   for k, v in pstats.Stats(prof).stats.items()
+                   if "karpenter_tpu_torch" in k[0]), reverse=True)
+    return [[name, t] for t, name in rows[:top]]
+
+
+def phase_sharded_serving(dev, card: str, catalog) -> dict:
+    """(q) Seed 0's churn stream through ``ShardedServingLoop(capacity=
+    2)``: every plan equal to ``solve_window``'s on a second service, the
+    overlap fraction, and the port's sharded parity checks.  Both timed
+    passes follow an untimed one over the same windows; each reads the
+    wall of every submit, result or window and the garbage collections
+    inside it.  Then a ``cProfile`` of one more service's warm windows
+    says where the host's time goes."""
+    from karpenter_tpu_torch.serving.service import ShardedServingLoop
+    from karpenter_tpu_torch.serving.validate import (
+        sharded_parity_violations,
+    )
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+
+    S = SHARDED["shards"]
+    seqs = sharded_churn(SHARDED["seed0"])
+    # one untimed pass first, so that both timed passes read the encode
+    # memo and the pods' cached signatures
+    warm = ShardedSolveService(S, device=dev)
+    for pods in seqs:
+        warm.solve_window(catalog, pods=pods)
+    loop = ShardedServingLoop(ShardedSolveService(S, device=dev),
+                              capacity=SHARDED["capacity"])
+    reset_launches()
+    submit_ms, result_ms = [], []
+    with GcCount() as loop_gc:
+        t0 = time.perf_counter()
+        handles = []
+        for pods in seqs:
+            t1 = time.perf_counter()
+            handles.append(loop.submit(catalog, pods=pods))
+            submit_ms.append((time.perf_counter() - t1) * 1e3)
+        plans = []
+        for h in handles:
+            t1 = time.perf_counter()
+            plans.append(h.result())
+            result_ms.append((time.perf_counter() - t1) * 1e3)
+        served_ms = (time.perf_counter() - t0) * 1e3 / len(seqs)
+    launches = launch_counts()
+    require_window_launches(launches, "sharded serving loop", len(seqs))
+    classic = ShardedSolveService(S, device=dev)
+    walls = []
+    with GcCount() as classic_gc:
+        for r, (pods, plan) in enumerate(zip(seqs, plans)):
+            t0 = time.perf_counter()
+            want = classic.solve_window(catalog, pods=pods)
+            walls.append(time.perf_counter() - t0)
+            for s, (a, b) in enumerate(zip(plan.plans, want.plans)):
+                plans_equal(f"sharded serving round {r} shard {s}", a, b)
+    # profiled before the parity checks, whose windows would evict these
+    # windows' shard problems from the encode memo (8 entries)
+    profiled = ShardedSolveService(S, device=dev)
+    profiled.solve_window(catalog, pods=seqs[0])
+
+    def warm_windows():
+        for pods in seqs[1:]:
+            profiled.solve_window(catalog, pods=pods)
+
+    profile = host_profile(warm_windows)
+    parity = sharded_parity_violations(seeds=4, device=dev)
+    if parity:
+        raise AssertionError(f"sharded serving parity: {parity[:3]}")
+    st = loop.stats()
+    out = {"launches": launches, "stats": st,
+           "overlap_fraction": loop.overlap_fraction,
+           "served_ms_per_window": served_ms,
+           "submit_ms": submit_ms, "result_ms": result_ms,
+           "served_gc": loop_gc.read(),
+           "classic_mean_ms": sum(walls) * 1e3 / len(walls),
+           "classic_p50_ms": p50_ms(walls),
+           "classic_ms": [x * 1e3 for x in walls],
+           "classic_gc": classic_gc.read(),
+           "profile_windows": len(seqs) - 1,
+           "profile_cumulative_s": profile}
+    say(f"sharded serving: {len(seqs)} windows of seed "
+        f"{SHARDED['seed0']}'s churn through ShardedServingLoop(capacity="
+        f"{SHARDED['capacity']}): every plan equal to solve_window's, "
+        f"launches {launches}, {st}; the port's 4-seed sharded parity "
+        f"checks clean")
+    say(f"timing [{card}]: sharded serving {served_ms:.4f} ms per window "
+        f"(amortized; submits {fmt_ms(submit_ms)}, results "
+        f"{fmt_ms(result_ms)} ms; {loop_gc.n} collections, "
+        f"{loop_gc.s * 1e3:.4f} ms) against solve_window "
+        f"{out['classic_mean_ms']:.4f} ms per window (amortized; windows "
+        f"{fmt_ms(out['classic_ms'])} ms, p50 {out['classic_p50_ms']:.4f} "
+        f"ms; {classic_gc.n} collections, {classic_gc.s * 1e3:.4f} ms); "
+        f"overlap fraction {loop.overlap_fraction:.4f}")
+    say(f"host profile [{card}]: {len(seqs) - 1} warm solve_window calls, "
+        f"cumulative seconds: " + "; ".join(
+            f"{name} {t:.4f}" for name, t in profile))
+    return out
+
+
+def repack_fleet(cfg: dict):
+    """``bench.py::run_repack``'s fleet: (catalog, cluster)."""
+    catalog = workload.build_catalog(cfg["types"])
+    rng = np.random.RandomState(cfg["seed"])
+    cluster = ClusterState()
+    pod_i = 0
+    for i in range(cfg["claims"]):
+        cluster.add_nodeclaim(NodeClaim(
+            name=f"rc{i}", instance_type="bx2-16x64", zone="us-south-1",
+            node_name=f"node-rc{i}", hourly_price=0.8, launched=True,
+            initialized=True))
+        for _ in range(cfg["pods_per_claim"]):
+            name = f"rp{pod_i}"
+            pod_i += 1
+            cluster.add_pod(pod_api.PodSpec(name, requests=pod_api.
+                                            ResourceRequests(
+                                                int(rng.randint(100, 1000)),
+                                                int(rng.randint(256, 2048)),
+                                                0, 1)))
+            cluster.bind_pod(f"default/{name}", f"node-rc{i}")
+    return catalog, cluster
+
+
+def defrag_fleet():
+    """``bench.py::_run_repack_defrag``'s torus case: (catalog,
+    cluster)."""
+    catalog = workload.build_catalog(24, ("gx3", "bx2", "cx2"))
+    cluster = ClusterState()
+    pk = 0
+    for i in range(2):
+        cluster.add_nodeclaim(NodeClaim(
+            name=f"dz{i}", instance_type="gx3-64x512", zone="us-south-1",
+            node_name=f"node-dz{i}", hourly_price=3.0, launched=True,
+            initialized=True))
+        for _ in range(3 if i == 0 else 1):
+            cluster.add_pod(pod_api.PodSpec(
+                f"dsg{pk}", requests=pod_api.ResourceRequests(500, 1024, 2,
+                                                              1)))
+            cluster.bind_pod(f"default/dsg{pk}", f"node-dz{i}")
+            pk += 1
+    gang = PodGroup(name="bench-parked", min_member=4, slice_shape="2x2x2",
+                    deadline_seconds=1e9)
+    for j in range(4):
+        cluster.add_pod(pod_api.PodSpec(
+            f"dgm{j}", requests=pod_api.ResourceRequests(250, 512, 0, 1),
+            gang=gang))
+    return catalog, cluster
+
+
+def repack_fingerprint(plan):
+    return ([(m.pod_key, m.src_claim, m.dst_claim, m.kind)
+             for m in plan.migrations], plan.drained,
+            [(r.claim_name, r.shape, r.pre_mask, r.post_mask)
+             for r in plan.reopened], plan.proposed_cost)
+
+
+def phase_repack(dev, card: str) -> dict:
+    """(r) ``bench.py::run_repack``'s fleet through the repack planner:
+    the torch grid on the card reading the resident occupancy rows, and
+    the numpy grid; equal plans, ``validate_repack_plan`` clean; then the
+    torus-defrag case on both routes."""
+    from karpenter_tpu_torch.repack import (
+        RepackOptions, RepackPlanner, encode_repack,
+    )
+    from karpenter_tpu_torch.resident.store import (
+        OccupancySnapshot, ResidentStore,
+    )
+    from karpenter_tpu_torch.solver.validate import validate_repack_plan
+
+    catalog, cluster = repack_fleet(REPACK)
+    store = ResidentStore(device=dev)
+    t0 = time.perf_counter()
+    prob = encode_repack(cluster, catalog,
+                         snapshot=OccupancySnapshot(cluster), store=store)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    if prob.rows_dev is None or prob.rows_dev.device.type != "cuda":
+        raise AssertionError("the repack problem did not take the resident "
+                             "occupancy rows on the card")
+    t0 = time.perf_counter()
+    fresh = encode_repack(cluster, catalog)
+    fresh_ms = (time.perf_counter() - t0) * 1e3
+    on = RepackPlanner(RepackOptions(use_device="on"), device=dev)
+    off = RepackPlanner(RepackOptions(use_device="off"), device="cpu")
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = on.plan(prob)
+    cold_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_no_launches(launches, "repack path")
+    ref = off.plan(fresh)
+    if on.device_steps != 1 or plan.backend != "device" \
+            or repack_fingerprint(plan) != repack_fingerprint(ref):
+        raise AssertionError(f"repack plan on the card ({on.device_steps} "
+                             f"torch grids, backend {plan.backend}) differs "
+                             f"from the numpy grid's")
+    errors = validate_repack_plan(plan, cluster, catalog)
+    if errors:
+        raise AssertionError(f"validate_repack_plan: {errors[:3]}")
+    if not plan.migrations or plan.savings <= 0:
+        raise AssertionError("the oversized fleet repacked nothing")
+    on_ms = timed_p50(lambda: on.plan(prob), REPACK["iters"])
+    off_ms = timed_p50(lambda: off.plan(fresh), REPACK["iters"])
+
+    dcat, dcl = defrag_fleet()
+    dprob = encode_repack(dcl, dcat)
+    dplans = [RepackPlanner(RepackOptions(use_device=u), device=d).plan(
+        dprob) for u, d in (("on", dev), ("off", "cpu"))]
+    if repack_fingerprint(dplans[0]) != repack_fingerprint(dplans[1]) \
+            or dplans[0].slices_reopened < 1 \
+            or validate_repack_plan(dplans[0], dcl, dcat):
+        raise AssertionError(f"torus defrag: reopened "
+                             f"{[p.slices_reopened for p in dplans]}")
+    out = {"launches": launches, "migrations": plan.migration_count,
+           "drained": len(plan.drained), "savings": plan.savings,
+           "savings_fraction": plan.savings_fraction,
+           "card_p50_ms": on_ms, "numpy_p50_ms": off_ms,
+           "cold_ms": cold_s * 1e3, "encode_store_ms": encode_ms,
+           "encode_fresh_ms": fresh_ms,
+           "defrag": {"slices_reopened": dplans[0].slices_reopened,
+                      "migrations": dplans[0].migration_count}}
+    say(f"repack path: {REPACK['claims']} claims x {REPACK['types']} types "
+        f"({REPACK['pods_per_claim']} pods each): {plan.migration_count} "
+        f"migrations, {len(plan.drained)} drained, savings "
+        f"{plan.savings:.4f} $/h ({plan.savings_fraction:.4f}); the torch "
+        f"grid on the card read the resident occupancy rows, plan equal to "
+        f"the numpy grid's on a fresh encode; validate_repack_plan clean; "
+        f"launches {launches} (the grid is PyTorch ops); torus defrag: "
+        f"{dplans[0].slices_reopened} slice(s) reopened by "
+        f"{dplans[0].migration_count} migrations, equal on both routes, "
+        f"clean")
+    say(f"timing [{card}]: repack plan warm p50 {on_ms:.4f} ms with the "
+        f"grid on the card (cold {cold_s * 1e3:.3f} ms), numpy grid "
+        f"{off_ms:.4f} ms; encode through the store {encode_ms:.3f} ms, "
+        f"fresh {fresh_ms:.3f} ms")
+    return out
+
+
 # -- phase 5: timings ---------------------------------------------------------
 
 
@@ -2571,6 +3225,13 @@ def main() -> int:
     whatif_run = phase_whatif(dev, card)
     gang = phase_gang(dev, card)
     preempt = phase_preempt(dev, card)
+    sharded = phase_sharded(dev, card, pods, catalog)
+    sharded_churn = phase_sharded_churn(dev, card, catalog)
+    sharded_serving = phase_sharded_serving(dev, card, catalog)
+    repack = phase_repack(dev, card)
+    checks["ffd_scan_fleet"]["max_abs_err"] = max(
+        checks["ffd_scan_fleet"]["max_abs_err"], sharded["scan"]
+        ["max_abs_err"], sharded_churn["scan"]["max_abs_err"])
     checks["cost_sum"]["max_abs_err"] = max(
         checks["cost_sum"]["max_abs_err"],
         timing["cost_sum"]["max_abs_err"],
@@ -2595,7 +3256,11 @@ def main() -> int:
                      "fleet_resident": fleet_resident["launches"],
                      "whatif": whatif_run["launches"],
                      "gang": gang["launches"],
-                     "preempt": preempt["launches"]}
+                     "preempt": preempt["launches"],
+                     "sharded": sharded["launches"],
+                     "sharded_churn": sharded_churn["launches"],
+                     "sharded_serving": sharded_serving["launches"],
+                     "repack": repack["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
@@ -2625,7 +3290,9 @@ def main() -> int:
                        "stochastic": stochastic, "pref": pref},
             "resident": resident, "serving": serving,
             "fleet_resident": fleet_resident, "whatif": whatif_run,
-            "gang": gang, "preempt": preempt,
+            "gang": gang, "preempt": preempt, "sharded": sharded,
+            "sharded_churn": sharded_churn,
+            "sharded_serving": sharded_serving, "repack": repack,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -31,6 +31,11 @@ class NodeClaim:
     launched: bool = False
     deleted: bool = False
     resource_version: int = 0
+    # read by the repack plane: a claim whose node is not initialized is
+    # neither a migration source nor a target; the price is what a
+    # drain saves
+    initialized: bool = False
+    hourly_price: float = 0.0
 
 
 @dataclass

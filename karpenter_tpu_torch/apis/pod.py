@@ -402,6 +402,16 @@ class PodSpec:
         object.__setattr__(self, "_sig_cache", sig)
         return sig
 
+    def signature_key(self) -> str:
+        """Stable string form of the constraint signature: the routing
+        key of the shard router (``sharded/router.py``).  Memoized like
+        the signature itself."""
+        cached = getattr(self, "_sig_key", None)
+        if cached is None:
+            cached = repr(self.constraint_signature())
+            object.__setattr__(self, "_sig_key", cached)
+        return cached
+
     def signature_id(self) -> int:
         """Process-wide interned integer for the constraint signature —
         grouping 10k pods by int avoids re-hashing nested tuples on every

@@ -1,9 +1,10 @@
-"""In-memory cluster state: the part the preemption plane reads.
+"""In-memory cluster state: the part the preemption and repack planes read.
 
 Port of ``karpenter_tpu/core/cluster.py`` restricted to what
-``preempt/encode.encode_victims`` and ``solver/validate.
-validate_preemption_plan`` read: the pod records (bound or nominated
-node) and the node claims, with resource versions.  Nodes, node pools,
+``preempt/encode.encode_victims``, ``repack/encode.encode_repack``,
+``resident/store.OccupancySnapshot`` and the plans' validators read:
+the pod records (bound or nominated node, looked up by key, the pending
+ones listed) and the node claims, with resource versions.  Nodes, node pools,
 watches, events, optimistic-concurrency updates and the node-class
 admission of the reference belong to the controller layer, which this
 package does not carry yet; nothing here reads a ``NodeClass``.
@@ -55,6 +56,10 @@ class ClusterState:
             coll[name] = obj
         return obj
 
+    def get(self, kind: str, name: str) -> Any | None:
+        with self._lock:
+            return self._collections[kind].get(name)
+
     def list(self, kind: str,
              predicate: Callable[[Any], bool] | None = None) -> list[Any]:
         with self._lock:
@@ -63,6 +68,9 @@ class ClusterState:
 
     def add_pod(self, pod: PodSpec) -> PendingPod:
         return self.add("pods", pod_key(pod), PendingPod(spec=pod))
+
+    def pending_pods(self) -> list[PendingPod]:
+        return self.list("pods", lambda p: not p.bound_node)
 
     def bind_pod(self, key: str, node_name: str) -> None:
         with self._lock:

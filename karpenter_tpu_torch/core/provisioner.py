@@ -6,15 +6,25 @@ provisioning loop itself (windows, actuation) is not ported yet.
 
 from __future__ import annotations
 
+from karpenter_tpu_torch.sharded import sharded_shards
 from karpenter_tpu_torch.solver.torch_backend import TorchSolver
 from karpenter_tpu_torch.solver.types import SolverOptions
 
 
 def make_solver(options: SolverOptions | None = None, device="cuda"):
-    """The solver for ``options``: ``TorchSolver`` on ``device``.
+    """The solver for ``options`` on ``device``: the sharded service
+    (``ShardedSolver``) when ``sharded_shards(options)`` resolves more
+    than one shard, as the reference routes it; ``TorchSolver``
+    otherwise.
 
     It is returned UNWRAPPED.  The reference wraps its solver in
     ``ResilientSolver``, which degrades a failed solve to the host greedy
     oracle; here that would hide a broken kernel, so the degraded mode
     waits for ROADMAP queue 1 item 13 (the unserved fallbacks)."""
-    return TorchSolver(options or SolverOptions(), device=device)
+    options = options or SolverOptions()
+    shards = sharded_shards(options)
+    if shards > 1:
+        from karpenter_tpu_torch.sharded.solver import ShardedSolver
+
+        return ShardedSolver(shards, options, device=device)
+    return TorchSolver(options, device=device)

@@ -17,10 +17,15 @@ with the reason recorded.  A failed device program invalidates the state
 and raises: the port never falls back to the classic path, which would
 hide a broken resident program behind a working one.
 
+- :meth:`ResidentStore.occupancy_tensors` / :meth:`ResidentStore.
+  occupancy_rows` — one int32 row per live claim (offering, pod count,
+  residual capacity) kept resident through the same delta path; the
+  repack plane's scoring grid reads the device rows directly.
+- :class:`OccupancySnapshot` — one occupancy view per repack tick, in
+  place of a scan of every pod per claim.
+
 Not ported here: the device-telemetry, metrics and profiler hooks (the
-port has no ``obs.devtel`` / ``obs.prof`` yet) and the occupancy view
-(``occupancy_tensors``, ``occupancy_rows``, ``OccupancySnapshot``),
-which reads the preempt encoder and the cluster state.
+port has no ``obs.devtel`` / ``obs.prof`` yet).
 """
 
 from __future__ import annotations
@@ -153,6 +158,7 @@ class ResidentStore:
         self.last_delta: WindowDelta | None = None
         self.last_rebuild_reason = ""
         self.last_key: tuple | None = None
+        self._occ_buf: ResidentBuffer | None = None
 
     def _state_for(self, key: tuple) -> _SolveState:
         with self._lock:
@@ -243,6 +249,67 @@ class ResidentStore:
         self._account(key, delta)
         return delta
 
+    # -- device-resident claim occupancy -----------------------------------
+
+    def occupancy_tensors(self, cluster, catalog):
+        """The claim occupancy rows, resident on the store's device: one
+        int32 row ``[offering, pod_count, resid_cpu, resid_mem,
+        resid_gpu, resid_pods]`` per live launched claim (cluster
+        insertion order, padded to a node bucket), kept through the
+        delta path of the solve state, so claim churn and pod binds move
+        a few rows per tick.  Returns ``(claim_names, device rows
+        [Nn_pad, 6] int32, WindowDelta)``."""
+        from karpenter_tpu_torch.apis.pod import NUM_RESOURCES
+        from karpenter_tpu_torch.preempt.encode import (
+            _pod_req_vec, claim_pods, occupancy_index,
+        )
+        from karpenter_tpu_torch.solver.types import NODE_BUCKETS, bucket
+
+        idx = occupancy_index(cluster)
+        alloc = catalog.offering_alloc().astype(np.int64)
+        names: list[str] = []
+        rows: list[tuple] = []
+        for c in cluster.nodeclaims():
+            if c.deleted or not c.launched:
+                continue
+            off = catalog.find_offering(c.instance_type, c.zone,
+                                        c.capacity_type)
+            if off is None:
+                continue
+            resid = alloc[off].copy()
+            count = 0
+            for p in claim_pods(cluster, c, index=idx):
+                resid -= _pod_req_vec(p.spec)
+                count += 1
+            names.append(c.name)
+            rows.append((off, count) + tuple(int(v) for v in resid))
+        width = 2 + NUM_RESOURCES
+        n_pad = bucket(max(len(rows), 1), NODE_BUCKETS)
+        arr = np.zeros((n_pad, width), dtype=np.int32)
+        if rows:
+            arr[:len(rows)] = np.asarray(rows, dtype=np.int64).clip(
+                np.iinfo(np.int32).min, np.iinfo(np.int32).max)
+        with self._lock:
+            buf = self._occ_buf
+            if buf is None:
+                buf = self._occ_buf = ResidentBuffer(name="occupancy")
+        gen = (catalog.uid, catalog.generation,
+               catalog.availability_generation)
+        dev, delta = buf.update(arr, self.device, generation=gen)
+        return names, dev, delta
+
+    def occupancy_rows(self) -> np.ndarray | None:
+        """Host mirror of the occupancy rows, ``[Nn_pad, 6] int32`` (None
+        before any :meth:`occupancy_tensors` call); it equals the device
+        rows word for word."""
+        from karpenter_tpu_torch.apis.pod import NUM_RESOURCES
+
+        with self._lock:
+            buf = self._occ_buf
+        if buf is None or buf.mirror is None:
+            return None
+        return buf.mirror.reshape(-1, 2 + NUM_RESOURCES)
+
     def snapshot_state(self) -> dict | None:
         """The most recent state's key, generation, mirror and device
         words (fetched) — None before any window."""
@@ -275,5 +342,29 @@ def resident_store_of(solver):
     return getattr(solver, "resident", None)
 
 
-__all__ = ["DELTA_BUCKETS", "ResidentBuffer", "ResidentStore",
-           "plan_update", "resident_store_of"]
+class OccupancySnapshot:
+    """One shared occupancy view per repack tick.
+
+    Gives the pods whose ``bound_node`` or ``nominated_node`` equals a
+    queried name, in pod collection order (what a scan of the pod
+    collection per claim gives), from one pass over the collection.  The
+    reference's in-tick ``rebind`` / ``unbind`` (for the disruption
+    controller's moves) wait for that controller."""
+
+    def __init__(self, cluster):
+        from karpenter_tpu_torch.apis.pod import pod_key
+
+        # name -> occupant keys, inserted in collection order
+        self._by_name: dict[str, dict[str, None]] = {}
+        for p in cluster.list("pods"):
+            key = pod_key(p.spec)
+            for n in (p.bound_node, p.nominated_node):
+                if n:
+                    self._by_name.setdefault(n, {})[key] = None
+
+    def pods_on(self, name: str) -> list[str]:
+        return list(self._by_name.get(name, ())) if name else []
+
+
+__all__ = ["DELTA_BUCKETS", "OccupancySnapshot", "ResidentBuffer",
+           "ResidentStore", "plan_update", "resident_store_of"]

@@ -19,10 +19,14 @@ Routing, counted in ``stats()``:
 
 A kick or fetch that fails invalidates the ring and raises: the port has
 no host failover and no classic re-solve of a failed window, which would
-hide a broken serving program behind a working one.  Not ported: the
-sharded loop (``ShardedServingLoop``), and ``track_generation`` and
-``drain``, whose callers (the chaos harness, shutdown) are not ported
-either.
+hide a broken serving program behind a working one.
+
+``ShardedServingLoop`` does the same for the sharded service: each
+window is a kick of ``ShardedSolveService._kick_window`` (the stacked
+state advances there), and up to ``capacity`` fetches wait, so window
+t's copy to the host runs while window t + 1 is kicked.  Not ported:
+``track_generation`` and ``drain`` of the single-window loop, whose
+callers (the chaos harness, shutdown) are not ported either.
 """
 
 from __future__ import annotations
@@ -254,9 +258,88 @@ class ServingLoop:
         return pend.result()
 
 
+class ShardedServingPending:
+    """One sharded serving window in flight: ``result()`` fetches and
+    decodes it (once).  A failed fetch raises, and raises the same error
+    again on every later call."""
+
+    __slots__ = ("_loop", "_kick", "_done", "_error")
+
+    def __init__(self, loop: "ShardedServingLoop", kick):
+        self._loop = loop
+        self._kick = kick
+        self._done = None
+        self._error = None
+
+    def result(self):
+        if self._error is not None:
+            raise self._error
+        if self._done is None:
+            try:
+                self._done = self._loop._finish(self)
+            except Exception as err:
+                self._error = err
+                raise
+        return self._done
+
+
+class ShardedServingLoop:
+    """Deferred fetches over one sharded service: a kick per submitted
+    window, at most ``capacity`` windows kicked and not fetched (the
+    oldest is fetched first when the ring is full).  A failed kick or
+    fetch raises; the service has invalidated its state."""
+
+    def __init__(self, service, capacity: int = 2):
+        self.service = service
+        self.capacity = max(1, capacity)
+        self._inflight: deque = deque()
+        self.windows = 0
+        self.kicks = 0
+        self.fetched = 0
+        self.overlapped = 0          # fetched after a later kick
+
+    @property
+    def overlap_fraction(self) -> float:
+        return self.overlapped / self.fetched if self.fetched else 0.0
+
+    def submit(self, catalog, nodepool=None, pods=None):
+        """Kick one sharded window; returns its deferred handle."""
+        while len(self._inflight) >= self.capacity:
+            self._inflight[0].result()
+        self.windows += 1
+        kick = self.service._kick_window(catalog, nodepool, pods)
+        self.kicks += 1
+        pend = ShardedServingPending(self, (kick, self.kicks))
+        self._inflight.append(pend)
+        return pend
+
+    def _finish(self, pend: ShardedServingPending):
+        """Fetch one window.  It leaves the ring whether or not the fetch
+        succeeds; only a fetched window counts."""
+        kick, kick_seq = pend._kick
+        self._inflight.remove(pend)
+        plan = self.service._fetch_window(kick)
+        self.fetched += 1
+        if self.kicks > kick_seq:
+            self.overlapped += 1
+        return plan
+
+    def stats(self) -> dict:
+        return {
+            "windows": self.windows,
+            "kicks": self.kicks,
+            "fetched": self.fetched,
+            "overlapped": self.overlapped,
+            "overlap_fraction": self.overlap_fraction,
+            "inflight": len(self._inflight),
+            "capacity": self.capacity,
+        }
+
+
 def serving_loop_of(solver):
     """The solver's ServingLoop, or None."""
     return getattr(solver, "serving", None)
 
 
-__all__ = ["ServingLoop", "ServingPending", "serving_loop_of"]
+__all__ = ["ServingLoop", "ServingPending", "ShardedServingLoop",
+           "ShardedServingPending", "serving_loop_of"]

@@ -14,9 +14,12 @@ yardstick is the port's classic path itself:
 - :func:`plan_parity_violations` — plans of a serving solver's
   ``serve_stream`` equal a classic solver's over the same windows.
 
+- :func:`sharded_parity_violations` — a sharded serving loop's plans
+  (deferred fetches) equal the same service class solving each window
+  at once.
+
 The checks run on any device (``device``: the card unless ``"cpu"`` is
-asked for).  The two-shard check of the reference waits for the sharded
-service.
+asked for).
 """
 
 from __future__ import annotations
@@ -172,12 +175,41 @@ def plan_parity_violations(seeds: int = 8, num_pods: int = 48,
     return out
 
 
+def sharded_parity_violations(seeds: int = 4,
+                              device="cuda") -> list[str]:
+    """Sharded churn differential: a 2-shard ``ShardedServingLoop``'s
+    deferred windows against the same service class solving
+    synchronously, over 3 windows of 64 pods on 6 types per seed."""
+    from karpenter_tpu_torch.serving.service import ShardedServingLoop
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+
+    num_pods, num_types, windows, num_shards = 64, 6, 3, 2
+    out: list[str] = []
+    for seed in range(seeds):
+        seqs, catalog = _churn_stream(num_pods, num_types, windows,
+                                      1000 + seed)
+        loop = ShardedServingLoop(
+            ShardedSolveService(num_shards, device=device), capacity=2)
+        classic_svc = ShardedSolveService(num_shards, device=device)
+        handles = [loop.submit(catalog, pods=pods) for pods in seqs]
+        plans = [h.result() for h in handles]
+        for w, (pods, plan) in enumerate(zip(seqs, plans)):
+            classic = classic_svc.solve_window(catalog, pods=pods)
+            if _plan_key(plan.merged()) != _plan_key(classic.merged()):
+                out.append(f"seed {seed} window {w}: {num_shards}-shard "
+                           f"serving plan differs from synchronous solve")
+    return out
+
+
 def validate(seeds: int = 8, device="cuda") -> list[str]:
-    """Both differentials."""
+    """The three differentials."""
     out = raw_parity_violations(seeds=seeds, device=device)
     out.extend(plan_parity_violations(seeds=seeds, device=device))
+    out.extend(sharded_parity_violations(seeds=max(2, seeds // 4),
+                                         device=device))
     return out
 
 
 __all__ = ["ring_state_violations", "raw_parity_violations",
-           "plan_parity_violations", "validate"]
+           "plan_parity_violations", "sharded_parity_violations",
+           "validate"]

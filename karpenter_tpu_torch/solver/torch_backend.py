@@ -28,8 +28,9 @@ window as a word delta against a device-resident buffer, and the
 serving loop (``serving/``, :meth:`TorchSolver.serve_stream`) streams
 such deltas through a ring.  No route catches a failure of its device
 program and runs the window down another: a failed program raises.
-The sharded option is not served yet: the solver raises
-``NotImplementedError`` naming the ROADMAP item.
+The sharded option is not read here, as the reference's ``JaxSolver``
+does not read it: ``core/provisioner.make_solver`` routes a shard count
+above 1 to the sharded service (``sharded/``).
 """
 
 from __future__ import annotations
@@ -220,12 +221,6 @@ def start_fetch(out: torch.Tensor):
     return host, event
 
 
-def _env_on(name: str) -> bool:
-    import os
-
-    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
-
-
 def pad_preferences(pref_rows: np.ndarray, pref_idx: np.ndarray, G_pad: int,
                     O_pad: int) -> tuple[np.ndarray, np.ndarray]:
     """The preference leaf of a window: rows float32 [P_pad, O_pad] (P
@@ -341,9 +336,6 @@ class TorchSolver:
         self.path = "ffd-cuda" if self.device.type == "cuda" \
             else "ffd-reference"
         opts = self.options
-        if opts.sharded or _env_on("KARPENTER_ENABLE_SHARDED"):
-            raise NotImplementedError(
-                "sharded solves are not ported yet (ROADMAP queue 1 item 10)")
         self._device_catalog: dict[tuple, tuple] = {}
         self._coo_floor: dict[int, int] = {}
         self.last_stats: dict[str, object] = {}

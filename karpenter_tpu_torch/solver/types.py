@@ -20,8 +20,8 @@ from karpenter_tpu_torch.catalog.arrays import CatalogArrays
 class SolverOptions:
     """Solver configuration: the reference's options that the served
     routes and planes read (resident and serving: "on", "off", or
-    "auto" for their environment opt-ins), plus the gate of the sharded
-    plane, not served yet, which raises when set."""
+    "auto" for their environment opt-ins), plus the shard count of the
+    sharded service, which ``make_solver`` reads (``sharded/``)."""
 
     max_nodes: int = 4096           # static bound on nodes per solve
     right_size: bool = True         # post-pass: re-pick cheapest fitting offering
@@ -43,7 +43,8 @@ class SolverOptions:
                                      # the pref scan and the flat program
     resident: str = "auto"          # device-resident state (resident/)
     serving: str = "auto"           # persistent serving loop (serving/)
-    sharded: int = 0                # sharded service: not served yet
+    sharded: int = 0                # shard count forced on the sharded
+                                    # service (0: KARPENTER_ENABLE_SHARDED)
 
 
 @dataclass

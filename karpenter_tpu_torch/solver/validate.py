@@ -1,8 +1,9 @@
 """Independent plan feasibility validators.
 
-Port of ``validate_plan``, ``validate_gang_plan`` and
-``validate_preemption_plan`` from ``karpenter_tpu/solver/validate.py``
-(the gang and preemption checks are listed on their functions).
+Port of ``validate_plan``, ``validate_gang_plan``,
+``validate_preemption_plan`` and ``validate_repack_plan`` from
+``karpenter_tpu/solver/validate.py`` (the gang, preemption and repack
+checks are listed on their functions).
 ``validate_plan`` checks a Plan against the raw pods + catalog with no
 shared code path with the solver's device half:
 
@@ -462,4 +463,201 @@ def validate_preemption_plan(plan, pending_pods: Sequence[PodSpec], cluster,
         if ev.claim_name in claims and ev.claim_name not in placed_by_claim:
             errors.append(f"eviction {ev.pod_key} on claim {ev.claim_name} "
                           f"serves no placement")
+    return errors
+
+
+def validate_repack_plan(plan, cluster, catalog: CatalogArrays,
+                         nodepool: NodePool | None = None,
+                         occupancy: dict | None = None) -> list[str]:
+    """Independent feasibility oracle for a RepackPlan — no shared code
+    path with either planner backend.  Checks against ground truth
+    (cluster claims + occupant pods + catalog + torus geometry), BEFORE
+    actuation:
+
+    - every migration names a live source claim and a pod actually
+      occupying it; no pod moves twice; never onto its own node, never
+      onto a drained node; gang members never move (atomic co-location
+      is the gang plane's invariant);
+    - **no pod dropped**: every occupant of a drained claim is migrated
+      somewhere;
+    - per-target capacity: surviving occupants + arrivals fit the
+      target's offering allocatable; requirements/taints/zone pins hold
+      against the target (availability deliberately NOT required — the
+      node exists);
+    - **claimed slices actually reopened**: each ReopenedSlice's
+      occupancy evidence matches the canonical chip model re-derived
+      from ground truth, and the shape truly fits the vacated torus but
+      not the occupied one — geometry re-enumerated from the type's
+      torus dims, independent of the planner's SliceTable cache.
+    """
+    from karpenter_tpu_torch.gang.topology import enumerate_placements
+    from karpenter_tpu_torch.preempt.encode import claim_pods, occupancy_index
+    from karpenter_tpu_torch.repack.encode import PodRef, chip_layout
+
+    _hha = _has_hostname_anti_affinity
+
+    nodepool = nodepool or NodePool(name="default")
+    errors: list[str] = []
+    claims = {c.name: c for c in cluster.nodeclaims()
+              if not c.deleted and c.launched}
+    if occupancy is None:
+        occupancy = occupancy_index(cluster)
+    drained = set(plan.drained)
+
+    def _occupants(claim):
+        return {pod_key(p.spec): p
+                for p in claim_pods(cluster, claim, index=occupancy)}
+
+    moved: dict[str, str] = {}
+    arrivals: dict[str, list] = defaultdict(list)
+    for m in plan.migrations:
+        src = claims.get(m.src_claim)
+        dst = claims.get(m.dst_claim)
+        if src is None:
+            errors.append(f"migration {m.pod_key}: unknown/dead source "
+                          f"claim {m.src_claim}")
+            continue
+        if dst is None:
+            errors.append(f"migration {m.pod_key}: unknown/dead target "
+                          f"claim {m.dst_claim}")
+            continue
+        if m.src_claim == m.dst_claim:
+            errors.append(f"migration {m.pod_key}: onto its own node")
+        if m.dst_claim in drained:
+            errors.append(f"migration {m.pod_key}: onto drained claim "
+                          f"{m.dst_claim}")
+        occupants = _occupants(src)
+        if m.pod_key not in occupants:
+            errors.append(f"migration {m.pod_key}: pod not on claim "
+                          f"{m.src_claim}")
+            continue
+        if m.pod_key in moved:
+            errors.append(f"pod {m.pod_key} migrated twice")
+        moved[m.pod_key] = m.dst_claim
+        spec = occupants[m.pod_key].spec
+        if spec.gang is not None:
+            errors.append(f"migration {m.pod_key}: gang member moved "
+                          f"(breaks atomic co-location of "
+                          f"{spec.gang.name})")
+        if (_has_zone_affinity(spec) or _zone_spread_constraints(spec)) \
+                and dst.zone != src.zone:
+            errors.append(f"migration {m.pod_key}: zone-pinned pod moved "
+                          f"{src.zone} -> {dst.zone}")
+        if _hha(spec):
+            errors.append(f"migration {m.pod_key}: hostname-anti-affinity "
+                          f"pod moved (conservatively immovable)")
+        arrivals[m.dst_claim].append(spec)
+
+    for name in plan.drained:
+        claim = claims.get(name)
+        if claim is None:
+            errors.append(f"drain of unknown/dead claim {name}")
+            continue
+        for key in _occupants(claim):
+            if key not in moved:
+                errors.append(f"drained claim {name} still hosts {key} "
+                              f"(pod dropped)")
+
+    for claim_name, specs in arrivals.items():
+        claim = claims[claim_name]
+        o = catalog.find_offering(claim.instance_type, claim.zone,
+                                  claim.capacity_type)
+        if o is None:
+            errors.append(f"target {claim_name}: offering "
+                          f"{claim.instance_type}/{claim.zone} not in "
+                          f"catalog")
+            continue
+        labels = dict(nodepool.labels)
+        labels.update(catalog.offering_label_values(o))
+        alloc = catalog.offering_alloc()[o]
+        used = [0, 0, 0, 0]
+        for key, p in _occupants(claim).items():
+            if moved.get(key) is not None and moved[key] != claim_name:
+                continue   # departing occupant frees its footprint
+            for i, v in enumerate(p.spec.requests.as_tuple()):
+                used[i] += v if i != 3 else max(v, 1)
+        for spec in specs:
+            for i, v in enumerate(spec.requests.as_tuple()):
+                used[i] += v if i != 3 else max(v, 1)
+            reqs = spec.scheduling_requirements().merged(
+                nodepool.requirements)
+            if not reqs.matches(labels):
+                errors.append(f"target {claim_name}: pod "
+                              f"{pod_key(spec)} requirements unsatisfied "
+                              f"by labels")
+            if claim.taints and not tolerates_all(spec.tolerations,
+                                                  claim.taints):
+                errors.append(f"target {claim_name}: pod {pod_key(spec)} "
+                              f"does not tolerate claim taints")
+            if nodepool.taints and not tolerates_all(spec.tolerations,
+                                                     nodepool.taints):
+                errors.append(f"target {claim_name}: pod {pod_key(spec)} "
+                              f"does not tolerate pool taints")
+        if any(u > a for u, a in zip(used, alloc)):
+            errors.append(f"target {claim_name} ({claim.instance_type}): "
+                          f"capacity exceeded used={used} "
+                          f"alloc={list(alloc)}")
+
+    seen_slices: set[tuple] = set()
+    for r in plan.reopened:
+        claim = claims.get(r.claim_name)
+        if claim is None:
+            errors.append(f"reopened slice on unknown/dead claim "
+                          f"{r.claim_name}")
+            continue
+        if r.claim_name in drained:
+            errors.append(f"reopened slice on DRAINED claim "
+                          f"{r.claim_name}")
+        if (r.claim_name, r.shape) in seen_slices:
+            errors.append(f"slice {r.shape} on {r.claim_name} reopened "
+                          f"twice")
+        seen_slices.add((r.claim_name, r.shape))
+        o = catalog.find_offering(claim.instance_type, claim.zone,
+                                  claim.capacity_type)
+        if o is None or o != r.offering:
+            errors.append(f"reopened slice on {r.claim_name}: recorded "
+                          f"offering {r.offering} != actual {o}")
+            continue
+        # re-derive the canonical chip model from ground truth
+        t = int(catalog.off_type[o])
+        torus = tuple(catalog.type_torus[t]) if t < len(catalog.type_torus) \
+            else ()
+        refs, gang_shapes, seen_gangs = [], [], set()
+        for p in claim_pods(cluster, claim, index=occupancy):
+            spec = p.spec
+            gpu = int(spec.requests.gpu)
+            in_gang = spec.gang is not None
+            movable = not in_gang and not _hha(spec) \
+                and tolerates_all(spec.tolerations, tuple(nodepool.taints))
+            ref = PodRef(key=pod_key(spec), req=None, sig=0, gpu=gpu,
+                         movable=movable, single=movable and gpu > 0)
+            if in_gang and spec.gang.slice_shape:
+                if spec.gang.name not in seen_gangs:
+                    seen_gangs.add(spec.gang.name)
+                    gang_shapes.append((spec.gang.name,
+                                        tuple(spec.gang.slice_shape)))
+                ref.chip_mask = -1
+            refs.append(ref)
+        occ, sing = chip_layout(refs, gang_shapes, torus)
+        if r.pre_mask != occ:
+            errors.append(f"reopened slice on {r.claim_name}: recorded "
+                          f"pre-occupancy {r.pre_mask:#x} != ground truth "
+                          f"{occ:#x}")
+        if r.post_mask != (occ & ~sing):
+            errors.append(f"reopened slice on {r.claim_name}: recorded "
+                          f"post-occupancy {r.post_mask:#x} != vacated "
+                          f"ground truth {occ & ~sing:#x}")
+        fits_pre = fits_post = False
+        for mask in enumerate_placements(torus, tuple(r.shape)):
+            if (mask & r.pre_mask) == 0:
+                fits_pre = True
+            if (mask & r.post_mask) == 0:
+                fits_post = True
+        if fits_pre:
+            errors.append(f"slice {r.shape} on {r.claim_name} already fit "
+                          f"the occupied torus (nothing reopened)")
+        if not fits_post:
+            errors.append(f"slice {r.shape} on {r.claim_name} does NOT "
+                          f"fit the vacated torus (claimed reopening is "
+                          f"false)")
     return errors

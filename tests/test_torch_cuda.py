@@ -537,3 +537,99 @@ def test_gang_and_preempt_grids_on_card_match_numpy(cuda_device):
     assert out[0].placements == out[1].placements
     assert [(e.claim_name, e.pod_key) for e in out[0].evictions] == \
         [(e.claim_name, e.pod_key) for e in out[1].evictions]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_solve_shards_on_card_matches_plain_and_single(cuda_device, S):
+    """The stacked sharded solve on the card: one fleet-kernel launch and
+    one cost-sum launch, its rows equal to the plain version on the CPU
+    and to S single-window launches on the card, word for word."""
+    from karpenter_tpu_torch.sharded.encode import encode_shards
+    from karpenter_tpu_torch.resident.kernels import new_state
+    from karpenter_tpu_torch.sharded.kernels import solve_shards
+    from karpenter_tpu_torch.sharded.router import ShardRouter
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+    from karpenter_tpu_torch.solver import cost_sum as cs
+    from karpenter_tpu_torch.solver.packed import solve_packed_torch
+
+    pods, catalog = workload.build_workload(1200, 40, seed=S)
+    window = encode_shards(ShardRouter(S).partition(pods), catalog)
+    L = window.stacked.shape[1]
+    didx = np.full((S, 64), L, np.int32)
+    dval = np.zeros((S, 64), np.int32)
+    kw = dict(G=window.G_pad, O=window.O_pad, U=window.U_pad, N=window.N)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ct = ShardedSolveService(S, device=dev)._catalog_tensors(
+            catalog, window.O_pad)
+        before = (ffd_kernel.LAUNCHES["ffd_scan_fleet"],
+                  cs.LAUNCHES["cost_sum"])
+        state, out = solve_shards(
+            new_state(window.stacked, dev),
+            torch.from_numpy(didx).to(dev), torch.from_numpy(dval).to(dev),
+            *ct, **kw)
+        outs[dev] = out.cpu().numpy()
+        np.testing.assert_array_equal(state[:, :L].cpu().numpy(),
+                                      window.stacked)
+        if dev == "cuda":
+            assert (ffd_kernel.LAUNCHES["ffd_scan_fleet"] - before[0],
+                    cs.LAUNCHES["cost_sum"] - before[1]) == (1, 1)
+            for s in range(S):
+                single = solve_packed_torch(
+                    torch.from_numpy(window.stacked[s]).to(dev), *ct, **kw)
+                np.testing.assert_array_equal(outs[dev][s],
+                                              single.cpu().numpy())
+    np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+
+
+@pytest.mark.cuda
+def test_repack_grid_on_card_matches_numpy(cuda_device):
+    """The repack planner's torch grid on the card gives the numpy grid's
+    kinds, scores and reopened counts, and the same plan, with chip
+    masks whose words have bit 31 set."""
+    from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.apis.pod import PodSpec, ResourceRequests
+    from karpenter_tpu_torch.apis.podgroup import PodGroup
+    from karpenter_tpu_torch.core.cluster import ClusterState
+    from karpenter_tpu_torch.repack import (
+        RepackOptions, RepackPlanner, encode_repack,
+    )
+
+    catalog = workload.build_catalog(24, ("gx3", "bx2", "cx2"))
+    rng = np.random.RandomState(13)
+    cluster = ClusterState()
+    types = ["bx2-4x16", "bx2-16x64", "gx3-64x512"]
+    for i in range(120):
+        t = types[rng.randint(3)]
+        cluster.add_nodeclaim(NodeClaim(
+            name=f"c{i}", instance_type=t, zone="us-south-1",
+            node_name=f"node-c{i}", hourly_price=[0.2, 0.8, 3.0][
+                types.index(t)], launched=True, initialized=True))
+        for j in range(rng.randint(0, 4)):
+            gpu = int(rng.randint(0, 3)) if t.startswith("gx3") else 0
+            cluster.add_pod(PodSpec(f"p{i}-{j}", requests=ResourceRequests(
+                int(rng.randint(100, 1500)), int(rng.randint(256, 3000)),
+                gpu, 1)))
+            cluster.bind_pod(f"default/p{i}-{j}", f"node-c{i}")
+    gang = PodGroup(name="parked", min_member=4, slice_shape="2x2x2")
+    for j in range(4):
+        cluster.add_pod(PodSpec(f"g{j}", gang=gang))
+    prob = encode_repack(cluster, catalog)
+    card = RepackPlanner(RepackOptions(use_device="on"), device="cuda")
+    plain = RepackPlanner(RepackOptions(use_device="off"), device="cpu")
+    got = card._grid_device(prob, prob.tables)
+    want = plain._grid_numpy(prob, prob.tables)
+    for a, b in zip(got[:3], want):
+        np.testing.assert_array_equal(a, b)
+    on, off = card.plan(prob), plain.plan(prob)
+    assert on.backend == "device" and off.backend == "vector"
+    assert [(m.pod_key, m.dst_claim) for m in on.migrations] == \
+        [(m.pod_key, m.dst_claim) for m in off.migrations]
+    assert on.drained == off.drained
+    high = np.uint64(1 << 31) | np.uint64(1 << 63)
+    prob.occ_mask = prob.occ_mask | high
+    got = card._grid_device(prob, prob.tables)
+    want = plain._grid_numpy(prob, prob.tables)
+    for a, b in zip(got[:3], want):
+        np.testing.assert_array_equal(a, b)

@@ -50,8 +50,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert res["bad"] == []
     assert res["torch"]
     # the walk really covered the package (kernel wrappers, build, carry,
-    # the resident store, the serving loop and the what-if, gang and
-    # preemption planes)
+    # the resident store, the serving loop, the what-if, gang and
+    # preemption planes, the sharded service and the repack plane)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -78,7 +78,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.gang.planner",
               "karpenter_tpu_torch.preempt.types",
               "karpenter_tpu_torch.preempt.encode",
-              "karpenter_tpu_torch.preempt.planner"):
+              "karpenter_tpu_torch.preempt.planner",
+              "karpenter_tpu_torch.sharded.types",
+              "karpenter_tpu_torch.sharded.router",
+              "karpenter_tpu_torch.sharded.encode",
+              "karpenter_tpu_torch.sharded.kernels",
+              "karpenter_tpu_torch.sharded.service",
+              "karpenter_tpu_torch.sharded.solver",
+              "karpenter_tpu_torch.sharded.validate",
+              "karpenter_tpu_torch.repack.types",
+              "karpenter_tpu_torch.repack.encode",
+              "karpenter_tpu_torch.repack.planner"):
         assert m in res["modules"]
 
 
@@ -101,6 +111,10 @@ def test_default_solver_needs_cuda(monkeypatch):
         TorchSolver()
     with pytest.raises(RuntimeError, match="CUDA"):
         make_solver()
+    from karpenter_tpu_torch import SolverOptions
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_solver(SolverOptions(sharded=2))
 
 
 def test_chip_smoke_refuses_without_cuda():
