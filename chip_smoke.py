@@ -50,7 +50,9 @@ no result line:
    rank row per group, every instantiation and both branches; then
    ``cost_sum`` bit for bit against its plain version over C in {1, 8,
    64}, every N in NODE_BUCKETS and ragged lengths, with 30-70% of the
-   nodes open and totals small and near 2^24;
+   nodes open and totals small and near 2^24, and ``cost_word`` (the
+   gather, mask and sum in one launch) over the same shapes with a
+   price row per problem, one shared row and one row;
 4. the paths, each with every launch count set to 0 just before and
    read just after, each needing its kernels launched and no pod left
    unplaced: (a) the main path, whose plan must validate clean and
@@ -66,7 +68,11 @@ no result line:
    count the CPU's, ``last_stats["path"]`` naming the route and the
    card, and its raw result equal to the plain CPU program word for
    word; ``segment_sum`` held bit for bit against its plain version on
-   every call of the flat program; for each route the cold wall, the p50
+   every call of the flat program (calls per window printed), and on the
+   largest call its wrapper beside ``index_add_`` (medians of rounds in
+   turns), its device time alone and its device kernels per call from
+   ``torch.profiler`` (at most 2, or the run fails); for each route the
+   cold wall, the p50
    of 20 warm windows, the device program's CUDA-event time, kernels per
    window from ``torch.profiler`` and, for flat, host syncs per window;
    (h) the pref window (the headline pods with soft preferences, G below
@@ -397,6 +403,21 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def paired_ms(fns: dict, reps: int, rounds: int = 5) -> dict:
+    """Median over ``rounds`` of each callable's :func:`cuda_ms` (``reps``
+    back-to-back calls), the callables taken in turns, the order reversed
+    every other round: a comparison that the host's drift within the
+    process does not tilt."""
+    for fn in fns.values():
+        cuda_ms(fn, 2)
+    runs = {name: [] for name in fns}
+    for r in range(rounds):
+        order = list(fns) if r % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            runs[name].append(cuda_ms(fns[name], reps, warm=0))
+    return {name: float(np.median(v)) for name, v in runs.items()}
 
 
 # -- phase 3: kernel against its plain version -------------------------------
@@ -1147,6 +1168,7 @@ def phase_flat(dev, card: str) -> dict:
             f"CPU solve {cpu_s * 1e3:.3f} ms")
         # every segment sum of one program run, for the kernel check
         orig = flat_mod.segment_sum
+        before = len(calls)
 
         def record(v, s, S, orig=orig):
             calls.append((v.clone(), s.clone(), S))
@@ -1157,11 +1179,15 @@ def phase_flat(dev, card: str) -> dict:
             flat_program(tmpl, dev_in, dev_cat, stats["N"])
         finally:
             flat_mod.segment_sum = orig
+        say(f"{label}: {len(calls) - before} segment_sum calls in one "
+            f"window (" + ", ".join(f"[{v.shape[0]}, {v.shape[1]}] -> {S}"
+                                    for v, _, S in calls[before:]) + ")")
         t = route_timings(
             dev, card, label, solver, request,
             lambda: flat_program(tmpl, dev_in, dev_cat, stats["N"]), 10, 5,
             "flat_window")
-        t.update(host_syncs=stats["host_syncs"], rounds=stats["rounds"],
+        t.update(segment_sum_calls=len(calls) - before,
+                 host_syncs=stats["host_syncs"], rounds=stats["rounds"],
                  cold_ms=cold_s * 1e3, cpu_solve_ms=cpu_s * 1e3,
                  launches=launches, nodes=len(plan.nodes),
                  shape={k: stats[k] for k in ("G", "I", "O", "U", "N", "K")},
@@ -1175,42 +1201,90 @@ def phase_flat(dev, card: str) -> dict:
 
 def segment_sum_checks(calls, card: str) -> dict:
     """``segment_sum`` against its plain version (index-order adds on the
-    CPU) on every call the flat program made, bit for bit; the kernel's
-    time on the largest call beside the plain version, ``index_add_``
-    (the PyTorch call for the same sums, in atomic order) and the
-    bound."""
+    CPU) on every call the flat program made, bit for bit.  On every call
+    the wrapper's time back to back beside ``index_add_`` (the PyTorch
+    call for the same sums, in atomic order; medians of rounds taken in
+    turns) and the kernel's device time alone, with the call's kept rows
+    and longest segment (the chain of dependent adds that sets the
+    kernel's time); on the largest call also the device kernels per call
+    (``torch.profiler``, exact), the plain version and the bound."""
     err = 0.0
+    rows = []
     for v, s, S in calls:
         got = segment_sum.segment_sum(v, s, S)
         want = segment_sum.segment_sum_reference(v, s, S)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             diff = (got - want).abs()
             raise AssertionError(f"segment_sum differs from its plain "
                                  f"version on [{v.shape[0]}, {v.shape[1]}] "
                                  f"-> {S}: max |diff| {float(diff.max())}")
         err = max(err, float((got - want).abs().max()))
-    v, s, S = max(calls, key=lambda c: (c[0].shape[0], c[2]))
-    ms = cuda_ms(lambda: segment_sum.segment_sum(v, s, S), 50)
+        keep = (s >= 0) & (s < S)
+        kept = int(keep.sum())
+        longest = int(torch.bincount(s[keep].long()).max()) if kept else 0
+        call = lambda v=v, s=s, S=S: segment_sum.segment_sum(  # noqa: E731
+            v, s, S)
+        # index_add_ takes no id outside its rows: dropped ids go to a
+        # spare row S (mapped before the timing), as the flat program's
+        # sentinel did
+        idx = torch.where(keep, s, S).long()
+        paired = paired_ms({"kernel": call, "index_add_": lambda v=v, S=S,
+                            idx=idx: torch.zeros(
+                                (S + 1, v.shape[1]),
+                                device=v.device).index_add_(0, idx, v)}, 50)
+        rows.append({"shape": [v.shape[0], v.shape[1], S], "kept_rows": kept,
+                     "longest_segment": longest, "ms": paired["kernel"],
+                     "library_ms": paired["index_add_"],
+                     "device_ms": kernel_device_ms(call,
+                                                   "segment_sum_kernel")})
+    say(f"timing [{card}]: segment_sum on each call of the flat program "
+        f"(wrapper back to back / index_add_ in turns / kernel device time "
+        f"alone): " + "; ".join(
+            f"[{r['shape'][0]}, {r['shape'][1]}] -> {r['shape'][2]}, "
+            f"{r['kept_rows']} rows kept, longest segment "
+            f"{r['longest_segment']}: {r['ms']:.4f} / {r['library_ms']:.4f}"
+            f" / " + ("not measured" if r["device_ms"] is None
+                      else f"{r['device_ms']:.4f}") + " ms" for r in rows))
+    at = max(range(len(calls)),
+             key=lambda i: (calls[i][0].shape[0], calls[i][2]))
+    v, s, S = calls[at]
+    big = rows[at]
+    call = lambda: segment_sum.segment_sum(v, s, S)  # noqa: E731
+    ms, lib_ms, device_ms = big["ms"], big["library_ms"], big["device_ms"]
+    per_call = kernels_per_call(call, "segment_sum_call",
+                                segment_sum.LAUNCHES, "segment_sum")
+    if per_call > 2:
+        raise AssertionError(f"segment_sum issues {per_call} device "
+                             f"kernels per call (at most 2)")
     plain_ms = cuda_ms(lambda: segment_sum.segment_sum_reference(v, s, S), 5,
                        warm=1)
-    idx = s.long()
-    lib_ms = cuda_ms(lambda: torch.zeros((S, v.shape[1]), device=v.device)
-                     .index_add_(0, idx, v), 50)
-    nbytes = v.numel() * 4 + s.numel() * s.element_size() + S * v.shape[1] * 4
+    # what this call's data needs: every id, the rows that are kept, the
+    # output; one add per kept value
+    kept = big["kept_rows"]
+    nbytes = s.numel() * s.element_size() + kept * v.shape[1] * 4 \
+        + S * v.shape[1] * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = v.numel() / SCALAR_OPS_PER_S * 1e3
+    t_ops = kept * v.shape[1] / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    dev_txt = "not measured (no profiler events)" if device_ms is None \
+        else f"{device_ms:.4f} ms"
     say(f"kernel check segment_sum: {len(calls)} calls of the flat program, "
         f"exact against the plain version; timing [{card}]: "
-        f"[{v.shape[0]}, {v.shape[1]}] -> {S} segments: kernel {ms:.4f} ms, "
-        f"plain version {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes)")
+        f"[{v.shape[0]}, {v.shape[1]}] -> {S} segments ({kept} rows kept, "
+        f"longest segment {big['longest_segment']}): wrapper {ms:.4f} ms "
+        f"back to back, kernel device time alone {dev_txt}, {per_call} "
+        f"device kernels per call, plain version {plain_ms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms (wrapper / index_add_ "
+        f"x{ms / lib_ms:.3f}), bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} bytes)")
     return {"calls": len(calls), "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms, "kernels_per_call": per_call,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes,
-            "shape": [v.shape[0], v.shape[1], S]}
+            "bound_by": bound_by, "bytes": nbytes, "kept_rows": kept,
+            "longest_segment": big["longest_segment"],
+            "shape": [v.shape[0], v.shape[1], S], "by_call": rows}
 
 
 def packed_route_check(dev, label: str, solver, problem, program_of):
@@ -1419,12 +1493,12 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
     bound_ms, bound_by, nbytes, ops = scan_bound_ms(
         m3, c3, off_alloc, rank_g, N, assign.cpu().numpy()[None],
         node_off.cpu().numpy()[None])
-    rs_pref_ms = cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
-        meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
-        True, miss_g=miss_g, pref_lambda=lam)[1]), 20)
-    rs_ms = cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
-        meta, compat_i, node_off, assign, off_alloc, off_price, off_rank,
-        True)[1]), 20)
+    rs_pref_ms = cuda_ms(lambda: tp.cost_word(tp.finish_solve(
+        meta, compat_i, node_off, assign, off_alloc, off_rank, True,
+        miss_g=miss_g, pref_lambda=lam), off_price), 20)
+    rs_ms = cuda_ms(lambda: tp.cost_word(tp.finish_solve(
+        meta, compat_i, node_off, assign, off_alloc, off_rank, True),
+        off_price), 20)
     rank_ms = cuda_ms(lambda: tp.pref_rank_rows(pref_rows, pref_idx,
                                                 off_rank, lam), 50)
     say(f"timing [{card}]: ffd_scan_pref on the pref window G={G} O={O} "
@@ -1754,35 +1828,35 @@ def phase_fleet_resident(dev, fleet: dict) -> dict:
 # -- phase 3 (cost sum) and phase 4 (l-n): the what-if, gang and preempt planes
 
 
-def cost_sum_bound_ms(C: int, N: int) -> tuple[float, str, int, int]:
-    """The cost sum's least time on the card: C x N float32 read once and
-    C words written, against the C x N adds the windows take (every
-    price, a closed node's 0 included) at the float32 scalar rate."""
-    nbytes = 4 * (C * N + C)
-    adds = C * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = adds / SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, adds
+def node_rows(N: int, C: int, device) -> torch.Tensor:
+    """node_off int32 [N] (C = 1) or [C, N] opening node n on offering n:
+    the cost word of it over a masked price row is that row's sum."""
+    idx = torch.arange(N, dtype=torch.int32, device=device)
+    return idx if C == 1 else idx.expand(C, N).contiguous()
 
 
-def check_cost_sum(label: str, prices: torch.Tensor) -> float:
-    """``cost_sum`` against its plain version on the same card tensor,
-    bit for bit; returns max |diff| (0.0)."""
-    got = cost_sum.cost_sum(prices)
+def check_masked_sum(label: str, prices: torch.Tensor) -> float:
+    """The cost word over a masked price row (every node open on its own
+    offering) against the plain order-fixed sum of that row on the same
+    card tensor, bit for bit; returns max |diff| (0.0)."""
+    C = prices.shape[0] if prices.dim() == 2 else 1
+    got = cost_sum.cost_word(node_rows(prices.shape[-1], C, prices.device),
+                             prices)
     want = cost_sum.cost_sum_reference(prices)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError(f"cost_sum differs from its plain version on "
-                             f"{label}: max |diff| "
+        raise AssertionError(f"cost_word differs from the plain sum of the "
+                             f"masked row on {label}: max |diff| "
                              f"{float((got - want).abs().max())}")
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
 def phase_cost_sum_checks(dev) -> dict:
-    """``cost_sum`` bit for bit against its plain version: C in {1, 8,
-    64}, every N in NODE_BUCKETS and three ragged lengths, prices with
-    30-70% of the nodes open, small totals and rows near 2^24."""
+    """The cost-word kernel bit for bit against its plain version: C in
+    {1, 8, 64}, every N in NODE_BUCKETS and three ragged lengths; masked
+    price rows (30-70% of the nodes open, small totals and rows near
+    2^24) summed as they lie, then node offerings gathered from one
+    price row per problem, one shared row and one row."""
     rng = np.random.RandomState(7)
     cases = 0
     for C in (1, 8, 64):
@@ -1792,12 +1866,34 @@ def phase_cost_sum_checks(dev) -> dict:
                 closed = rng.rand(C, N) >= rng.uniform(0.3, 0.7, (C, 1))
                 prices[closed] = 0
                 x = torch.from_numpy(prices).to(dev)
-                check_cost_sum(f"C={C} N={N}", x if C > 1 else x[0])
+                check_masked_sum(f"C={C} N={N}", x if C > 1 else x[0])
                 cases += 1
-    say(f"kernel check cost_sum: {cases} cases (C in 1, 8, 64; N in "
-        f"{list(NODE_BUCKETS)} and 33, 1000, 4097; 30-70% open, totals "
-        f"small and near 2^24) bit for bit against the plain version")
-    return {"max_abs_err": 0.0, "cases": cases}
+    say(f"kernel check cost_word on masked rows: {cases} cases (C in 1, 8, "
+        f"64; N in {list(NODE_BUCKETS)} and 33, 1000, 4097; 30-70% open, "
+        f"totals small and near 2^24) bit for bit against the plain sum")
+    words = 0
+    O = 3072
+    for C in (1, 8, 64):
+        for N in NODE_BUCKETS + (33, 1000, 4097):
+            node = rng.randint(0, O, size=(C, N)).astype(np.int32)
+            node[rng.rand(C, N) >= rng.uniform(0.3, 0.7, (C, 1))] = -1
+            price = torch.from_numpy(
+                (rng.rand(C, O) * 2.0 ** 27 / N).astype(np.float32)).to(dev)
+            no = torch.from_numpy(node).to(dev)
+            for args in ((no, price), (no, price[0]), (no[0], price[0])):
+                got = cost_sum.cost_word(*args)
+                want = cost_sum.cost_word_reference(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(
+                        f"cost_word differs from its plain version at C={C} "
+                        f"N={N}, price {tuple(args[1].shape)}")
+                words += 1
+    say(f"kernel check cost_word: {words} cases (C in 1, 8, 64; the same "
+        f"N; a price row per problem, one shared row, one row; 30-70% "
+        f"open, totals past 2^24) bit for bit against the plain version")
+    return {"max_abs_err": 0.0, "cases": cases, "cost_word_cases": words}
 
 
 def kernel_device_ms(fn, kernel: str, reps: int = 50) -> float | None:
@@ -1820,29 +1916,86 @@ def kernel_device_ms(fn, kernel: str, reps: int = 50) -> float | None:
     return sum(us) / reps / 1e3 if us else None
 
 
-def cost_sum_timing(label: str, prices: torch.Tensor, card: str) -> dict:
-    """The cost sum on ``prices`` [N] or [C, N] after its bit check: the
-    kernel (back-to-back CUDA events, and its device time alone from the
-    profiler), the plain version, ``torch.sum`` (the same sum in another
-    order) and the bound."""
-    err = check_cost_sum(label, prices)
-    ms = cuda_ms(lambda: cost_sum.cost_sum(prices), 100)
-    device_ms = kernel_device_ms(lambda: cost_sum.cost_sum(prices),
-                                 "cost_sum_kernel")
-    plain_ms = cuda_ms(lambda: cost_sum.cost_sum_reference(prices), 20)
-    lib_ms = cuda_ms(lambda: prices.sum(dim=-1), 100)
-    C = 1 if prices.dim() == 1 else prices.shape[0]
-    N = prices.shape[-1]
-    bound_ms, bound_by, nbytes, adds = cost_sum_bound_ms(C, N)
+def cost_word_bound_ms(node_off: torch.Tensor, off_price: torch.Tensor
+                       ) -> tuple[float, str, int, int]:
+    """The cost word's least time on the card for this call's data: the
+    C x N node offerings read once, each price word an open node needs
+    read once (the distinct open offerings of each price row; of the one
+    shared row when the rows share it), C words written; against the
+    C x N adds of the windows at the float32 scalar rate."""
+    C = 1 if node_off.dim() == 1 else node_off.shape[0]
+    N, O = node_off.shape[-1], off_price.shape[-1]
+    rows = node_off.reshape(C, N).long()
+    is_open = rows >= 0
+    off = rows.clamp(max=O - 1)
+    if off_price.dim() == 2:
+        off = off + O * torch.arange(C, device=off.device)[:, None]
+    prices = int(torch.unique(off[is_open]).numel())
+    nbytes = 4 * (C * N + prices + C)
+    adds = C * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, adds
+
+
+def cost_sum_timing(label: str, node_off: torch.Tensor,
+                    off_price: torch.Tensor, card: str) -> dict:
+    """The cost word of ``node_off`` [N] or [C, N] over ``off_price``:
+    ``cost_word`` (one fused launch) bit for bit against its plain
+    version and against the plain sum of the masked row; then, back to
+    back (the wrapper's host issue; medians of 5 rounds taken in turns)
+    ``cost_word``, ``torch.sum`` on the premasked row (the same sum in
+    another order) and the chain the paths ran before this kernel took
+    the gather in (clamp, gather, ``where``, then one order-fixed sum
+    launch over the masked row); the device time alone (profiler), the
+    plain version, the bound, and the device kernels per call of
+    ``cost_word`` (exact) and of the chain."""
+    prices = cost_sum.masked_prices(node_off, off_price)
+    err = check_masked_sum(label, prices)
+    word = cost_sum.cost_word(node_off, off_price)
+    plain = cost_sum.cost_word_reference(node_off, off_price)
+    torch.cuda.synchronize()
+    if not torch.equal(word.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError(f"cost_word differs from its plain version on "
+                             f"{label}")
+    C = 1 if node_off.dim() == 1 else node_off.shape[0]
+    N = node_off.shape[-1]
+    every = node_rows(N, C, node_off.device)
+    call = lambda: cost_sum.cost_word(node_off, off_price)  # noqa: E731
+    chain = lambda: cost_sum.cost_word(  # noqa: E731
+        every, cost_sum.masked_prices(node_off, off_price))
+    paired = paired_ms({"cost_word": call,
+                        "torch.sum": lambda: prices.sum(dim=-1),
+                        "chain": chain}, 100)
+    ms, lib_ms, chain_ms = (paired["cost_word"], paired["torch.sum"],
+                            paired["chain"])
+    device_ms = kernel_device_ms(call, "cost_word_kernel")
+    per_call = kernels_per_call(call, "cost_word_call", cost_sum.LAUNCHES,
+                                "cost_sum")
+    chain_per_call = kernels_per_call(chain, "cost_chain_call",
+                                      cost_sum.LAUNCHES, "cost_sum")
+    plain_ms = cuda_ms(lambda: cost_sum.cost_word_reference(
+        node_off, off_price), 20)
+    bound_ms, bound_by, nbytes, adds = cost_word_bound_ms(node_off,
+                                                          off_price)
     dev_txt = "not measured (no profiler events)" if device_ms is None \
         else f"{device_ms:.4f} ms"
-    say(f"timing [{card}]: cost_sum on {label} [C={C}, N={N}]: kernel "
-        f"{ms:.4f} ms back to back (the wrapper's host issue), its device "
-        f"time alone {dev_txt}, plain version {plain_ms:.4f} ms, torch.sum "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
-        f"bytes, {adds} adds); bit-exact against the plain version")
-    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+    say(f"timing [{card}]: cost word on {label} [C={C}, N={N}, O="
+        f"{off_price.shape[-1]}, {'shared' if off_price.dim() == 1 else 'a'}"
+        f" price row{'' if off_price.dim() == 1 else ' per problem'}]: "
+        f"cost_word {ms:.4f} ms back to back, device time alone {dev_txt}, "
+        f"{per_call} device kernels per call; the earlier chain (clamp, "
+        f"gather, where, one sum launch) {chain_ms:.4f} ms, "
+        f"{chain_per_call} device kernels per call; plain version "
+        f"{plain_ms:.4f} ms; torch.sum on the premasked row {lib_ms:.4f} ms "
+        f"(cost_word / torch.sum x{ms / lib_ms:.3f}); bound "
+        f"{bound_ms:.7f} ms ({bound_by}: {nbytes} bytes, {adds} adds); "
+        f"bit-exact against the plain version and the plain sum of the "
+        f"masked row")
+    return {"ms": ms, "device_ms": device_ms, "kernels_per_call": per_call,
+            "chain_ms": chain_ms, "chain_kernels_per_call": chain_per_call,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": adds, "max_abs_err": err, "shape": [C, N]}
 
@@ -1963,10 +2116,9 @@ def phase_whatif(dev, card: str) -> dict:
     metas, compats = stacked_scan_tensors(dev, baseline, menu, ct)
     node_off, assign, _ = ffd_kernel.ffd_scan_fleet(
         metas, compats, alloc.expand(K, *alloc.shape), rank.expand(K, -1), N)
-    _, prices = torch.func.vmap(lambda m, c, no, a: tp.finish_solve(
-        m, c, no, a, ct[0], ct[1], ct[2], True))(metas, compats, node_off,
-                                                 assign)
-    cs = cost_sum_timing(f"the stacked what-if plan", prices, card)
+    node_off = torch.func.vmap(lambda m, c, no, a: tp.finish_solve(
+        m, c, no, a, ct[0], ct[2], True))(metas, compats, node_off, assign)
+    cs = cost_sum_timing("the stacked what-if plan", node_off, ct[1], card)
 
     walls = []
     for _ in range(WHATIF["iters"]):
@@ -2825,13 +2977,25 @@ def scan_bound_ms(meta, compat, alloc, rank, N: int, assign, node_off):
                                  else "operations"), nbytes, ops
 
 
+def _is_launch(e) -> bool:
+    """A host-side CUDA API record that starts one kernel
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaLaunchKernelExC``,
+    ...); its id is the CUPTI correlation id its kernel carries."""
+    return e.name.startswith("cu") and "Launch" in e.name \
+        and "HostFunc" not in e.name
+
+
 def profile_spans(run, spans: int, tag: str) -> dict | None:
-    """Device launches and busy share of ``spans`` warm calls of ``run``,
+    """Device kernels and busy share of ``spans`` warm calls of ``run``,
     from a ``torch.profiler`` trace: each call is a ``tag`` range on the
-    host, and the device's kernel/copy intervals inside those ranges are
-    merged into busy time.  The profiler slows the host, so the busy
-    share read here is a lower bound on the unprofiled one.  Returns None
-    when the trace holds no device events."""
+    host.  A span's kernels are the kernel launches the host issued
+    inside its range (any thread), each joined to its device kernel by
+    correlation id; a launch whose device record the trace lost still
+    counts, and a device kernel whose launch record it lost counts apart
+    (``unattributed``).  The device's kernel/copy intervals inside the
+    ranges are merged into busy time.  The profiler slows the host, so
+    the busy share read here is a lower bound on the unprofiled one.
+    Returns None when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2841,6 +3005,8 @@ def profile_spans(run, spans: int, tag: str) -> dict | None:
         for _ in range(spans):
             with record_function(tag):
                 run()
+        # the last span's kernels end inside the trace
+        torch.cuda.synchronize()
     events = prof.events()
     ranges = sorted((e.time_range.start, e.time_range.end) for e in events
                     if e.name == tag and e.device_type == DeviceType.CPU)
@@ -2848,8 +3014,15 @@ def profile_spans(run, spans: int, tag: str) -> dict | None:
               if e.device_type == DeviceType.CUDA and e.name != tag]
     if not device or len(ranges) != spans:
         return None
-    kernels = [e for e in device
-               if not e.name.startswith(("Memcpy", "Memset"))]
+    launches = [e for e in events
+                if e.device_type == DeviceType.CPU and _is_launch(e)]
+    kernel_ids = {e.id for e in device
+                  if not e.name.startswith(("Memcpy", "Memset"))}
+    per_span = [sorted({e.id for e in launches
+                        if lo <= e.time_range.start <= hi})
+                for lo, hi in ranges]
+    in_spans = {i for ids in per_span for i in ids}
+    launch_ids = {e.id for e in launches}
     busy = 0.0
     for lo, hi in ranges:
         cut = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
@@ -2860,12 +3033,44 @@ def profile_spans(run, spans: int, tag: str) -> dict | None:
                 busy += t - max(s, end)
                 end = t
     span_us = sum(hi - lo for lo, hi in ranges)
+    unattributed = len(kernel_ids - launch_ids)
     return {"spans": spans,
-            "kernels_per_span": len(kernels) / spans,
+            "kernels_by_span": [len(ids) for ids in per_span],
+            "kernels_per_span": (len(in_spans) + unattributed) / spans,
+            "device_records_lost": len(in_spans - kernel_ids),
+            "unattributed": unattributed,
             "device_events_per_span": len(device) / spans,
             "profiled_span_ms": span_us / spans / 1e3,
             "device_busy_ms": busy / spans / 1e3,
             "device_busy_share": busy / span_us}
+
+
+def kernels_per_call(run, tag: str, counter: dict, key: str,
+                     spans: int = 20, tries: int = 3) -> int:
+    """The device kernels one call of ``run`` issues, an exact integer
+    read from ``profile_spans``: every span must hold the same count, no
+    device kernel may lack its launch record, and the spans must hold at
+    least as many launches as ``counter[key]`` (a wrapper's LAUNCHES)
+    grew by over the same calls.  A trace that falls short is taken
+    again, up to ``tries`` times; then the call raises."""
+    why = ""
+    for _ in range(tries):
+        before = counter[key]
+        prof = profile_spans(run, spans, tag)
+        grew = counter[key] - before
+        if prof is None:
+            why = "the trace holds no device events"
+            continue
+        counts = prof["kernels_by_span"]
+        if prof["unattributed"] or len(set(counts)) != 1 \
+                or sum(counts) < grew:
+            why = (f"kernels by span {counts}, {prof['unattributed']} "
+                   f"device kernels without a launch record, {grew} "
+                   f"{key} launches counted")
+            continue
+        return counts[0]
+    raise AssertionError(f"{tag}: kernels per call not read exactly from "
+                         f"torch.profiler in {tries} traces: {why}")
 
 
 def phase_timings(dev, solver, request, problem, card: str) -> dict:
@@ -2901,9 +3106,9 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
                                                     U), 50),
         "kernel": cuda_ms(lambda: ffd_kernel.ffd_scan(
             meta3, compat3, off_alloc, off_rank, N), 50),
-        "right_size_cost": cuda_ms(lambda: tp.cost_sum(tp.finish_solve(
-            meta, compat_i, node_off, assign, off_alloc, off_price,
-            off_rank, True)[1]), 20),
+        "right_size_cost": cuda_ms(lambda: tp.cost_word(tp.finish_solve(
+            meta, compat_i, node_off, assign, off_alloc, off_rank, True),
+            off_price), 20),
         "pack_explain_telemetry": cuda_ms(lambda: tp.pack_result_telemetry(
             meta, rows_g, compat_i, node_off, assign, unplaced,
             off_price.sum(), off_alloc, prep.K, prep.dense16, prep.coo16),
@@ -2918,9 +3123,9 @@ def phase_timings(dev, solver, request, problem, card: str) -> dict:
     bound_ms, bound_by, nbytes, ops = scan_bound_ms(
         meta3, compat3, off_alloc, off_rank, N, assign.cpu().numpy(),
         node_off.cpu().numpy())
-    _, prices = tp.finish_solve(meta, compat_i, node_off, assign, off_alloc,
-                                off_price, off_rank, True)
-    cs = cost_sum_timing("the main-path window", prices, card)
+    cs = cost_sum_timing("the main-path window", tp.finish_solve(
+        meta, compat_i, node_off, assign, off_alloc, off_rank, True),
+        off_price, card)
 
     # encode, cold (memo and signature caches cleared) and warm
     encode_mod._ENCODE_MEMO.clear()
@@ -3272,7 +3477,9 @@ def main() -> int:
                        "max_abs_err": checks[name]["max_abs_err"],
                        "ms": t["ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                       "library_ms": t.get("library_ms")})
+                       "library_ms": t.get("library_ms"),
+                       "device_ms": t.get("device_ms"),
+                       "kernels_per_call": t.get("kernels_per_call")})
     if args.json_out is not None:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps({

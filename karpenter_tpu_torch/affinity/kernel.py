@@ -30,7 +30,7 @@ import torch
 from karpenter_tpu_torch.affinity import AFF_BIG, C_PAD
 from karpenter_tpu_torch.apis.pod import NUM_RESOURCES
 from karpenter_tpu_torch.explain import BIT
-from karpenter_tpu_torch.solver.cost_sum import cost_sum
+from karpenter_tpu_torch.solver.cost_sum import cost_word
 from karpenter_tpu_torch.solver.ffd_kernel import _fit_counts, open_nodes
 from karpenter_tpu_torch.solver.packed import (
     pack_result_telemetry, right_size as _right_size, unpack_problem,
@@ -157,9 +157,7 @@ def solve_packed_affinity(packed, aff, off_alloc, off_price, off_rank, *,
         load = off_alloc[torch.clamp(node_off, min=0).long()] - node_resid
         node_off = _right_size(node_off, load, assign, compat, off_alloc,
                                off_rank)
-    is_open = node_off >= 0
-    prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = cost_sum(torch.where(is_open, prices, torch.zeros_like(prices)))
+    cost = cost_word(node_off, off_price)
     return pack_result_telemetry(
         meta, rows_g, compat_i, node_off, assign, unplaced, cost, off_alloc,
         compact, dense16, coo16,

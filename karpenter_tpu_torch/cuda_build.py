@@ -34,10 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> the C functions its library exports, with ctypes types
 _SIGNATURES = {
     "cost_sum": {
-        "cost_sum_launch": (
+        "cost_word_launch": (
             ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]),
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
         "cost_sum_max_len": (ctypes.c_int, []),
         "cost_sum_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
@@ -67,9 +67,10 @@ _SIGNATURES = {
     "segment_sum": {
         "segment_sum_launch": (
             ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
         "segment_sum_max_cols": (ctypes.c_int, []),
+        "segment_sum_max_items": (ctypes.c_int, []),
         "segment_sum_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }
@@ -131,6 +132,16 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, float]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of the current CUDA stream of device ``index``
+    (``tensor.get_device()``), read anew on every call: the stream
+    PyTorch's own ops on that device launch on, without building a
+    ``torch.cuda.Stream`` object per call."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -51,7 +51,7 @@ import time
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.solver.cost_sum import cost_sum
+from karpenter_tpu_torch.solver.cost_sum import cost_word
 from karpenter_tpu_torch.solver.encode import (
     BIG_CAP, EncodedProblem, estimate_nodes,
 )
@@ -157,8 +157,11 @@ def _flat_body(item_req, item_gid, item_live, rows, item_row, off_alloc,
     price_fit = torch.where(okoff, rank_rows[rc], float("inf"))
     exact_cls = torch.argmin(price_fit, dim=1).to(I32)
     seg_row = torch.where(fit_any, item_row, U)
+    # the reference sums into num_segments=U + 1 and drops the sentinel
+    # segment U; segment_sum drops ids outside [0, U) itself, so U
+    # segments give the same words without the sentinel's add chain
     T_u = segment_sum(torch.where(fit_any[:, None], reqf, 0.0), seg_row,
-                      U + 1)[:U]                                  # [U, R]
+                      U)                                          # [U, R]
     max_u = _seg_reduce(torch.where(fit_any[:, None], item_req, 0), seg_row,
                         U + 1, "amax")[:U]
     covers_u = rows & (off_alloc[None, :, :] >= max_u[:, None, :]).all(dim=2)
@@ -237,7 +240,8 @@ def _flat_body(item_req, item_gid, item_live, rows, item_row, off_alloc,
         # ---- open pass: per class, ceil(fluid x (1+beta)) fresh bins
         af = active[:, None].to(F32)
         seg = torch.where(active, scls, O)
-        T_act = segment_sum(sreq.to(F32) * af, seg, O + 1)[:O]     # [O, R]
+        # the reference's num_segments=O + 1, sentinel O dropped (as T_u)
+        T_act = segment_sum(sreq.to(F32) * af, seg, O)             # [O, R]
         need = (T_act / allocf).max(dim=1).values
         hasa = _seg_add(active.to(I32), seg, O + 1)[:O] > 0
         n_new = torch.where(hasa, torch.ceil(need * (1.0 + beta)).to(I32),
@@ -306,8 +310,7 @@ def _flat_body(item_req, item_gid, item_live, rows, item_row, off_alloc,
     cand_price = torch.where(cand, rank_eff, float("inf"))
     node_off = torch.where(open_b, torch.argmin(cand_price, dim=1).to(I32),
                            -1).to(I32)
-    prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = cost_sum(torch.where(open_b, prices, torch.zeros_like(prices)))
+    cost = cost_word(node_off, off_price)
 
     # back to item space -> per-group unplaced + COO assign entries
     placed_i = _scatter_perm(order, placed_s)

@@ -40,7 +40,7 @@ from torch.func import vmap
 from karpenter_tpu_torch.explain import (
     BIT, DEFICIT_CLIP, DEFICIT_MASKED, RESOURCE_BITS,
 )
-from karpenter_tpu_torch.solver.cost_sum import cost_sum
+from karpenter_tpu_torch.solver.cost_sum import cost_word
 from karpenter_tpu_torch.solver.ffd_kernel import ffd_scan, ffd_scan_fleet
 from karpenter_tpu_torch.solver.presence_sum import presence_sum
 from karpenter_tpu_torch.solver.result_layout import (
@@ -132,22 +132,19 @@ def _presence_mean(present, miss_g):
         / torch.clamp(present.sum(dim=0), min=1.0)[:, None]
 
 
-def finish_solve(meta, compat_i, node_off, assign, off_alloc, off_price,
-                 off_rank, right_size_on: bool, miss_g=None,
+def finish_solve(meta, compat_i, node_off, assign, off_alloc, off_rank,
+                 right_size_on: bool, miss_g=None,
                  pref_lambda: float = 0.0):
-    """Right-sizing on the exact integer load + the open-node prices
-    (``finish_pallas_solve``; with ``miss_g`` the pref branch of
-    ``_right_size``) -> (node_off [N], prices [N], 0 where a node is
-    closed).  The caller sums the prices with :func:`cost_sum`, outside
-    any vmap (a kernel launched through ctypes has no batching rule)."""
-    if right_size_on:
-        load = _load(assign, meta[:, :4])
-        node_off = right_size(node_off, load, assign, compat_i > 0,
-                              off_alloc, off_rank, miss_g=miss_g,
-                              pref_lambda=pref_lambda)
-    is_open = node_off >= 0
-    prices = off_price[torch.clamp(node_off, min=0).long()]
-    return node_off, torch.where(is_open, prices, torch.zeros_like(prices))
+    """Right-sizing on the exact integer load (``finish_pallas_solve``;
+    with ``miss_g`` the pref branch of ``_right_size``) -> node_off [N].
+    The caller forms the cost word with :func:`cost_word` from node_off
+    and the offering prices, outside any vmap (a kernel launched through
+    ctypes has no batching rule)."""
+    if not right_size_on:
+        return node_off
+    load = _load(assign, meta[:, :4])
+    return right_size(node_off, load, assign, compat_i > 0, off_alloc,
+                      off_rank, miss_g=miss_g, pref_lambda=pref_lambda)
 
 
 def compact_assign(assign: torch.Tensor, K: int):
@@ -345,12 +342,11 @@ def solve_packed_torch(packed, off_alloc, off_price, off_rank, *, G: int,
         meta[None].contiguous(), compat_i[None].contiguous(), off_alloc,
         off_rank, N)
     node_off, assign, unplaced = node_off[0], assign[0], unplaced[0]
-    node_off, prices = finish_solve(meta, compat_i, node_off, assign,
-                                    off_alloc, off_price, off_rank,
-                                    right_size)
+    node_off = finish_solve(meta, compat_i, node_off, assign, off_alloc,
+                            off_rank, right_size)
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
-                                 unplaced, cost_sum(prices), off_alloc,
-                                 compact, dense16, coo16)
+                                 unplaced, cost_word(node_off, off_price),
+                                 off_alloc, compact, dense16, coo16)
 
 
 def pref_rank_rows(pref_rows, pref_idx, off_rank, lam: float):
@@ -388,13 +384,12 @@ def solve_packed_pref_torch(packed, pref_rows, pref_idx, off_alloc,
         meta[None].contiguous(), compat_i[None].contiguous(), off_alloc,
         rank_g, N)
     node_off, assign, unplaced = node_off[0], assign[0], unplaced[0]
-    node_off, prices = finish_solve(meta, compat_i, node_off, assign,
-                                    off_alloc, off_price, off_rank,
-                                    right_size, miss_g=miss_g,
-                                    pref_lambda=lam)
+    node_off = finish_solve(meta, compat_i, node_off, assign, off_alloc,
+                            off_rank, right_size, miss_g=miss_g,
+                            pref_lambda=lam)
     return pack_result_telemetry(meta, rows_g, compat_i, node_off, assign,
-                                 unplaced, cost_sum(prices), off_alloc,
-                                 compact, dense16, coo16)
+                                 unplaced, cost_word(node_off, off_price),
+                                 off_alloc, compact, dense16, coo16)
 
 
 def _cost_words(cost: torch.Tensor) -> torch.Tensor:
@@ -416,15 +411,15 @@ def solve_packed_batch_torch(packed_rows, off_alloc, off_price, off_rank, *,
     node_off, assign, unplaced = ffd_scan_fleet(
         metas.contiguous(), compats.contiguous(),
         off_alloc.expand(C, O, 4), off_rank.expand(C, O), N)
-    node_off, prices = vmap(
+    node_off = vmap(
         lambda m, ci, no, a: finish_solve(m, ci, no, a, off_alloc,
-                                          off_price, off_rank, right_size)
+                                          off_rank, right_size)
     )(metas, compats, node_off, assign)
     return vmap(
         lambda m, r, ci, no, a, u, cw: pack_result_telemetry(
             m, r, ci, no, a, u, cw, off_alloc, compact, dense16, coo16)
     )(metas, rows, compats, node_off, assign, unplaced,
-      _cost_words(cost_sum(prices)))
+      _cost_words(cost_word(node_off, off_price)))
 
 
 def fleet_packed_torch(packed_rows, alloc_all, rank_all, price_all, *,
@@ -441,9 +436,10 @@ def fleet_packed_torch(packed_rows, alloc_all, rank_all, price_all, *,
         lambda p, a: unpack_problem(p, a, G, O, U))(packed_rows, alloc_all)
     node_off, assign, unplaced = ffd_scan_fleet(
         metas.contiguous(), compats.contiguous(), alloc_all, rank_all, N)
-    node_off, prices = vmap(
-        lambda m, ci, no, a, alloc, price, rank: finish_solve(
-            m, ci, no, a, alloc, price, rank, right_size)
-    )(metas, compats, node_off, assign, alloc_all, price_all, rank_all)
+    node_off = vmap(
+        lambda m, ci, no, a, alloc, rank: finish_solve(
+            m, ci, no, a, alloc, rank, right_size)
+    )(metas, compats, node_off, assign, alloc_all, rank_all)
+    cost = _cost_words(cost_word(node_off, price_all))
     return vmap(lambda no, a, u, cw: pack_result(no, a, u, cw, compact))(
-        node_off, assign, unplaced, _cost_words(cost_sum(prices)))
+        node_off, assign, unplaced, cost)

@@ -4,18 +4,22 @@ The flat solver's float32 totals (``T_u`` and ``T_act`` in
 ``solver/flat.py``) must round exactly as the reference's
 ``jax.ops.segment_sum`` does on its CPU, which adds the items one by one
 in index order.  :func:`segment_sum` gives that order on any device: on
-a CUDA tensor it launches ``csrc/segment_sum.cu`` (items stably sorted
-by segment, one block per segment folding its rows left to right); on a
-CPU tensor it runs :func:`segment_sum_reference`, ``index_add_`` on the
-CPU, which adds in index order too (``tests/test_torch_flat.py`` holds
-both against ``np.add.at`` and the reference).  The choice follows the
-tensor's device, never a failure: on a CUDA tensor the kernel launches
-or the call raises.
+a CUDA tensor it launches ``csrc/segment_sum.cu``, one kernel with no
+sort (each block lists the items of its 32 segments in index order and
+folds each segment's rows left to right); on a CPU tensor it runs
+:func:`segment_sum_reference`, ``index_add_`` on the CPU, which adds in
+index order too (``tests/test_torch_flat.py`` holds both against
+``np.add.at`` and the reference).  The choice follows the tensor's
+device, never a failure: on a CUDA tensor the kernel launches or the
+call raises.  Ids outside [0, S) drop on both, so a caller passes only
+the segments it reads: no sentinel segment to slice off.
 """
 
 from __future__ import annotations
 
 import torch
+
+from karpenter_tpu_torch import cuda_build
 
 # Kernel launches, counted where the kernel is launched and nowhere else.
 LAUNCHES = {"segment_sum": 0}
@@ -35,56 +39,61 @@ def segment_sum_reference(vals: torch.Tensor, seg: torch.Tensor,
     return out.to(vals.device)
 
 
-def _launch(vals: torch.Tensor, seg: torch.Tensor,
-            num_segments: int) -> torch.Tensor:
-    from karpenter_tpu_torch import cuda_build
+# the kernel's C functions and limits, bound once per process
+_BOUND = None
 
-    lib = cuda_build.load("segment_sum")
-    cols = vals.shape[1]
-    if cols > lib.segment_sum_max_cols():
-        raise ValueError(f"segment_sum takes at most "
-                         f"{lib.segment_sum_max_cols()} columns, got {cols}")
-    # a stable sort keeps each segment's rows in index order; the
-    # segment bounds come from a search of the sorted ids (bincount
-    # would read its maximum back to the host), so ids outside
-    # [0, num_segments) sort outside every segment and are dropped
-    sorted_seg, order = torch.sort(seg.to(torch.int32), stable=True)
-    sorted_vals = vals.index_select(0, order).contiguous()
-    bounds = torch.searchsorted(
-        sorted_seg, torch.arange(num_segments + 1, dtype=torch.int32,
-                                 device=vals.device), out_int32=True)
-    start = bounds[:-1].contiguous()
-    length = (bounds[1:] - bounds[:-1]).contiguous()
-    out = torch.empty((num_segments, cols), dtype=torch.float32,
-                      device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = lib.segment_sum_launch(sorted_vals.data_ptr(), start.data_ptr(),
-                                 length.data_ptr(), out.data_ptr(),
-                                 num_segments, cols, stream)
-    if err != 0:
-        msg = lib.segment_sum_error_string(err).decode()
-        raise RuntimeError(f"segment_sum launch failed: cudaError {err} "
-                           f"({msg})")
-    return out
+
+def _bound():
+    global _BOUND
+    if _BOUND is None:
+        lib = cuda_build.load("segment_sum")
+        _BOUND = (lib.segment_sum_launch, lib.segment_sum_max_cols(),
+                  lib.segment_sum_max_items(), lib.segment_sum_error_string)
+    return _BOUND
 
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """float32 [I, R] rows summed per segment (``seg`` [I]) in index
-    order: [num_segments, R].  Rows whose id lies outside
+    """float32 [I, R] rows summed per segment (``seg`` int32 or int64
+    [I]) in index order: [num_segments, R].  Rows whose id lies outside
     [0, num_segments) are dropped on every device, as the reference's
-    ``jax.ops.segment_sum`` drops them."""
-    if vals.dim() != 2 or vals.dtype != torch.float32:
+    ``jax.ops.segment_sum`` drops them.  On a CUDA tensor one launch and
+    nothing else: the output is the only allocation."""
+    shape = vals.shape
+    if vals.dtype is not torch.float32 or len(shape) != 2:
         raise ValueError(f"vals must be float32 [I, R], got {vals.dtype} "
-                         f"{tuple(vals.shape)}")
-    if seg.shape != vals.shape[:1] or seg.device != vals.device:
+                         f"{tuple(shape)}")
+    items, cols = shape
+    index = vals.get_device()
+    if seg.shape != shape[:1] or seg.get_device() != index:
         raise ValueError(f"seg must be [I] on {vals.device}, got "
                          f"{tuple(seg.shape)} on {seg.device}")
-    if vals.device.type == "cpu":
+    if seg.dtype is not torch.int32 and seg.dtype is not torch.int64:
+        raise ValueError(f"seg must be int32 or int64, got {seg.dtype}")
+    if not vals.is_cuda:
+        if vals.device.type != "cpu":
+            raise ValueError(f"segment_sum runs on cpu or cuda, not "
+                             f"{vals.device}")
         return segment_sum_reference(vals, seg, num_segments)
-    if vals.device.type != "cuda":
-        raise ValueError(f"segment_sum runs on cpu or cuda, not "
-                         f"{vals.device}")
-    out = _launch(vals.contiguous(), seg, num_segments)
+    launch, max_cols, max_items, error_string = _BOUND or _bound()
+    if cols > max_cols:
+        raise ValueError(f"segment_sum takes at most {max_cols} columns, "
+                         f"got {cols}")
+    if items > max_items:
+        raise ValueError(f"segment_sum takes at most {max_items} items, "
+                         f"got {items}")
+    out = vals.new_empty((num_segments, cols))
+    if num_segments == 0:
+        return out
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    if not seg.is_contiguous():
+        seg = seg.contiguous()
+    err = launch(vals.data_ptr(), seg.data_ptr(), out.data_ptr(), items,
+                 num_segments, cols, seg.element_size(),
+                 cuda_build.stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"segment_sum launch failed: cudaError {err} "
+                           f"({error_string(err).decode()})")
     LAUNCHES["segment_sum"] += 1
     return out

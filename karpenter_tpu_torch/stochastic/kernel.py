@@ -27,7 +27,7 @@ import torch
 
 from karpenter_tpu_torch.apis.pod import NUM_RESOURCES
 from karpenter_tpu_torch.explain import BIT
-from karpenter_tpu_torch.solver.cost_sum import cost_sum
+from karpenter_tpu_torch.solver.cost_sum import cost_word
 from karpenter_tpu_torch.solver.ffd_kernel import _fit_counts, open_nodes
 from karpenter_tpu_torch.solver.packed import (
     pack_result_telemetry, right_size as _right_size, unpack_problem,
@@ -210,9 +210,7 @@ def solve_packed_stochastic(packed, sto, kd, kc, off_alloc, off_price,
         node_off = _right_size(
             node_off, load_mean, assign, compat, off_alloc, off_rank,
             fits=_chance_ok(load_mean, node_var, off_alloc, zsq))
-    is_open = node_off >= 0
-    prices = off_price[torch.clamp(node_off, min=0).long()]
-    cost = cost_sum(torch.where(is_open, prices, torch.zeros_like(prices)))
+    cost = cost_word(node_off, off_price)
     binding = (compat & (kc < kd)).any(dim=1) & (var > 0).any(dim=1)
     return pack_result_telemetry(
         meta, rows_g, compat_i, node_off, assign, unplaced, cost, off_alloc,

@@ -1,11 +1,14 @@
 """The order-fixed sums of the port against the reference's jitted sums.
 
-``cost_sum`` (``solver/cost_sum.py``) must round each row of open-node
+``cost_word`` (``solver/cost_sum.py``) must round each row of open-node
 prices exactly as the reference's ``jnp.sum`` does on the CPU, single
-and under ``jax.vmap``, at every N in ``NODE_BUCKETS``: random prices
+and under ``jax.vmap``, at every N in ``NODE_BUCKETS``: masked price rows
+summed as they lie (every node open on its own offering), random prices
 with 30-70% of the nodes open, rows whose totals reach 2^24 (where a
-float32 add starts to drop bits), and ragged lengths.  The flat
-program's presence-averaged rank (``solver/flat.presence_rank_sum``,
+float32 add starts to drop bits), and ragged lengths; and it must give
+the reference's word from the scan's ``node_off`` and the catalog's
+prices (one price row, a row per problem, or one shared row).  The flat program's
+presence-averaged rank (``solver/flat.presence_rank_sum``,
 summed class by class) must equal the reference's jitted ``jnp.dot`` at
 the padded shapes the program runs: every U in ``CLASS_BUCKETS``, every
 O in ``OFFERING_BUCKETS``, N from 64 to 8192.
@@ -21,7 +24,7 @@ from karpenter_tpu.solver.flat import CLASS_BUCKETS
 from karpenter_tpu.solver.types import NODE_BUCKETS, OFFERING_BUCKETS
 
 from karpenter_tpu_torch.solver.cost_sum import (
-    cost_sum, cost_sum_reference,
+    cost_sum_reference, cost_word, cost_word_reference,
 )
 from karpenter_tpu_torch.solver.flat import presence_rank_sum
 
@@ -40,6 +43,16 @@ def price_rows(rng, C, N, big=False):
 
 def bits(a):
     return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+def cost_sum(masked):
+    """The masked price row(s) float32 [N] or [C, N] summed by
+    ``cost_word``: node n open on offering n, over the row with one
+    spare price (so N = 0 still has a catalog)."""
+    N = masked.shape[-1]
+    node = torch.arange(N, dtype=torch.int32).expand(masked.shape)
+    return cost_word(node.contiguous(),
+                     torch.nn.functional.pad(masked, (0, 1)))
 
 
 @pytest.mark.parametrize("N", NODE_BUCKETS)
@@ -86,12 +99,72 @@ def test_cost_sum_is_not_a_plain_sum():
 
 
 def test_cost_sum_checks_its_input():
+    """A masked row reaches the kernel only as float32 prices of [N] or
+    [C, N] nodes; summed so it is its plain order-fixed sum."""
     with pytest.raises(ValueError, match="float32"):
         cost_sum(torch.zeros(64, dtype=torch.float64))
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="int32"):
         cost_sum(torch.zeros((2, 2, 64)))
     x = torch.rand(4, 64)
     assert torch.equal(cost_sum(x), cost_sum_reference(x))
+
+
+# the reference's cost word as finish_pallas_solve forms it
+_word = jax.jit(lambda no, price: jnp.sum(
+    jnp.where(no >= 0, price[jnp.clip(no, 0)], 0.0)))
+_word_rows = jax.vmap(_word)
+_word_shared = jax.vmap(_word, in_axes=(0, None))
+
+
+def node_rows(rng, C, N, O, open_frac):
+    """node_off int32 [C, N]: each node open (an offering index) with
+    probability open_frac, else -1."""
+    off = rng.integers(0, O, size=(C, N)).astype(np.int32)
+    return np.where(rng.random((C, N)) < open_frac, off, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("N", NODE_BUCKETS + (1, 33, 1000))
+def test_cost_word_matches_reference_word(N):
+    """cost_word (its plain version here) against the reference's word,
+    bit for bit: one row, C = 8 rows with a price row each and with one
+    shared row (stride 0), rows all closed and all open, and prices whose
+    totals pass 2^24."""
+    rng = np.random.default_rng(1000 + N)
+    C, O = 8, 200
+    scale = 2.0 ** 27 / N
+    prices = (rng.random((C, O)) * scale).astype(np.float32)
+    node_off = node_rows(rng, C, N, O, 0.5)
+    node_off[1] = -1                                  # all closed
+    node_off[2] = rng.integers(0, O, size=N)          # all open
+    cases = [
+        (node_off[0], prices[0], _word(node_off[0], prices[0])),
+        (node_off, prices, _word_rows(node_off, prices)),
+        (node_off, prices[3], _word_shared(node_off, prices[3])),
+    ]
+    for no, price, want in cases:
+        no_t, price_t = torch.from_numpy(no), torch.from_numpy(price)
+        got = cost_word(no_t, price_t)
+        assert got.shape == no_t.shape[:-1]
+        np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+        assert torch.equal(cost_word_reference(no_t, price_t), got)
+    assert bits(cost_word(torch.from_numpy(node_off[1]),
+                          torch.from_numpy(prices[1]))) == 0
+    assert cases[1][2][2] > 2 ** 24
+
+
+def test_cost_word_checks_its_input():
+    no = torch.zeros(64, dtype=torch.int32)
+    price = torch.ones(16)
+    with pytest.raises(ValueError, match="int32"):
+        cost_word(no.long(), price)
+    with pytest.raises(ValueError, match="float32"):
+        cost_word(no, price.double())
+    with pytest.raises(ValueError, match="matching"):
+        cost_word(no, price[None])
+    with pytest.raises(ValueError, match="matching"):
+        cost_word(no.reshape(2, 32), torch.ones(3, 16))
+    assert cost_word(no.reshape(2, 32), torch.ones(2, 16)).tolist() == \
+        [32.0, 32.0]
 
 
 _dot = jax.jit(jnp.dot)

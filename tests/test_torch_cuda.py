@@ -373,6 +373,78 @@ def test_segment_sum_kernel_matches_plain_version(cuda_device, segments):
     assert torch.equal(got, want)
 
 
+def _segment_ids(order: str, I: int, S: int, rng) -> np.ndarray:
+    """Adversarial id orders for the segment-sum kernel."""
+    if order == "one_segment":           # one I-long chain
+        return np.full(I, S - 1, np.int64)
+    if order == "sorted":
+        return np.sort(rng.randint(0, S, size=I))
+    if order == "reversed":
+        return np.sort(rng.randint(0, S, size=I))[::-1].copy()
+    if order == "random":
+        return rng.randint(-1, S + 1, size=I)
+    # the flat program's shape: sorted ids with the dropped sentinel S
+    # interleaved (an item that is no longer active)
+    seg = np.sort(rng.randint(0, S, size=I))
+    seg[rng.rand(I) < 0.6] = S
+    return seg
+
+
+def _segment_check(dev, vals, seg, S):
+    from karpenter_tpu_torch.solver import segment_sum as ss
+
+    v = torch.from_numpy(vals).to(dev)
+    s = torch.from_numpy(seg).to(dev)
+    before = ss.LAUNCHES["segment_sum"]
+    got = ss.segment_sum(v, s, S)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["segment_sum"] == before + 1
+    want = ss.segment_sum_reference(v, s, S)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        float((got - want).abs().max())
+
+
+def _segment_vals(rng, I, cols=4):
+    return (rng.randint(100, 32768, size=(I, cols))
+            * rng.choice([1.0, 1.0001, 0.9999], size=(I, cols))
+            ).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["one_segment", "sorted", "reversed",
+                                   "random", "flat_shape"])
+def test_segment_sum_kernel_id_orders(cuda_device, order):
+    """The one-launch segment sum at I = 32768 on adversarial id orders,
+    S in {1, 32, 33, 4097}, int32 and int64 ids, bit for bit against its
+    plain version."""
+    rng = np.random.RandomState(len(order))
+    I = 32768
+    vals = _segment_vals(rng, I)
+    for S in (1, 32, 33, 4097):
+        seg = _segment_ids(order, I, S, rng)
+        for dtype in (np.int32, np.int64):
+            _segment_check(cuda_device, vals, seg.astype(dtype), S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 4, 5, 8])
+def test_segment_sum_kernel_item_buckets(cuda_device, cols):
+    """Every I in the flat program's ITEM_BUCKETS (and ragged I), random
+    ids over 3073 segments; past the largest bucket the wrapper raises."""
+    from karpenter_tpu_torch.solver.flat import ITEM_BUCKETS
+    from karpenter_tpu_torch.solver.segment_sum import segment_sum
+
+    rng = np.random.RandomState(cols)
+    for I in ITEM_BUCKETS + (1, 31, 1000):
+        vals = _segment_vals(rng, I, cols)
+        seg = rng.randint(-1, 3074, size=I).astype(np.int32)
+        _segment_check(cuda_device, vals, seg, 3073)
+    big = torch.zeros((ITEM_BUCKETS[-1] + 1, cols), device=cuda_device)
+    with pytest.raises(ValueError, match="items"):
+        segment_sum(big, torch.zeros(big.shape[0], dtype=torch.int32,
+                                     device=cuda_device), 8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["flat", "affinity", "stochastic", "pref"])
 def test_route_on_card_matches_cpu(cuda_device, route):
@@ -437,8 +509,10 @@ def test_serving_staging_pinned_rotation(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 8, 64])
 def test_cost_sum_kernel_matches_plain_version(cuda_device, C):
-    """The order-fixed cost sum bit for bit against its plain version at
-    every N in NODE_BUCKETS, ragged lengths and rows near 2^24 totals."""
+    """The order-fixed cost sum of masked price rows (the cost word with
+    node n open on offering n) bit for bit against its plain version at
+    every N in NODE_BUCKETS, ragged lengths and rows near 2^24 totals;
+    one LAUNCHES["cost_sum"] per call."""
     from karpenter_tpu_torch.solver import cost_sum as cs
     from karpenter_tpu_torch.solver.types import NODE_BUCKETS
 
@@ -448,13 +522,45 @@ def test_cost_sum_kernel_matches_plain_version(cuda_device, C):
             prices = (rng.rand(C, N) * scale).astype(np.float32)
             prices[rng.rand(C, N) < rng.uniform(0.3, 0.7, (C, 1))] = 0
             x = torch.from_numpy(prices).to(cuda_device)
+            node = torch.arange(N, dtype=torch.int32, device=cuda_device)
             before = cs.LAUNCHES["cost_sum"]
-            got = cs.cost_sum(x)
+            got = cs.cost_word(node.expand(C, N).contiguous(),
+                               torch.nn.functional.pad(x, (0, 1)))
             torch.cuda.synchronize()
             assert cs.LAUNCHES["cost_sum"] == before + 1
             want = cs.cost_sum_reference(x.cpu())
             assert torch.equal(got.cpu().view(torch.int32),
                                want.view(torch.int32)), (N, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8, 64])
+def test_cost_word_kernel_matches_plain_version(cuda_device, C):
+    """The fused cost word (gather, mask and windowed sum in one launch)
+    bit for bit against its plain version at every N in NODE_BUCKETS,
+    with one price row for every problem (stride 0) and a row each; one
+    LAUNCHES["cost_sum"] per call."""
+    from karpenter_tpu_torch.solver import cost_sum as cs
+    from karpenter_tpu_torch.solver.types import NODE_BUCKETS
+
+    rng = np.random.RandomState(100 + C)
+    O = 3072
+    for N in NODE_BUCKETS + (1, 33, 1000):
+        node = rng.randint(0, O, size=(C, N)).astype(np.int32)
+        node[rng.rand(C, N) < rng.uniform(0.3, 0.7, (C, 1))] = -1
+        prices = (rng.rand(C, O) * 2.0 ** 27 / N).astype(np.float32)
+        no = torch.from_numpy(node).to(cuda_device)
+        for price in (torch.from_numpy(prices[0]).to(cuda_device),
+                      torch.from_numpy(prices).to(cuda_device)):
+            for rows in ((no, price),) if price.dim() == 2 else \
+                    ((no, price), (no[0], price)):
+                before = cs.LAUNCHES["cost_sum"]
+                got = cs.cost_word(*rows)
+                torch.cuda.synchronize()
+                assert cs.LAUNCHES["cost_sum"] == before + 1
+                want = cs.cost_word_reference(*(t.cpu() for t in rows))
+                assert torch.equal(got.cpu().view(torch.int32),
+                                   want.view(torch.int32)), (N, price.dim())
 
 
 @pytest.mark.cuda

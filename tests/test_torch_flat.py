@@ -105,6 +105,30 @@ def test_segment_sum_drops_out_of_range_ids():
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("I,S", [(500, 6), (4096, 129), (2000, 1)])
+def test_segment_sum_without_sentinel_segment(I, S):
+    """The flat program's calls pass S segments where the reference
+    passes S + 1 and slices the sentinel off: with ids at S (the
+    sentinel) and -1 among them, both give the same words."""
+    rng = np.random.RandomState(I + S)
+    vals = (rng.randint(100, 32768, size=(I, 4))
+            * rng.choice([1.0, 1.0001, 0.9999], size=(I, 4))
+            ).astype(np.float32)
+    seg = rng.randint(0, S, size=I).astype(np.int32)
+    stray = rng.rand(I)
+    seg[stray < 0.3] = S
+    seg[stray > 0.95] = -1
+    v, s = torch.from_numpy(vals), torch.from_numpy(seg)
+    got = segment_sum(v, s, S)
+    want = segment_sum(v, s, S + 1)[:S]
+    assert got.shape == (S, 4)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ref = np.asarray(jax_ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg),
+                                         num_segments=S + 1))[:S]
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  ref.view(np.int32))
+
+
 def _templates(jprob, tprob, max_nodes=4096):
     js = JaxSolver(SolverOptions(use_pallas="off", max_nodes=max_nodes))
     ts = TorchSolver(TSolverOptions(max_nodes=max_nodes), device="cpu")

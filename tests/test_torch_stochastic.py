@@ -45,7 +45,7 @@ from karpenter_tpu_torch.solver import (
     validate_plan,
 )
 from karpenter_tpu_torch.solver import encode as t_encode
-from karpenter_tpu_torch.solver.cost_sum import cost_sum
+from karpenter_tpu_torch.solver.cost_sum import cost_sum_reference
 from karpenter_tpu_torch.solver import torch_backend
 from karpenter_tpu_torch.stochastic import encode as t_sto_encode
 from karpenter_tpu_torch.stochastic import kernel as t_kernel
@@ -187,7 +187,7 @@ def test_scan_matches_reference_and_oracle(catalogs, seed):
     price = np.asarray(jprob.catalog.off_price, dtype=np.float32)
     h_prices = np.where(h_off >= 0, price[np.clip(h_off, 0, None)],
                         np.float32(0)).astype(np.float32)
-    want = cost_sum(torch.from_numpy(h_prices)).numpy()
+    want = cost_sum_reference(torch.from_numpy(h_prices)).numpy()
     assert np.float32(cost).view(np.int32) == want.view(np.int32)
 
 

@@ -195,7 +195,9 @@ def test_validate_clean_and_rejects_garbage(windows):
 def test_stacked_plan_is_one_fleet_call_and_one_cost_sum(windows,
                                                          monkeypatch):
     _, tb, _, tmenu = windows
-    calls = {"ffd_scan_fleet": 0, "cost_sum": 0}
+    # the cost word is one cost_word call (one launch counted as
+    # LAUNCHES["cost_sum"] on the card)
+    calls = {"ffd_scan_fleet": 0, "cost_word": 0}
 
     def counted(name, fn):
         def wrapper(*a, **k):
@@ -205,11 +207,11 @@ def test_stacked_plan_is_one_fleet_call_and_one_cost_sum(windows,
 
     monkeypatch.setattr(t_packed, "ffd_scan_fleet",
                         counted("ffd_scan_fleet", t_packed.ffd_scan_fleet))
-    monkeypatch.setattr(t_packed, "cost_sum",
-                        counted("cost_sum", t_packed.cost_sum))
+    monkeypatch.setattr(t_packed, "cost_word",
+                        counted("cost_word", t_packed.cost_word))
     plan = WhatIfPlanner(device="cpu").plan(tb, tmenu)
     assert plan.dispatches == 1
-    assert calls == {"ffd_scan_fleet": 1, "cost_sum": 1}
+    assert calls == {"ffd_scan_fleet": 1, "cost_word": 1}
 
 
 def test_chunks_above_max_k_give_the_one_shot_words(windows):
