@@ -41,9 +41,12 @@ no result line:
    are not multiples of 4, 16 or 128 (int32 and uint8 compat, one
    problem and a fleet of three catalogs), N = 8192, G = 0 and G below
    the row ring's depth, and a rank tie that only division by a small
-   rem makes; then a rank row per group (the soft-preference scan) at the
-   headline shape, N = 8192 at O = 4096 and 5000, and on the pref
-   window's own tensors.  Over all these checks, every instantiation of
+   rem makes; then a rank row per group (the soft-preference scan) at one
+   shape per instantiation that form takes (the headline shape, N = 4096
+   at O = 4096, N = 8192 at O = 4096 and 5000), one problem and a fleet
+   of three, windows shorter than the ring or not a whole number of its
+   slots, and on the pref window's own tensors.  Over all these checks,
+   every instantiation of
    the chain kernel must have run, and the uncapped branch, the capped
    branch and the summed takes (groups that request nothing) of its
    step, counted on the host from the plain version's outputs; with a
@@ -80,10 +83,16 @@ no result line:
    misses): ``ffd_scan_pref`` and ``presence_sum`` launched, the plan
    equal to the CPU solver's and clean, the raw result equal to the
    plain CPU program word for word, ``presence_sum`` bit for bit against
-   its plain version (the window's tensors and seeded ones), the same
-   timings plus the kernel and the pref right-size beside their
-   shared-rank forms, and ``presence_sum`` beside its plain version and
-   ``torch.matmul``; (i) the resident stream
+   its plain version (the window's tensors and seeded ones: ragged O, G
+   not a multiple of 32, a node holding every group, an all-closed node
+   axis, one node, G at its maximum), the same timings plus the kernel
+   beside its shared-rank form in turns (with the window's capped
+   sweeps, the extra time per capped sweep and the chain instantiation)
+   and the pref right-size beside the shared-rank one, and
+   ``presence_sum`` beside its plain version and ``torch.matmul`` in
+   turns, its device time alone, its device kernels per call (at most
+   2, or the run fails) and its bound as the data needs it; (i) the
+   resident stream
    (bench.py's ``run_resident`` churn at 10k x 500), resident on and off
    alternately, every plan equal, each resident solve launching one
    ``ffd_scan``, one ``cost_sum`` and nothing else (counts zeroed
@@ -483,11 +492,11 @@ def new_tally(pref: bool = True) -> dict:
 
 
 def add_to_tally(tally: dict, label: str, meta, compat, alloc, want,
-                 N: int) -> None:
+                 N: int, group_rank: bool = False) -> None:
     for k, v in ffd_kernel.chain_branches(meta, compat, alloc,
                                           *want).items():
         tally["branches"][k] += v
-    variant = ffd_kernel.scan_variant(compat.shape[-1], N)
+    variant = ffd_kernel.scan_variant(compat.shape[-1], N, group_rank)
     tally["variants"].setdefault(variant, []).append(label)
 
 
@@ -508,7 +517,8 @@ def check_scan(dev, label: str, N: int, inputs,
             "unplaced": int(unplaced.sum())}
     if err:
         first_diff(f"ffd_scan {label}", got, want)
-    add_to_tally(tally, label, meta[None], compat[None], alloc, want, N)
+    add_to_tally(tally, label, meta[None], compat[None], alloc, want, N,
+                 group_rank=rank.dim() == 2)
     return err, info
 
 
@@ -570,7 +580,8 @@ def check_fleet_scan(dev, label: str, N: int, meta, compat, alloc, rank,
     err = max_abs_err(got, want)
     if err:
         first_diff(f"ffd_scan_fleet {label}", got, want)
-    add_to_tally(tally, label, meta, compat, alloc, want, N)
+    add_to_tally(tally, label, meta, compat, alloc, want, N,
+                 group_rank=rank.dim() == 3)
     node_off, _, unplaced = (x.cpu().numpy() for x in want)
     return err, {"nodes_open": (node_off >= 0).sum(axis=1).tolist(),
                  "unplaced": unplaced.sum(axis=1).tolist()}
@@ -738,11 +749,27 @@ def group_rank(rank_np: np.ndarray, G: int, seed: int) -> np.ndarray:
     return rank_np[None, :] * (np.float32(1) + np.float32(0.5) * miss)
 
 
+# (O, N) -> the chain instantiation the per-group form takes there: its
+# ring slots hold the group's rank row too where that fits, with the
+# catalog or without it, else the rows or nothing (csrc/ffd_scan.cu)
+PREF_VARIANTS = {(3072, 512): 3, (4096, 4096): 4, (4096, 8192): 1,
+                 (5000, 8192): 0}
+
+
 def phase_pref_kernel_checks(dev, catalog, tally: dict) -> dict:
-    """``ffd_scan`` with a rank row per group against its plain version:
-    the headline shape (and its cap = 1 edge), and N = 8192 at O = 4096
-    and 5000 (the instantiations that read rows or catalog from global
-    memory)."""
+    """``ffd_scan`` with a rank row per group against its plain version,
+    at one shape per instantiation the per-group form takes
+    (``PREF_VARIANTS``: rows, catalog and rank rows staged at the
+    headline shape, with its cap = 1 edge; rows and rank rows at N = 4096
+    and O = 4096; rows only at N = 8192 and O = 4096; neither at N = 8192
+    and O = 5000), each as one problem and as a fleet of three catalogs with
+    [C, G, O] ranks; and windows shorter than the ring (G = 1, 2) or not
+    a whole number of its slots (G = 7, 63), single and fleet."""
+    for (O, N), v in PREF_VARIANTS.items():
+        got = ffd_kernel.scan_variant(O, N, group_rank=True)
+        if got != ffd_kernel.VARIANTS[v]:
+            raise AssertionError(f"per-group form at O={O} N={N}: '{got}', "
+                                 f"want '{ffd_kernel.VARIANTS[v]}'")
     O_h = 3072
     alloc_h = np.zeros((O_h, 4), np.int32)
     alloc_h[:catalog.num_offerings] = catalog.offering_alloc()
@@ -754,9 +781,13 @@ def phase_pref_kernel_checks(dev, catalog, tally: dict) -> dict:
             cases.append((f"pref G=64 O=3072 N=512 {case}".strip(), 512,
                           scan_inputs(800 + seed, 64, O_h, alloc_h, rank_h,
                                       case=case)))
-    for O in (4096, 5000):
-        cases.append((f"pref N=8192 O={O} G=64", 8192,
-                      scan_inputs(820 + O, 64, O)))
+    for O, N in PREF_VARIANTS:
+        if O != O_h:
+            cases.append((f"pref N={N} O={O} G=64", N,
+                          scan_inputs(820 + O + N, 64, O)))
+    for G in (1, 2, 7, 63):
+        cases.append((f"pref short G={G} O=3072 N=512", 512,
+                      scan_inputs(840 + G, G, O_h, alloc_h, rank_h)))
     worst = 0
     for k, (label, N, (meta, compat, alloc, rank)) in enumerate(cases):
         err, info = check_scan(dev, label, N, (
@@ -764,8 +795,23 @@ def phase_pref_kernel_checks(dev, catalog, tally: dict) -> dict:
             tally["pref"])
         worst = max(worst, err)
         say(f"kernel check ffd_scan, a rank row per group, {label}: exact "
-            f"({info})")
-    return {"max_abs_err": worst, "cases": len(cases)}
+            f"({info}, '{ffd_kernel.scan_variant(compat.shape[-1], N, True)}"
+            f"')")
+    fleets = [(f"pref fleet C=3 G=64 O={O} N={N}", 64, O, N)
+              for O, N in PREF_VARIANTS]
+    fleets += [(f"pref fleet short C=3 G={G} O=3072 N=512", G, O_h, 512)
+               for G in (1, 7)]
+    for k, (label, G, O, N) in enumerate(fleets):
+        meta, compat, alloc, rank = stacked_scan_inputs(
+            range(860 + 3 * k, 863 + 3 * k), G, O)
+        ranks = np.stack([group_rank(r, G, 50 + 3 * k + c)
+                          for c, r in enumerate(rank)])
+        err, info = check_fleet_scan(dev, label, N, meta, compat, alloc,
+                                     ranks, tally["pref"])
+        worst = max(worst, err)
+        say(f"kernel check ffd_scan_fleet, a rank row per group, {label}: "
+            f"exact ({info})")
+    return {"max_abs_err": worst, "cases": len(cases) + len(fleets)}
 
 
 def require_design_coverage(tally: dict) -> dict:
@@ -774,9 +820,11 @@ def require_design_coverage(tally: dict) -> dict:
     step; with a rank row per group, every instantiation and the
     uncapped and capped branches."""
     out = {}
-    for form, t, need in (
-            ("shared rank", tally, ("uncapped", "capped", "summed_takes")),
-            ("rank row per group", tally["pref"], ("uncapped", "capped"))):
+    for form, t, need, variants in (
+            ("shared rank", tally, ("uncapped", "capped", "summed_takes"),
+             ffd_kernel.SHARED_ROW_VARIANTS),
+            ("rank row per group", tally["pref"], ("uncapped", "capped"),
+             ffd_kernel.GROUP_RANK_VARIANTS)):
         b, v = t["branches"], t["variants"]
         say(f"chain branches over the kernel checks, {form} (host count "
             f"from the plain outputs): {b}")
@@ -786,7 +834,7 @@ def require_design_coverage(tally: dict) -> dict:
         if min(b[k] for k in need) <= 0:
             raise AssertionError(f"a branch of the chain never ran ({form}):"
                                  f" {b}")
-        missing = set(ffd_kernel.VARIANTS) - set(v)
+        missing = set(variants) - set(v)
         if missing:
             raise AssertionError(f"instantiations never checked ({form}): "
                                  f"{missing}")
@@ -1244,8 +1292,7 @@ def segment_sum_checks(calls, card: str) -> dict:
             f"[{r['shape'][0]}, {r['shape'][1]}] -> {r['shape'][2]}, "
             f"{r['kept_rows']} rows kept, longest segment "
             f"{r['longest_segment']}: {r['ms']:.4f} / {r['library_ms']:.4f}"
-            f" / " + ("not measured" if r["device_ms"] is None
-                      else f"{r['device_ms']:.4f}") + " ms" for r in rows))
+            f" / {r['device_ms']:.4f} ms" for r in rows))
     at = max(range(len(calls)),
              key=lambda i: (calls[i][0].shape[0], calls[i][2]))
     v, s, S = calls[at]
@@ -1268,15 +1315,13 @@ def segment_sum_checks(calls, card: str) -> dict:
     t_ops = kept * v.shape[1] / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    dev_txt = "not measured (no profiler events)" if device_ms is None \
-        else f"{device_ms:.4f} ms"
     say(f"kernel check segment_sum: {len(calls)} calls of the flat program, "
         f"exact against the plain version; timing [{card}]: "
         f"[{v.shape[0]}, {v.shape[1]}] -> {S} segments ({kept} rows kept, "
         f"longest segment {big['longest_segment']}): wrapper {ms:.4f} ms "
-        f"back to back, kernel device time alone {dev_txt}, {per_call} "
-        f"device kernels per call, plain version {plain_ms:.4f} ms, "
-        f"index_add_ {lib_ms:.4f} ms (wrapper / index_add_ "
+        f"back to back, kernel device time alone {device_ms:.4f} ms, "
+        f"{per_call} device kernels per call, plain version "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms (wrapper / index_add_ "
         f"x{ms / lib_ms:.3f}), bound {bound_ms:.6f} ms ({bound_by}: "
         f"{nbytes} bytes)")
     return {"calls": len(calls), "max_abs_err": err, "ms": ms,
@@ -1480,14 +1525,24 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
         f"kernel check on the window's tensors exact ({info}); cold solve "
         f"{cold_s * 1e3:.3f} ms, CPU solve {cpu_s * 1e3:.3f} ms")
 
-    # the kernel with its rank rows beside the same scan on the shared row
+    # the kernel with its rank rows beside the same scan on the shared
+    # row, in turns; the capped sweeps of each (the steps that read the
+    # rank row on the chain) from the plain outputs
     m3, c3 = meta[None].contiguous(), compat_i[None].contiguous()
-    node_off, assign, _ = (x[0] for x in ffd_kernel.ffd_scan(
-        m3, c3, off_alloc, rank_g, N))
-    ms = cuda_ms(lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc, rank_g, N),
-                 50)
-    shared_ms = cuda_ms(lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc,
-                                                    off_rank, N), 50)
+    out_pref = ffd_kernel.ffd_scan(m3, c3, off_alloc, rank_g, N)
+    out_shared = ffd_kernel.ffd_scan(m3, c3, off_alloc, off_rank, N)
+    node_off, assign, _ = (x[0] for x in out_pref)
+    branches = ffd_kernel.chain_branches(m3, c3, off_alloc, *out_pref)
+    shared_branches = ffd_kernel.chain_branches(m3, c3, off_alloc,
+                                                *out_shared)
+    variant = ffd_kernel.scan_variant(O, N, group_rank=True)
+    turns = paired_ms({
+        "pref": lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc, rank_g, N),
+        "shared": lambda: ffd_kernel.ffd_scan(m3, c3, off_alloc, off_rank,
+                                              N)}, 20)
+    ms, shared_ms = turns["pref"], turns["shared"]
+    capped = branches["capped"]
+    extra_us = (ms - shared_ms) * 1e3 / capped if capped else None
     plain_ms = cuda_ms(lambda: ffd_kernel.ffd_scan_reference(
         m3, c3, off_alloc, rank_g, N), 3, warm=1)
     bound_ms, bound_by, nbytes, ops = scan_bound_ms(
@@ -1501,10 +1556,18 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
         off_price), 20)
     rank_ms = cuda_ms(lambda: tp.pref_rank_rows(pref_rows, pref_idx,
                                                 off_rank, lam), 50)
+    extra_txt = "no capped step" if extra_us is None \
+        else f"{extra_us:.4f} us per capped step"
+    say(f"ffd_scan_pref on the pref window: chain instantiation "
+        f"'{variant}'; chain branches (host count from the outputs) "
+        f"{branches}, {capped} capped sweeps; the shared-row scan's "
+        f"{shared_branches}")
     say(f"timing [{card}]: ffd_scan_pref on the pref window G={G} O={O} "
         f"N={N}: kernel {ms:.4f} ms ({ms / G * 1e3:.4f} us per group step), "
         f"the same scan on the shared rank row {shared_ms:.4f} ms (x"
-        f"{ms / shared_ms:.3f}), plain PyTorch version {plain_ms:.4f} ms, "
+        f"{ms / shared_ms:.4f}, medians of 5 rounds of 20 in turns; "
+        f"{extra_txt} over the shared row), plain PyTorch version "
+        f"{plain_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {ops} scalar "
         f"ops); forming rank_g {rank_ms:.4f} ms; right-size + cost with "
         f"preferences {rs_pref_ms:.4f} ms against {rs_ms:.4f} ms without; "
@@ -1521,6 +1584,12 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
              fractional_groups_per_node=shared)
     return {"route": t, "max_abs_err": err,
             "ffd_scan_pref": {"ms": ms, "shared_rank_ms": shared_ms,
+                              "ratio_to_shared": ms / shared_ms,
+                              "capped_steps": capped,
+                              "branches": branches,
+                              "shared_branches": shared_branches,
+                              "us_per_capped_step": extra_us,
+                              "variant": variant,
                               "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "bytes": nbytes,
                               "ops": ops, "library_ms": None,
@@ -1530,49 +1599,102 @@ def phase_pref(dev, card: str, tally: dict) -> dict:
             "rank_rows_ms": rank_ms}
 
 
+def presence_cases(dev, present, miss) -> list:
+    """(label, present, miss): the pref window's own tensors, then seeded
+    ones: fractional misses, 2% presence, ragged O, G not a multiple of
+    32, a node holding every group, an all-closed node axis, one node,
+    and G at the kernel's maximum (with a node holding all of them)."""
+    cases = [("pref window", present, miss)]
+    top = presence_sum._bound()[1]
+    for G, N, O, edge in ((512, 512, 3072, ""), (64, 64, 129, ""),
+                          (341, 384, 1, ""), (77, 200, 3071, ""),
+                          (341, 64, 3072, "full node"),
+                          (512, 512, 3072, "all closed"),
+                          (45, 1, 256, ""), (top, 40, 132, "full node")):
+        rng = np.random.RandomState(G + N + O)
+        p = (rng.rand(G, N) < 0.02).astype(np.float32)
+        if edge == "full node":
+            p[:, N // 2] = 1
+        if edge == "all closed":
+            p[:] = 0
+        m = rng.choice(np.float32([0, 1 / 3, 2 / 3, 1, 0.1]), size=(G, O))
+        cases.append((f"seeded G={G} N={N} O={O} {edge}".strip(),
+                      torch.from_numpy(p).to(dev),
+                      torch.from_numpy(m).to(dev)))
+    return cases
+
+
+def presence_bound_ms(present, miss) -> tuple[float, str, int, int, int]:
+    """The presence sum's least time on the card for this call's data:
+    the flags read once, the miss rows of the groups present on some
+    node read once, the [N, O] output written once; against the adds
+    (present pairs x O) at the float32 scalar rate.  Also returns the
+    earlier count of whole tensors (every miss row read)."""
+    G, N = present.shape
+    O = miss.shape[1]
+    on = present != 0
+    rows = int(on.any(1).sum())
+    nbytes = 4 * (G * N + rows * O + N * O)
+    adds = int(on.sum()) * O
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = adds / SCALAR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, adds, 4 * (G * N + G * O + N * O))
+
+
 def presence_sum_checks(dev, card: str, present, miss) -> dict:
     """``presence_sum`` against its plain version (one ordered
-    ``addcmul_`` per group) bit for bit on the pref window's own tensors
-    and on seeded ones (ragged O, a node axis of 64, fractional misses);
-    its time on the window beside the plain version, ``torch.matmul``
-    (the same sums in another order) and the bound."""
-    cases = [("pref window", present, miss)]
-    for G, N, O in ((512, 512, 3072), (64, 64, 129), (341, 384, 1)):
-        rng = np.random.RandomState(G + N + O)
-        p = torch.from_numpy((rng.rand(G, N) < 0.02).astype(np.float32))
-        m = torch.from_numpy(rng.choice(
-            np.float32([0, 1 / 3, 2 / 3, 1, 0.1]), size=(G, O)))
-        cases.append((f"seeded G={G} N={N} O={O}", p.to(dev), m.to(dev)))
-    err = 0.0
+    ``addcmul_`` per group) bit for bit on every ``presence_cases`` case;
+    on the pref window, in turns, its time beside ``torch.matmul`` (the
+    same sums in another order), the plain version, the device time
+    alone, the device kernels per call (at most 2) and the bound as the
+    data needs it."""
+    cases = presence_cases(dev, present, miss)
     for label, p, m in cases:
         got = presence_sum.presence_sum(p, m)
         want = presence_sum.presence_sum_reference(p, m)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"presence_sum differs from its plain "
                                  f"version on {label}: max |diff| "
                                  f"{float((got - want).abs().max())}")
-    ms = cuda_ms(lambda: presence_sum.presence_sum(present, miss), 50)
+    call = lambda: presence_sum.presence_sum(present, miss)  # noqa: E731
+    turns = paired_ms({"presence_sum": call,
+                       "torch.matmul": lambda: present.t() @ miss}, 50)
+    ms, lib_ms = turns["presence_sum"], turns["torch.matmul"]
+    device_ms = kernel_device_ms(call, "presence_sum_kernel")
+    per_call = kernels_per_call(call, "presence_sum_call",
+                                presence_sum.LAUNCHES, "presence_sum")
+    if per_call > 2:
+        raise AssertionError(f"presence_sum: {per_call} device kernels per "
+                             f"call, more than 2")
     plain_ms = cuda_ms(lambda: presence_sum.presence_sum_reference(
         present, miss), 5, warm=1)
-    lib_ms = cuda_ms(lambda: present.t() @ miss, 50)
+    bound_ms, bound_by, nbytes, adds, whole = presence_bound_ms(present,
+                                                                miss)
     G, N = present.shape
     O = miss.shape[1]
-    nbytes = 4 * (G * N + G * O + N * O)
-    adds = int(present.sum()) * O             # this run's present groups
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = adds / SCALAR_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    counts = (present != 0).sum(0)
     say(f"kernel check presence_sum: {len(cases)} cases exact against the "
-        f"plain version; timing [{card}]: the pref window's [G={G}, N={N}] "
-        f"x [G, O={O}]: kernel {ms:.4f} ms, plain version ({G} ordered "
-        f"addcmul_) {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {adds} adds)")
-    return {"max_abs_err": err, "cases": len(cases), "ms": ms,
+        f"plain version ({', '.join(c[0] for c in cases)})")
+    say(f"timing [{card}]: presence_sum on the pref window's [G={G}, N={N}] "
+        f"x [G, O={O}] ({int(counts.sum())} present pairs, "
+        f"{int((counts > 0).sum())} nodes holding a group, at most "
+        f"{int(counts.max())} on one): kernel {ms:.4f} ms back to back "
+        f"(medians of 5 rounds of 50 in turns), device time alone "
+        f"{device_ms:.4f} ms, {per_call} device kernels per call; "
+        f"torch.matmul {lib_ms:.4f} ms "
+        f"(presence_sum / torch.matmul x{ms / lib_ms:.4f}); plain version "
+        f"({G} ordered addcmul_) {plain_ms:.4f} ms; bound {bound_ms:.6f} ms "
+        f"({bound_by}: {nbytes} bytes as the data needs them, {whole} as "
+        f"whole tensors, {adds} adds)")
+    return {"max_abs_err": 0.0, "cases": len(cases), "ms": ms,
+            "device_ms": device_ms, "kernels_per_call": per_call,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": adds}
+            "whole_tensor_bytes": whole, "ops": adds,
+            "present_pairs": int(counts.sum()),
+            "max_groups_per_node": int(counts.max())}
 
 
 def churn_stream(cfg: dict):
@@ -1896,24 +2018,60 @@ def phase_cost_sum_checks(dev) -> dict:
     return {"max_abs_err": 0.0, "cases": cases, "cost_word_cases": words}
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 50) -> float | None:
-    """Mean device time per call of ``fn`` of the CUDA kernels whose name
-    holds ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls;
-    None when the trace holds none.  Back-to-back CUDA events time a
-    tiny kernel's host issue instead; this reads the kernel alone."""
+def kernel_device_ms(fn, kernel: str, reps: int = 50,
+                     tries: int = 5) -> float:
+    """Mean device time of the one CUDA kernel (name holding ``kernel``)
+    that each call of ``fn`` launches, from a ``torch.profiler`` trace of
+    ``reps`` calls, each a range on the host, after ``reps`` calls
+    outside any range (the trace drops the device records of the first
+    launches it sees).  A device record counts only when its launch
+    record lies inside a call's range (joined by correlation id, as
+    ``profile_spans`` does; a record the trace repeats counts once), and
+    every call must have exactly one: a trace that falls short is taken
+    again, up to ``tries`` times; then the call raises, naming the calls
+    without a record.  Back-to-back CUDA events time a tiny kernel's
+    host issue instead; this reads the kernel alone."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    tag = f"{kernel}_call"
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    why = ""
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(us) / reps / 1e3 if us else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            for _ in range(reps):
+                with record_function(tag):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        ranges = sorted((e.time_range.start, e.time_range.end)
+                        for e in events
+                        if e.name == tag and e.device_type == DeviceType.CPU)
+        call_of = {}                    # launch correlation id -> call
+        for e in events:
+            if e.device_type == DeviceType.CPU and _is_launch(e):
+                for i, (lo, hi) in enumerate(ranges):
+                    if lo <= e.time_range.start <= hi:
+                        call_of[e.id] = i
+        kernels = {e.id: e for e in events
+                   if e.device_type == DeviceType.CUDA and kernel in e.name
+                   and e.id in call_of}
+        calls = sorted(call_of[i] for i in kernels)
+        if len(ranges) == reps and calls == list(range(reps)):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in kernels.values()) / reps / 1e3
+        more = sorted({c for c in calls if calls.count(c) > 1})
+        why = (f"{len(ranges)} call ranges; {len(kernels)} {kernel} records "
+               f"joined to a launch inside them; calls without one: "
+               f"{sorted(set(range(len(ranges))) - set(calls))}; calls "
+               f"with more: {more}")
+    raise AssertionError(f"{kernel}: device time not read from "
+                         f"torch.profiler in {tries} traces of {reps} "
+                         f"calls: {why}")
 
 
 def cost_word_bound_ms(node_off: torch.Tensor, off_price: torch.Tensor
@@ -1979,20 +2137,18 @@ def cost_sum_timing(label: str, node_off: torch.Tensor,
         node_off, off_price), 20)
     bound_ms, bound_by, nbytes, adds = cost_word_bound_ms(node_off,
                                                           off_price)
-    dev_txt = "not measured (no profiler events)" if device_ms is None \
-        else f"{device_ms:.4f} ms"
     say(f"timing [{card}]: cost word on {label} [C={C}, N={N}, O="
         f"{off_price.shape[-1]}, {'shared' if off_price.dim() == 1 else 'a'}"
         f" price row{'' if off_price.dim() == 1 else ' per problem'}]: "
-        f"cost_word {ms:.4f} ms back to back, device time alone {dev_txt}, "
-        f"{per_call} device kernels per call; the earlier chain (clamp, "
-        f"gather, where, one sum launch) {chain_ms:.4f} ms, "
-        f"{chain_per_call} device kernels per call; plain version "
-        f"{plain_ms:.4f} ms; torch.sum on the premasked row {lib_ms:.4f} ms "
-        f"(cost_word / torch.sum x{ms / lib_ms:.3f}); bound "
-        f"{bound_ms:.7f} ms ({bound_by}: {nbytes} bytes, {adds} adds); "
-        f"bit-exact against the plain version and the plain sum of the "
-        f"masked row")
+        f"cost_word {ms:.4f} ms back to back, device time alone "
+        f"{device_ms:.4f} ms, {per_call} device kernels per call; the "
+        f"earlier chain (clamp, gather, where, one sum launch) "
+        f"{chain_ms:.4f} ms, {chain_per_call} device kernels per call; "
+        f"plain version {plain_ms:.4f} ms; torch.sum on the premasked "
+        f"row {lib_ms:.4f} ms (cost_word / torch.sum "
+        f"x{ms / lib_ms:.3f}); bound {bound_ms:.7f} ms ({bound_by}: "
+        f"{nbytes} bytes, {adds} adds); bit-exact against the plain "
+        f"version and the plain sum of the masked row")
     return {"ms": ms, "device_ms": device_ms, "kernels_per_call": per_call,
             "chain_ms": chain_ms, "chain_kernels_per_call": chain_per_call,
             "plain_ms": plain_ms, "library_ms": lib_ms,

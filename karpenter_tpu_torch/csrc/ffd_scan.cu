@@ -57,21 +57,43 @@
 //
 // Soft preferences (the reference's solve_core pref scan) rank each group
 // by its own row, rank_g = rank * (1 + lambda * miss_g): rank then has a
-// group stride beside its problem stride.  The prologue reads the group's
-// row; the chain reads it only in the capped sweep, from global memory
-// (L2) instead of the shared-memory copy of the one shared row.  Group
-// stride 0 is the shared row.  The two forms are separate instantiations
-// (kGroupRank), so the shared-row path compiles to the code it had
-// before the group stride: a uniform run-time branch measured 14% slower
-// there (tools/torch_scan_ab.py).
+// group stride beside its problem stride (group stride 0 is the shared
+// row).  The prologue reads the group's row.  The chain reads it only in
+// the capped sweep, and a capped sweep is a chain of dependent argmin
+// folds: read from L2 there, each thread's O / T offerings cost as many
+// L2 round trips on the chain (~1.25 us a capped step at the pref window,
+// G = 512, O = 3072, N = 512, on an H100 80GB HBM3 at 700 W; chip_smoke.py
+// times the two forms in turns).  So where shared memory holds it, the
+// group's row rides the ring (kCatRowsRank, kRowsRank): each ring slot
+// holds the group's rank row behind its prologue row, brought by a
+// second TMA bulk copy that completes on the slot's mbarrier (its bytes
+// added to the expected count), kAhead steps early, and the capped sweep
+// reads it from shared memory as the shared-row form reads s_rank.  The
+// row must be 16-byte aligned with a whole number of 16-byte words (O %
+// 4 == 0, checked by the launcher).  Where the ring cannot hold it, the
+// rows stay staged if they fit (kRows) and the sweep reads the row from
+// L2, one load per offering: at N = 8192 and O = 4096 that took 0.83x
+// the time of reading rows and rank row from L2 with a batch of four
+// loads in flight per thread (tools/torch_scan_ab.py).  The two forms
+// are separate instantiations (kGroupRank), so the shared-row path
+// compiles to the code it had before the group stride: a uniform
+// run-time branch measured 14% slower there (tools/torch_scan_ab.py).
 //
-// Shared memory decides the instantiation, from the shapes alone
-// (ffd_scan_variant): node state is 20 B per slot, a row is
-// 4 x (round_up(O, 4) + 16) bytes, the catalog 20 B per offering, and a
-// block has 227 KB with its static arrays.  kCatRows stages rows and
-// catalog (the headline and every shape up to N = 4096 at O = 4096),
-// kRows stages rows only (N = 8192 at O = 4096), kGlobal reads both from
-// global memory, through L2 (O above 4100 at N = 8192).
+// Shared memory decides the instantiation, from the shapes and the form
+// (ffd_scan_variant): node state is 20 B per slot, a ring slot is a row
+// of 4 x (round_up(O, 4) + 16) bytes (plus 4 x round_up(O, 4) for the
+// group's rank row in kCatRowsRank and kRowsRank), the catalog 20 B per
+// offering (16 B in the per-group form, which stages no shared rank),
+// and a block has 227 KB with its static arrays.  kCatRows stages rows
+// and catalog, kRows rows only, kGlobal reads both from global memory,
+// through L2; kCatRowsRank and kRowsRank (per-group form only) add the
+// groups' rank rows to kCatRows and kRows.  Shared row: kCatRows up to
+// N = 4096 at O = 4096, kRows at N = 8192 and O = 4096, kGlobal above O
+// = 4100 at N = 8192.  A rank row per group, in the order kCatRowsRank,
+// kRowsRank, kRows, kGlobal: kCatRowsRank at the pref window (O = 3072,
+// N = 512) and up to N = 1024 at O = 4096, kRowsRank at N = 2048-4096
+// and O = 4096 (0.98x the time of staging the catalog instead there),
+// kRows at N = 8192 and O = 4096, kGlobal at N = 8192 and O = 5000.
 //
 // Arithmetic mirrors the reference's int32 semantics: sums and
 // differences wrap (computed in uint32), divisions by a request are
@@ -108,7 +130,10 @@ enum {
   kTMag = 9, kTShift = 13
 };
 
-enum Variant { kGlobal = 0, kRows = 1, kCatRows = 2 };
+enum Variant {
+  kGlobal = 0, kRows = 1, kCatRows = 2,
+  kCatRowsRank = 3, kRowsRank = 4       // per-group form only
+};
 
 __host__ __device__ constexpr int round_up4(int x) { return (x + 3) & ~3; }
 
@@ -360,6 +385,32 @@ __device__ __forceinline__ void load_row(int* dst, const int* src,
       : "memory");
 }
 
+// The per-group form's slot: the prologue row as above and, behind it,
+// the group's rank row (rank_bytes, a multiple of 16, from a 16-byte
+// aligned address), both completing on the slot's one mbarrier.
+__device__ __forceinline__ void load_row_rank(int* dst, const int* src,
+                                              unsigned bytes,
+                                              float* rank_dst,
+                                              const float* rank_src,
+                                              unsigned rank_bytes,
+                                              unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      :: "r"(smem_addr(bar)), "r"(bytes + rank_bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(rank_dst)), "l"(rank_src), "r"(rank_bytes),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Wait until the mbarrier's phase with this parity has completed: the
 // row is then visible to the waiting thread.
 __device__ __forceinline__ void wait_row(unsigned long long* bar,
@@ -389,10 +440,12 @@ ffd_chain_kernel(const int* __restrict__ rows,
                  int* __restrict__ assign, int* __restrict__ unplaced, int G,
                  int O, int N, int fit_big) {
   constexpr bool kRowsSmem = kVariant != kGlobal;
-  constexpr bool kCatSmem = kVariant == kCatRows;
-  // one rank row per group: the capped sweep reads the group's row from
-  // global memory, and s_rank is not staged
+  constexpr bool kCatSmem = kVariant == kCatRows || kVariant == kCatRowsRank;
+  // one rank row per group: s_rank is not staged; the group's row rides
+  // its ring slot in kCatRowsRank, else it is read from L2
   constexpr bool kRankSmem = kCatSmem && !kGroupRank;
+  constexpr bool kRankRing = kVariant == kCatRowsRank || kVariant == kRowsRank;
+  static_assert(!kRankRing || kGroupRank, "the ring holds per-group rows");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned s_scan[2][kSlots][32];  // chunk totals, by parity
   __shared__ unsigned s_odd[2][32];           // warp "a fit may wrap"
@@ -402,12 +455,15 @@ ffd_chain_kernel(const int* __restrict__ rows,
 
   const int RS = row_words(O);
   const int OR = round_up4(O);
-  // [ring kStages x RS][alloc int4 O][rank f32 OR][resid int4 N][node_off N]
+  // a ring slot: the prologue row, then (kRankRing) the group's rank row
+  const int SS = kRankRing ? RS + OR : RS;
+  // [ring kStages x SS][alloc int4 O][rank f32 OR, shared row only]
+  // [resid int4 N][node_off N]
   int* ring = reinterpret_cast<int*>(smem);
-  unsigned char* p = smem + (kRowsSmem ? kStages * RS * 4 : 0);
+  unsigned char* p = smem + (kRowsSmem ? kStages * SS * 4 : 0);
   int4* s_alloc = reinterpret_cast<int4*>(p);
   float* s_rank = reinterpret_cast<float*>(p + 16 * static_cast<size_t>(O));
-  if (kCatSmem) p += 16 * static_cast<size_t>(O) + 4 * OR;
+  if (kCatSmem) p += 16 * static_cast<size_t>(O) + (kRankSmem ? 4 * OR : 0);
   int4* s_res = reinterpret_cast<int4*>(p);
   int* s_off = reinterpret_cast<int*>(p + 16 * static_cast<size_t>(N));
 
@@ -434,6 +490,15 @@ ffd_chain_kernel(const int* __restrict__ rows,
   // set up before the wait for its rows.  Row r goes to slot r % kStages;
   // the slot's mbarrier completes phase r / kStages when it lands.
   const unsigned row_bytes = static_cast<unsigned>(RS) * 4u;
+  const unsigned rank_bytes = static_cast<unsigned>(O) * 4u;
+  // kRankRing: row r and group r's rank row into slot r % kStages
+  auto load_rank_slot = [&](int r) {
+    int* slot = ring + (r % kStages) * SS;
+    load_row_rank(slot, crows + static_cast<long long>(r) * RS, row_bytes,
+                  reinterpret_cast<float*>(slot + RS),
+                  g_rank + static_cast<long long>(r) * rank_gstride,
+                  rank_bytes, &s_full[r % kStages]);
+  };
   if (kCatSmem) {
     for (int o = tid; o < O; o += T) {
       cp_async16(s_alloc + o, g_alloc + o);
@@ -456,15 +521,19 @@ ffd_chain_kernel(const int* __restrict__ rows,
   }
   wait_primary();
   if (kRowsSmem && steward) {
-    for (int r = 0; r < kAhead && r < G; ++r)
-      load_row(ring + r * RS, crows + r * RS, row_bytes, &s_full[r]);
+    for (int r = 0; r < kAhead && r < G; ++r) {
+      if constexpr (kRankRing)
+        load_rank_slot(r);
+      else
+        load_row(ring + r * RS, crows + r * RS, row_bytes, &s_full[r]);
+    }
   }
   if (kCatSmem) cp_async_wait_all();
   __syncthreads();
 
   int ptr = 0;                              // open slots (uniform)
   for (int g = 0; g < G; ++g) {
-    const int* row = kRowsSmem ? ring + (g % kStages) * RS
+    const int* row = kRowsSmem ? ring + (g % kStages) * SS
                                : crows + static_cast<long long>(g) * RS;
     if (kRowsSmem) wait_row(&s_full[g % kStages], (g / kStages) & 1);
     // the tail as four 16-byte words: (best0, bf0, maxfe, count),
@@ -524,11 +593,15 @@ ffd_chain_kernel(const int* __restrict__ rows,
     if (lane == 0) s_odd[g & 1][warp] = warp_odd;
     __syncthreads();
     if (kRowsSmem && steward && g + kAhead < G) {
-      // the slot of row g + kAhead held row g - 1, read before the barrier
+      // the slot of row g + kAhead held row g - 1 (and its rank row),
+      // read before the barrier
       const int r = g + kAhead;
-      load_row(ring + (r % kStages) * RS,
-               crows + static_cast<long long>(r) * RS, row_bytes,
-               &s_full[r % kStages]);
+      if constexpr (kRankRing)
+        load_rank_slot(r);
+      else
+        load_row(ring + (r % kStages) * RS,
+                 crows + static_cast<long long>(r) * RS, row_bytes,
+                 &s_full[r % kStages]);
     }
     // every warp reads the chunk totals of the rounds with open slots and
     // takes its exclusive prefix and the total with redux.sync
@@ -595,11 +668,19 @@ ffd_chain_kernel(const int* __restrict__ rows,
         bf = t0.y;
       } else {
         unsigned long long key = kNoArg;
-        const float* __restrict__ rank_row = kGroupRank
-            ? g_rank + static_cast<long long>(g) * rank_gstride : g_rank;
-        for (int o = tid; o < O; o += T) {
-          const float r = kRankSmem ? s_rank[o] : __ldg(rank_row + o);
-          key = candidate(key, r, min(row[o] & 0x7fffffff, rem), o);
+        if constexpr (kRankRing) {
+          // the group's row, staged in its ring slot behind the row
+          const float* rank_s = reinterpret_cast<const float*>(row + RS);
+          for (int o = tid; o < O; o += T)
+            key = candidate(key, rank_s[o], min(row[o] & 0x7fffffff, rem),
+                            o);
+        } else {
+          const float* __restrict__ rank_row = kGroupRank
+              ? g_rank + static_cast<long long>(g) * rank_gstride : g_rank;
+          for (int o = tid; o < O; o += T) {
+            const float r = kRankSmem ? s_rank[o] : __ldg(rank_row + o);
+            key = candidate(key, r, min(row[o] & 0x7fffffff, rem), o);
+          }
         }
         key = warp_min_key(key);
         if (lane == 0) s_arg[warp] = key;
@@ -680,13 +761,18 @@ int chain_threads(int N) {
   return t < kMinThreads ? kMinThreads : t;
 }
 
-// Dynamic shared memory of the chain: node state, the ring, the catalog.
-size_t chain_smem(int variant, int O, int N) {
+// Dynamic shared memory of the chain: node state, the ring (a slot holds
+// the group's rank row too in kCatRowsRank and kRowsRank), the catalog
+// (with the shared rank row in the shared-row form).
+size_t chain_smem(int variant, int O, int N, bool group_rank) {
   size_t s = static_cast<size_t>(N) * 5 * sizeof(int);
+  const size_t rank_words = static_cast<size_t>(round_up4(O));
+  const bool ring = variant == kCatRowsRank || variant == kRowsRank;
   if (variant != kGlobal)
-    s += static_cast<size_t>(kStages) * row_words(O) * sizeof(int);
-  if (variant == kCatRows)
-    s += 16 * static_cast<size_t>(O) + 4 * static_cast<size_t>(round_up4(O));
+    s += static_cast<size_t>(kStages)
+        * (row_words(O) + (ring ? rank_words : 0)) * sizeof(int);
+  if (variant == kCatRows || variant == kCatRowsRank)
+    s += 16 * static_cast<size_t>(O) + (group_rank ? 0 : 4 * rank_words);
   return s;
 }
 
@@ -697,10 +783,15 @@ size_t chain_static_smem(int N) {
       + 8 * (32 + kStages);
 }
 
-int choose_variant(int O, int N) {
+int choose_variant(int O, int N, bool group_rank) {
   const size_t room = kSmemLimit - chain_static_smem(N);
-  if (chain_smem(kCatRows, O, N) <= room) return kCatRows;
-  if (chain_smem(kRows, O, N) <= room) return kRows;
+  if (group_rank) {
+    for (const int v : {kCatRowsRank, kRowsRank, kRows})
+      if (chain_smem(v, O, N, true) <= room) return v;
+    return kGlobal;
+  }
+  if (chain_smem(kCatRows, O, N, false) <= room) return kCatRows;
+  if (chain_smem(kRows, O, N, false) <= room) return kRows;
   return kGlobal;
 }
 
@@ -709,7 +800,7 @@ int choose_variant(int O, int N) {
 // set once per (instantiation, device) to the largest size asked for.
 std::mutex g_attr_mutex;
 // [variant][log2 slots][group rank][device]
-int g_attr_bytes[3][4][2][kMaxDevices];
+int g_attr_bytes[5][4][2][kMaxDevices];
 
 template <int kVariant, int kSlots, bool kGroupRank>
 cudaError_t launch_chain(const int* rows, const int* alloc,
@@ -719,7 +810,7 @@ cudaError_t launch_chain(const int* rows, const int* alloc,
                          int* unplaced, int C, int G, int O, int N,
                          int fit_big, int device, cudaStream_t stream) {
   const auto kernel = ffd_chain_kernel<kVariant, kSlots, kGroupRank>;
-  const size_t smem = chain_smem(kVariant, O, N);
+  const size_t smem = chain_smem(kVariant, O, N, kGroupRank);
   {
     std::lock_guard<std::mutex> lock(g_attr_mutex);
     int& have =
@@ -755,13 +846,25 @@ cudaError_t launch_chain_rank(const int* rows, const int* alloc,
                               int* node_off, int* assign, int* unplaced,
                               int C, int G, int O, int N, int fit_big,
                               int device, cudaStream_t stream) {
-  return rank_gstride != 0
-      ? launch_chain<kVariant, kSlots, true>(
-            rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
-            node_off, assign, unplaced, C, G, O, N, fit_big, device, stream)
-      : launch_chain<kVariant, kSlots, false>(
-            rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
-            node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
+  // the ring layouts are per-group only, kCatRows shared-row only
+  if constexpr (kVariant == kCatRowsRank || kVariant == kRowsRank)
+    return launch_chain<kVariant, kSlots, true>(
+        rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+        node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
+  else if constexpr (kVariant == kCatRows)
+    return launch_chain<kVariant, kSlots, false>(
+        rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+        node_off, assign, unplaced, C, G, O, N, fit_big, device, stream);
+  else
+    return rank_gstride != 0
+        ? launch_chain<kVariant, kSlots, true>(
+              rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+              node_off, assign, unplaced, C, G, O, N, fit_big, device,
+              stream)
+        : launch_chain<kVariant, kSlots, false>(
+              rows, alloc, alloc_stride, rank, rank_stride, rank_gstride,
+              node_off, assign, unplaced, C, G, O, N, fit_big, device,
+              stream);
 }
 
 template <int kVariant>
@@ -820,18 +923,25 @@ int ffd_scan_max_nodes() { return kMaxThreads * kMaxPerThread; }
 // the scratch is int32 [C, G, ffd_scan_row_words(O)], 16-byte aligned.
 int ffd_scan_row_words(int O) { return row_words(O); }
 
-// The chain kernel's instantiation for a shape: 2 = rows and catalog in
-// shared memory, 1 = rows only, 0 = both read from global memory.
-int ffd_scan_variant(int O, int N) { return choose_variant(O, N); }
+// The chain kernel's instantiation for a shape and form (group_rank = 1:
+// a rank row per group): 4 = rows and the groups' rank rows in shared
+// memory, 3 = rows, catalog and rank rows (4 and 3: per-group form only),
+// 2 = rows and catalog (shared-row form only), 1 = rows only, 0 = both
+// read from global memory.
+int ffd_scan_variant(int O, int N, int group_rank) {
+  return choose_variant(O, N, group_rank != 0);
+}
 
 // meta int32 [C, G, 8]; compat [C, G, O] int32 (compat_u8 = 0) or uint8
 // (compat_u8 = 1); alloc int32 [C, O, 4] with problem stride
 // alloc_stride (in int32 elements, a multiple of 4; 0 = one catalog
 // shared by all problems), 16-byte aligned; rank f32 [C, O] with problem
 // stride rank_stride (0 = shared), or one row per group, [C, G, O], with
-// group stride rank_gstride (0 = one row shared by the groups); rows int32
-// scratch [C, G,
-// ffd_scan_row_words(O)], 16-byte aligned; outputs node_off int32 [C,
+// group stride rank_gstride (0 = one row shared by the groups; else O %
+// 4 == 0, both strides multiples of 4 and rank 16-byte aligned, so that
+// each group's row is a whole number of 16-byte words for its TMA copy);
+// rows int32 scratch [C, G, ffd_scan_row_words(O)], 16-byte aligned;
+// outputs node_off int32 [C,
 // N], assign int32 [C, G, N], unplaced int32 [C, G], all on CUDA device
 // `device`.  Launches the prologue (when G > 0) and the chain on
 // `stream` and returns the first cudaError_t.
@@ -846,6 +956,9 @@ int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
       || alloc_stride % 4 != 0
       || reinterpret_cast<uintptr_t>(alloc) % 16 != 0
       || reinterpret_cast<uintptr_t>(rows) % 16 != 0
+      || (rank_gstride != 0
+          && (O % 4 != 0 || rank_gstride % 4 != 0 || rank_stride % 4 != 0
+              || reinterpret_cast<uintptr_t>(rank) % 16 != 0))
       || device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
@@ -865,7 +978,19 @@ int ffd_scan_launch(const int* meta, const void* compat, int compat_u8,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  switch (choose_variant(O, N)) {
+  switch (choose_variant(O, N, rank_gstride != 0)) {
+    case kCatRowsRank:
+      err = launch_chain_slots<kCatRowsRank>(rows, alloc, alloc_stride, rank,
+                                             rank_stride, rank_gstride,
+                                             node_off, assign, unplaced, C,
+                                             G, O, N, fit_big, device, s);
+      break;
+    case kRowsRank:
+      err = launch_chain_slots<kRowsRank>(rows, alloc, alloc_stride, rank,
+                                          rank_stride, rank_gstride,
+                                          node_off, assign, unplaced, C, G,
+                                          O, N, fit_big, device, s);
+      break;
     case kCatRows:
       err = launch_chain_slots<kCatRows>(rows, alloc, alloc_stride, rank,
                                          rank_stride, rank_gstride, node_off,

@@ -53,14 +53,15 @@ _SIGNATURES = {
              ctypes.c_void_p]),
         "ffd_scan_max_nodes": (ctypes.c_int, []),
         "ffd_scan_row_words": (ctypes.c_int, [ctypes.c_int]),
-        "ffd_scan_variant": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+        "ffd_scan_variant": (ctypes.c_int,
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
         "ffd_scan_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "presence_sum": {
         "presence_sum_launch": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
         "presence_sum_max_groups": (ctypes.c_int, []),
         "presence_sum_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },

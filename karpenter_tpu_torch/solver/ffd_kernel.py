@@ -33,7 +33,14 @@ an offering prologue over all C x G groups, whose plain version is
 the wrapper allocates; then one block per problem runs the sequential
 chain, which reads the rows from shared memory and sweeps the offerings
 only on the steps where the pods left cap some offering
-(:func:`chain_branches` counts the steps of each branch).
+(:func:`chain_branches` counts the steps of each branch).  With a rank
+row per group, each group's row rides the chain's ring beside its
+prologue row where shared memory holds it (with the catalog at the
+pref window and up to N = 1024 at O = 4096, without it up to N = 4096
+at O = 4096), so the capped sweep reads it from shared memory too;
+elsewhere it reads the row from L2.  That form
+takes O % 4 == 0 on the card (every offering bucket is a multiple of
+128).
 """
 
 from __future__ import annotations
@@ -290,6 +297,11 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride,
             raise ValueError(f"{name} must be contiguous")
     if alloc.data_ptr() % 16:
         raise ValueError("alloc must be 16-byte aligned (read as int4)")
+    if rank_gstride and (O % 4 or rank.data_ptr() % 16):
+        # each group's row rides the chain's ring as one TMA bulk copy
+        raise ValueError(f"a rank row per group needs O % 4 == 0 and a "
+                         f"16-byte aligned rank (O={O}, address "
+                         f"{rank.data_ptr():#x})")
     dev = meta.device
     # the prologue's rows: scratch the chain reads, 16-byte aligned rows
     rows = torch.empty((C, G, lib.ffd_scan_row_words(O)), dtype=torch.int32,
@@ -313,16 +325,26 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride,
 
 VARIANTS = ("rows and catalog read from global memory",
             "rows staged in shared memory, catalog from global memory",
-            "rows and catalog staged in shared memory")
+            "rows and catalog staged in shared memory",
+            "rows, catalog and the groups' rank rows staged in shared memory",
+            "rows and the groups' rank rows staged in shared memory, "
+            "catalog from global memory")
+# the instantiations each form takes
+SHARED_ROW_VARIANTS = VARIANTS[:3]
+GROUP_RANK_VARIANTS = (VARIANTS[0], VARIANTS[1], VARIANTS[3], VARIANTS[4])
 
 
-def scan_variant(O: int, N: int) -> str:
+def scan_variant(O: int, N: int, group_rank: bool = False) -> str:
     """The chain kernel's instantiation for offerings O and node slots N,
-    as the launcher picks it from the shapes alone (needs the built
-    library): the shared-memory budget rule of ``csrc/ffd_scan.cu``."""
+    with one rank row shared by the groups or (``group_rank``) a row per
+    group, as the launcher picks it from the shapes and the form alone
+    (needs the built library): the shared-memory budget rule of
+    ``csrc/ffd_scan.cu``, where the per-group form's ring slots also
+    hold the group's rank row where that fits."""
     from karpenter_tpu_torch import cuda_build
 
-    return VARIANTS[cuda_build.load("ffd_scan").ffd_scan_variant(O, N)]
+    return VARIANTS[cuda_build.load("ffd_scan").ffd_scan_variant(
+        O, N, int(group_rank))]
 
 
 def _group_stride(rank: torch.Tensor, per_problem: bool, O: int) -> int:

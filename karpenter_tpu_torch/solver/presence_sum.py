@@ -6,17 +6,20 @@ g of present[g, n] * miss[g, o]`` (the reference's
 ``jnp.einsum("gn,go->no")``, ``jax_backend.py:281``), must round as the
 CPU program the card is held against does: group by group, in group
 order.  :func:`presence_sum` gives that order on any device: on a CUDA
-tensor it launches ``csrc/presence_sum.cu`` (one block per node and 256
-offerings: the node's present groups listed in order, their rows folded
-in that order); on a CPU tensor it
-runs :func:`presence_sum_reference`, one ``addcmul_`` per group in
-order.  The choice follows the tensor's device, never a failure: on a
-CUDA tensor the kernel launches or the call raises.
+tensor it launches ``csrc/presence_sum.cu`` once (a block per 32 nodes
+and one tile of offerings; the blocks of a node tile form a cluster that
+reads the tile's flags once into per-node presence bitmaps, the node's
+ordered list, whose rows each warp then folds in that order); on a CPU
+tensor it runs :func:`presence_sum_reference`, one ``addcmul_`` per
+group in order.  The choice follows the tensor's device, never a
+failure: on a CUDA tensor the kernel launches or the call raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+from karpenter_tpu_torch import cuda_build
 
 # Kernel launches, counted where the kernel is launched and nowhere else.
 LAUNCHES = {"presence_sum": 0}
@@ -36,23 +39,32 @@ def presence_sum_reference(present: torch.Tensor,
     return acc
 
 
-def _launch(present: torch.Tensor, miss: torch.Tensor) -> torch.Tensor:
-    from karpenter_tpu_torch import cuda_build
+# the kernel's C functions and group limit, bound once per process
+_BOUND = None
 
-    lib = cuda_build.load("presence_sum")
+
+def _bound():
+    global _BOUND
+    if _BOUND is None:
+        lib = cuda_build.load("presence_sum")
+        _BOUND = (lib.presence_sum_launch, lib.presence_sum_max_groups(),
+                  lib.presence_sum_error_string)
+    return _BOUND
+
+
+def _launch(present: torch.Tensor, miss: torch.Tensor) -> torch.Tensor:
+    launch, max_groups, error_string = _BOUND or _bound()
     G, N = present.shape
-    if G > lib.presence_sum_max_groups():
-        raise ValueError(f"presence_sum takes G <= "
-                         f"{lib.presence_sum_max_groups()}, got {G}")
+    if G > max_groups:
+        raise ValueError(f"presence_sum takes G <= {max_groups}, got {G}")
     O = miss.shape[1]
     out = torch.empty((N, O), dtype=torch.float32, device=present.device)
-    stream = torch.cuda.current_stream(present.device).cuda_stream
-    err = lib.presence_sum_launch(present.data_ptr(), miss.data_ptr(),
-                                  out.data_ptr(), G, N, O, stream)
+    index = present.get_device()
+    err = launch(present.data_ptr(), miss.data_ptr(), out.data_ptr(), G, N,
+                 O, index, cuda_build.stream_handle(index))
     if err != 0:
-        msg = lib.presence_sum_error_string(err).decode()
         raise RuntimeError(f"presence_sum launch failed: cudaError {err} "
-                           f"({msg})")
+                           f"({error_string(err).decode()})")
     return out
 
 
@@ -73,9 +85,6 @@ def presence_sum(present: torch.Tensor, miss: torch.Tensor) -> torch.Tensor:
     if present.device.type != "cuda":
         raise ValueError(f"presence_sum runs on cpu or cuda, not "
                          f"{present.device}")
-    if present.shape[1] > 65535:
-        raise ValueError(f"presence_sum takes N <= 65535, got "
-                         f"{present.shape[1]}")
     out = _launch(present.contiguous(), miss.contiguous())
     LAUNCHES["presence_sum"] += 1
     return out

@@ -286,15 +286,17 @@ def _group_rank(rank, G, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("O, variant", [(3072, 2), (4096, 1), (5000, 0)])
-def test_ffd_kernel_group_rank_rows(cuda_device, O, variant):
+@pytest.mark.parametrize("O, N, variant", [(3072, 512, 3), (4096, 4096, 4),
+                                          (4096, 8192, 1), (5000, 8192, 0)])
+def test_ffd_kernel_group_rank_rows(cuda_device, O, N, variant):
     """A rank row per group ([G, O], the soft-preference scan) in each
-    instantiation of the chain kernel, against the plain version; over
-    the seeds both the uncapped and the capped branch run, each launch
-    counts as ffd_scan_pref, and a fleet of [C, G, O] ranks equals its
-    plain version too."""
-    N = 512 if variant == 2 else 8192
-    assert scan_variant(O, N) == VARIANTS[variant]
+    instantiation of the chain kernel the per-group form takes (its ring
+    slots also hold the group's rank row where that fits, with the
+    catalog or without it), against the plain version;
+    over the seeds both the uncapped and the capped branch run, each
+    launch counts as ffd_scan_pref, and a fleet of [C, G, O] ranks equals
+    its plain version too."""
+    assert scan_variant(O, N, group_rank=True) == VARIANTS[variant]
     branches = {"uncapped": 0, "capped": 0}
     for seed in range(3):
         meta, compat, alloc, rank = _inputs(10 * variant + seed, G=64, O=O)
@@ -324,8 +326,39 @@ def test_ffd_kernel_group_rank_rows(cuda_device, O, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 5, 7])
+def test_ffd_kernel_group_rank_short_windows(cuda_device, G):
+    """A rank row per group with G below the ring's lead (kAhead = 3) or
+    not a whole number of its slots (kStages = 4): one problem and a
+    fleet of three, against the plain version."""
+    probs = [_inputs(70 + G + c, G=G, O=3072) for c in range(3)]
+    meta, compat, alloc, rank = (
+        torch.from_numpy(np.stack([p[i] for p in probs])).to(cuda_device)
+        for i in range(4))
+    rank_g = torch.stack([torch.from_numpy(_group_rank(p[3], G, c))
+                          for c, p in enumerate(probs)]).to(cuda_device)
+    _exact(ffd_scan(meta[:1], compat[:1], alloc[0], rank_g[0], 512),
+           ffd_scan_reference(meta[:1], compat[:1], alloc[0], rank_g[0],
+                              512))
+    _exact(ffd_scan_fleet(meta, compat, alloc, rank_g, 512),
+           ffd_scan_fleet_reference(meta, compat, alloc, rank_g, 512))
+
+
+@pytest.mark.cuda
+def test_ffd_kernel_group_rank_needs_whole_words(cuda_device):
+    """The per-group form's rank row rides the ring as one TMA copy, so
+    the wrapper refuses an O that is not a multiple of 4."""
+    meta, compat, alloc, rank = (torch.from_numpy(x).to(cuda_device)
+                                 for x in _inputs(3, G=8, O=129))
+    rank_g = rank[None].expand(8, 129).contiguous()
+    with pytest.raises(ValueError, match="O % 4"):
+        ffd_scan(meta[None], compat[None], alloc, rank_g, 64)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G, N, O", [(512, 512, 3072), (64, 64, 129),
-                                     (341, 384, 1), (0, 8, 16)])
+                                     (341, 384, 1), (0, 8, 16),
+                                     (77, 200, 3071), (45, 1, 256)])
 def test_presence_sum_kernel_matches_plain_version(cuda_device, G, N, O):
     """The ordered presence sums of the pref right-size, bit for bit
     against one ordered ``addcmul_`` per group; one launch counted."""
@@ -343,7 +376,36 @@ def test_presence_sum_kernel_matches_plain_version(cuda_device, G, N, O):
     assert LAUNCHES["presence_sum"] == before + 1
     want = presence_sum_reference(present, miss)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all closed", "full node", "most groups"])
+def test_presence_sum_kernel_edges(cuda_device, case):
+    """An all-closed node axis (every list empty: zeros), a node holding
+    every group, and G at the kernel's maximum with a node holding all of
+    them: bit for bit against the plain version, one launch each."""
+    from karpenter_tpu_torch.solver import presence_sum as ps
+
+    G, N, O = {"all closed": (512, 512, 3072), "full node": (341, 64, 3072),
+               "most groups": (ps._bound()[1], 40, 132)}[case]
+    rng = np.random.RandomState(G + N)
+    present = (rng.rand(G, N) < 0.02).astype(np.float32)
+    if case == "all closed":
+        present[:] = 0
+    else:
+        present[:, N // 2] = 1
+    miss = rng.choice(np.float32([0, 1 / 3, 2 / 3, 0.1, 1]), size=(G, O))
+    present, miss = (torch.from_numpy(x).to(cuda_device)
+                     for x in (present, miss))
+    before = ps.LAUNCHES["presence_sum"]
+    got = ps.presence_sum(present, miss)
+    assert ps.LAUNCHES["presence_sum"] == before + 1
+    want = ps.presence_sum_reference(present, miss)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "all closed":
+        assert not got.any()
 
 
 @pytest.mark.cuda

@@ -300,6 +300,122 @@ def test_presence_sum_plain_version_adds_in_group_order():
         presence_sum(torch.zeros((3, 4)), torch.zeros((2, 5)))
 
 
+def _presence_case(case):
+    """(present [G, N], miss [G, O]) float32 from a seed: 2-30% presence
+    and fractional misses, with the edges of the kernel's node lists."""
+    G, N, O = {"ragged": (77, 200, 129), "full node": (45, 64, 128),
+               "all closed": (64, 96, 12), "one node": (33, 1, 256),
+               "no groups": (0, 8, 16)}[case]
+    rng = np.random.RandomState(G + N + O)
+    present = (rng.rand(G, N) < (0.3 if N < 8 else 0.05)).astype(
+        np.float32)
+    if case == "full node":
+        present[:, N // 2] = 1
+    if case == "all closed":
+        present[:] = 0
+    miss = rng.choice(np.float32([0, 1 / 3, 2 / 3, 0.1, 1]), size=(G, O))
+    return present, miss
+
+
+PRESENCE_CASES = ("ragged", "full node", "all closed", "one node",
+                  "no groups")
+
+
+@pytest.mark.parametrize("case", PRESENCE_CASES)
+def test_presence_sum_plain_version_edges(case):
+    """The plain presence sum on the kernel's edges (ragged O, a node
+    holding every group, no node holding any, one node, no groups)
+    equals a numpy fold of each node's present groups' rows in group
+    order from 0 (zeros for a node holding none)."""
+    from karpenter_tpu_torch.solver.presence_sum import presence_sum
+
+    present, miss = _presence_case(case)
+    want = np.zeros((present.shape[1], miss.shape[1]), np.float32)
+    for n in range(present.shape[1]):
+        for g in np.flatnonzero(present[:, n]):
+            want[n] = want[n] + miss[g]
+    got = presence_sum(torch.from_numpy(present), torch.from_numpy(miss))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", PRESENCE_CASES)
+def test_presence_bound_counts_the_data(case):
+    """chip_smoke.py's bound of the presence sum counts what the data
+    needs: the flags, the miss rows of the groups present on some node
+    and the output once in bytes, the present pairs x O in adds; beside
+    it the count of whole tensors."""
+    import chip_smoke
+
+    present, miss = _presence_case(case)
+    (G, N), O = present.shape, miss.shape[1]
+    rows = int(present.any(axis=1).sum())
+    pairs = int(np.count_nonzero(present))
+    ms, by, nbytes, adds, whole = chip_smoke.presence_bound_ms(
+        torch.from_numpy(present), torch.from_numpy(miss))
+    assert nbytes == 4 * (G * N + rows * O + N * O)
+    assert adds == pairs * O
+    assert whole == 4 * (G * N + G * O + N * O)
+    assert ms == max(nbytes / chip_smoke.HBM_BYTES_PER_S,
+                     adds / chip_smoke.SCALAR_OPS_PER_S) * 1e3
+    assert by == "bytes"
+
+
+# chain_branches of the small pref window below (2000 pods x 60 types,
+# seed 42, workload.with_preferences: G=213 padded to 256, O=512, N=128):
+# the capped sweeps are the steps whose chain reads the group's rank row
+PREF_BRANCHES = {"opens_nothing": 168, "uncapped": 10, "capped": 78,
+                 "summed_takes": 0}
+
+
+def test_pref_window_capped_steps_pinned():
+    """The capped-step count that attributes the per-group form's time on
+    the card (chip_smoke.py's pref phase), at a small seeded pref window:
+    ``chain_branches`` of the port's plain scan with a rank row per
+    group, pinned, and the same count from the reference's pref scan
+    (``solve_core``) on the reference's own window."""
+    import bench
+
+    from karpenter_tpu_torch import workload
+
+    tpods, tcat = workload.build_workload(2000, 60, seed=42)
+    problem = torch_backend_encode(workload.with_preferences(tpods), tcat)
+    solver = TorchSolver(device="cpu")
+    prep = solver._prepare(problem)
+    G, O, N = prep.G_pad, prep.O_pad, prep.N
+    assert (problem.num_groups, G, O, N) == (213, 256, 512, 128)
+    off_alloc, _, off_rank = solver.device_offerings(tcat, O)
+    t = torch.from_numpy
+    meta, compat_i, _ = tp.unpack_problem(t(prep.packed), off_alloc, G, O,
+                                          prep.U_pad)
+    lam = solver.options.preference_lambda
+    _, rank_g = tp.pref_rank_rows(t(prep.pref_rows), t(prep.pref_idx),
+                                  off_rank, lam)
+    m3, c3 = meta[None], compat_i[None]
+    got = ffd_kernel.ffd_scan_reference(m3, c3, off_alloc, rank_g, N)
+    assert ffd_kernel.chain_branches(m3, c3, off_alloc, *got) \
+        == PREF_BRANCHES
+
+    jpods, jcat = bench.build_workload(2000, 60, seed=42)
+    w = pref_window(jcat, add_preferences(jpods, j_req), N)
+    p = w["problem"]
+    req, count, cap = (_pad2(p.group_req, G), _pad1(p.group_count, G),
+                       _pad1(p.group_cap, G))
+    compat = _pad2(p.compat, G, O)
+    alloc, price, rank = w["cat"]
+    ref = solve_core(*(jnp.asarray(x) for x in (req, count, cap, compat,
+                                                 alloc, price, rank)),
+                     num_nodes=N, right_size=False,
+                     pref_rows=jnp.asarray(w["pref_rows"]),
+                     pref_idx=jnp.asarray(w["pref_idx"]), pref_lambda=lam)
+    jmeta = np.zeros((G, 8), np.int32)
+    jmeta[:, :4], jmeta[:, 4], jmeta[:, 5] = req, count, cap
+    ref_out = [t(np.array(x))[None] for x in ref[:3]]
+    assert ffd_kernel.chain_branches(
+        t(jmeta)[None], t(compat.astype(np.int32))[None], t(alloc),
+        *ref_out) == PREF_BRANCHES
+
+
 def test_pad_preferences_buckets():
     rows = np.full((5, 7), 0.5, np.float32)
     idx = np.array([0, -1, 4], np.int32)
