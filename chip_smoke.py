@@ -140,7 +140,23 @@ no result line:
    repack grid as torch ops on the card reading the resident occupancy
    rows, its plan equal to the numpy grid's and
    ``validate_repack_plan`` clean, both warm p50s; and the torus-defrag
-   case reopening a slice on both routes;
+   case reopening a slice on both routes; (s) the fault and profiling
+   planes (every dispatch runs in ``faulttol.device_guard`` and a sampled
+   ``obs.prof`` bracket): 300 headline windows with the guard's and the
+   profiler's overhead fractions (each under 1%) and the sampled scan
+   split beside the CUDA-event device time, then the headline window's
+   wall with the planes on and taken out, in turns (the planes may cost
+   no more than the run's own spread plus 1%); a real allocator OOM in
+   ``device_guard("scan-batch")`` typed ``DeviceResourceExhausted``, the
+   next window equal to the plain CPU solve word for word; the FFD
+   library's C entry with N above its maximum returning
+   cudaErrorInvalidValue, typed ``DeviceFaultError`` in a guard; a
+   quarantine and a probation walk with the torch probe on the card; an
+   injected oom halving a 16-window batch, plans equal; the first
+   window of each of three new signatures beside its warm p50, in fresh
+   processes of this script, two without ``warmup_solver`` and two with
+   it (printed, not gated); kernels per window of the headline and pref windows
+   equal with and without the guard and the profiler;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -160,6 +176,7 @@ measured also lands in the JSON file PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import gc
 import importlib
@@ -3099,6 +3116,605 @@ def phase_repack(dev, card: str) -> dict:
 # -- phase 5: timings ---------------------------------------------------------
 
 
+# -- (s) the fault and profiling planes ----------------------------------------
+
+FAULT = dict(windows=300, capture_s=1.5, batch=16, warm=20,
+             ab_rounds=40, ab_block=10,
+             # (f): each child process solves the base window first (the
+             # process's own first costs), then the first window of each
+             # cold size: one catalog, G/O/U equal, N 128, 256 and 384
+             cold_base=dict(pods=2000, types=120, seed=70),
+             cold_types=300, cold_seed=71, cold_pods=(1500, 3000, 6000),
+             cold_sides=("without", "with", "with", "without"))
+# kernels per window of the headline and pref windows in the previous
+# slice's run (PERF.md section 5, NVIDIA H100 80GB HBM3, 700.00 W)
+PR9_KERNELS = {"headline": 473, "pref": 489}
+
+
+class ScriptedInjector:
+    """A fault script for ``device_guard``: the next entry per guarded
+    dispatch (None = clean), on the guard's first device."""
+
+    def __init__(self, script):
+        self.script = list(script)
+        self.injected = 0
+
+    def draw(self, kernel, candidates):
+        if not self.script:
+            return None
+        kind = self.script.pop(0)
+        if kind is None:
+            return None
+        self.injected += 1
+        return kind, candidates[0]
+
+    def probe_faults(self, device):
+        return False
+
+
+def fresh_planes():
+    """A new health board and a new profiler (default interval) in place
+    of the process's, so that this phase's counts are its own."""
+    from karpenter_tpu_torch import faulttol
+    from karpenter_tpu_torch.faulttol import health as health_mod
+    from karpenter_tpu_torch.obs import prof as prof_mod
+
+    faulttol.clear_injector()
+    health_mod._BOARD = None
+    prof_mod._PROFILER = None
+    prof = prof_mod.get_profiler()
+    prof.interval = prof_mod.DEFAULT_INTERVAL
+    return faulttol.get_health_board(), prof
+
+
+def fault_overheads(dev, card: str, solver, request, problem) -> dict:
+    """(a) FAULT["windows"] headline windows under the guard and the
+    profiler at its default interval: both overhead fractions (< 1%, or
+    the run fails), then a capture (every dispatch sampled, outside the
+    overhead accounting) for the sampled "scan" split beside the device
+    program's CUDA-event time."""
+    import threading
+
+    board, prof = fresh_planes()
+    reset_launches()
+    walls = []
+    for _ in range(FAULT["windows"]):
+        t0 = time.perf_counter()
+        solver.solve(request)
+        walls.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    require_launches(launches, ["ffd_scan", "cost_sum"],
+                     "guarded headline windows")
+    guard_frac = board.healthy_overhead_fraction()
+    prof_frac = prof.overhead_fraction()
+    snap = prof.snapshot()
+    guards = board.guards_entered
+    per_guard_us = board.guard_overhead_s / max(guards, 1) * 1e6
+    res: dict = {}
+    th = threading.Thread(
+        target=lambda: res.update(s=prof.capture(FAULT["capture_s"])))
+    th.start()
+    time.sleep(0.05)
+    captured = 0
+    while th.is_alive():
+        solver.solve(request)
+        captured += 1
+    th.join()
+    scan = [s for s in res.get("s") or () if s["kernel"] == "scan"]
+    if not scan:
+        raise AssertionError("(a) the capture holds no scan dispatch")
+    split = {ph: float(np.median([s[f"{ph}_s"] for s in scan])) * 1e3
+             for ph in ("dispatch", "execute", "fetch", "device")}
+    prep = solver._prepare(problem)
+    off_alloc, off_price, off_rank = solver.device_offerings(
+        request.catalog, prep.O_pad)
+    packed = torch.from_numpy(prep.packed).to(dev)
+    program_ms = cuda_ms(lambda: tp.solve_packed_torch(
+        packed, off_alloc, off_price, off_rank, G=prep.G_pad, O=prep.O_pad,
+        U=prep.U_pad, N=prep.N, compact=prep.K, dense16=prep.dense16,
+        coo16=prep.coo16), 20)
+    p50 = float(np.percentile(walls, 50)) * 1e3
+    say(f"fault (a) [{card}]: {FAULT['windows']} guarded headline windows, "
+        f"p50 wall {p50:.4f} ms; {guards} guards at "
+        f"{per_guard_us:.3f} us each; guard overhead fraction "
+        f"{guard_frac:.6f}, profiler overhead fraction {prof_frac:.6f} "
+        f"(interval {prof.interval}, {snap['samples']} samples of "
+        f"{snap['dispatches_seen']} dispatches); launches {launches}")
+    say(f"fault (a) [{card}]: sampled scan split over {len(scan)} captured "
+        f"windows (medians): dispatch {split['dispatch']:.4f} ms, execute "
+        f"{split['execute']:.4f} ms, fetch {split['fetch']:.4f} ms; the "
+        f"bracket's CUDA-event device time {split['device']:.4f} ms beside "
+        f"the device program back to back {program_ms:.4f} ms")
+    for name, frac in (("guard", guard_frac), ("profiler", prof_frac)):
+        if not 0.0 <= frac < 0.01:
+            raise AssertionError(f"(a) {name} overhead fraction {frac} is "
+                                 f"not under 1%")
+    return {"windows": FAULT["windows"], "p50_wall_ms": p50,
+            "guard_overhead_fraction": guard_frac,
+            "profiler_overhead_fraction": prof_frac,
+            "guard_us": per_guard_us, "guards": guards,
+            "samples": snap["samples"],
+            "dispatches_seen": snap["dispatches_seen"],
+            "scan_split_ms": split, "captured_windows": len(scan),
+            "device_program_ms": program_ms, "launches": launches}
+
+
+def fault_planes_cost(dev, card: str, solver, request) -> dict:
+    """(a), end to end: the headline window's wall with the planes on
+    (guard and profiler at its default interval) and taken out (the
+    null guard and a profiler that never samples, as in (g)), in
+    FAULT["ab_rounds"] rounds of FAULT["ab_block"] windows each way, the
+    order turned every round.  Each round gives the ratio of its two
+    block p50s; the planes' cost is the median ratio less 1, the run's
+    own spread half the interquartile range of the ratios, and the run
+    fails if the cost exceeds the spread by more than 1%.  Beside it,
+    the planes' own host time per window: empty guard and inactive
+    probe brackets on this card's id, back to back."""
+    from karpenter_tpu_torch.faulttol import device_guard, device_id
+    from karpenter_tpu_torch.obs.prof import DeviceProfiler
+    from karpenter_tpu_torch.solver import torch_backend
+
+    fresh_planes()
+    bare = DeviceProfiler(interval=0)
+    blocks: dict = {"on": [], "off": []}
+    for r in range(FAULT["ab_rounds"]):
+        for mode in ("on", "off") if r % 2 == 0 else ("off", "on"):
+            with contextlib.ExitStack() as stack:
+                if mode == "off":
+                    stack.enter_context(_patched(
+                        torch_backend, "device_guard", NullGuard))
+                    stack.enter_context(_patched(
+                        torch_backend, "get_profiler", lambda: bare))
+                walls = []
+                for _ in range(FAULT["ab_block"]):
+                    t0 = time.perf_counter()
+                    solver.solve(request)
+                    walls.append(time.perf_counter() - t0)
+            blocks[mode].append(float(np.percentile(walls, 50)) * 1e3)
+    ratios = np.array(blocks["on"]) / np.array(blocks["off"])
+    cost = float(np.median(ratios)) - 1.0
+    q25, q75 = (float(q) for q in np.percentile(ratios, [25, 75]))
+    spread = (q75 - q25) / 2
+    on, off = (float(np.median(blocks[m])) for m in ("on", "off"))
+    ids = [device_id(dev)]
+    n = 20_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with device_guard("scan", devices=ids):
+            with bare.sampled("scan") as probe:
+                probe.dispatched(None)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    fresh_planes()
+    say(f"fault (a) [{card}]: headline wall in turns, {FAULT['ab_rounds']} "
+        f"rounds of {FAULT['ab_block']} windows each way: planes on / "
+        f"taken out, median of the rounds' ratios x{1 + cost:.4f} "
+        f"(quartiles x{q25:.4f} / x{q75:.4f}, spread {spread:.4f}); "
+        f"medians of the block p50s {on:.4f} / {off:.4f} ms; the planes' "
+        f"own host time {host_us:.3f} us a window "
+        f"({host_us / 1e3 / off:.6f} of the bare p50); ratios "
+        f"{fmt_list(ratios)}")
+    if cost > spread + 0.01:
+        raise AssertionError(f"(a) the planes cost {cost:.4f} of the "
+                             f"headline wall, over the run's spread "
+                             f"{spread:.4f} plus 1%")
+    return {"cost": cost, "spread": spread, "ratio_quartiles": [q25, q75],
+            "on_ms": on, "off_ms": off, "host_us": host_us,
+            "blocks_on_ms": blocks["on"], "blocks_off_ms": blocks["off"]}
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
+
+
+def fault_real_oom(dev, card: str, solver, request, problem) -> dict:
+    """(b) A real allocator OOM inside ``device_guard("scan-batch")`` is
+    ``DeviceResourceExhausted`` with an ``oom`` fault on the card; the
+    next headline window equals the plain CPU solve word for word."""
+    from karpenter_tpu_torch import faulttol
+
+    board, _ = fresh_planes()
+    ids = [faulttol.device_id(dev)]
+    try:
+        with faulttol.device_guard("scan-batch", devices=ids):
+            torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+    except faulttol.DeviceResourceExhausted as e:
+        cause = type(e.__cause__).__name__
+    else:
+        raise AssertionError("(b) a 1 TiB allocation did not run out of "
+                             "memory")
+    torch.cuda.empty_cache()
+    state = board.snapshot()["devices"][ids[0]]
+    if state["last_kind"] != "oom" or board.faults_recorded != 1:
+        raise AssertionError(f"(b) board after the OOM: {state}")
+    prep = solver._prepare(problem)
+    card_words = solver.dispatch_packed(prep).cpu().numpy()
+    cpu_cat = [t.cpu() for t in solver.device_offerings(request.catalog,
+                                                        prep.O_pad)]
+    plain = tp.solve_packed_torch(
+        torch.from_numpy(prep.packed.copy()), *cpu_cat, G=prep.G_pad,
+        O=prep.O_pad, U=prep.U_pad, N=prep.N, right_size=True,
+        compact=prep.K, dense16=prep.dense16, coo16=prep.coo16).numpy()
+    words_equal("(b) window after the OOM", card_words, plain,
+                prep.N + prep.G_pad)
+    clean_and_placed("(b) window after the OOM", solver.solve(request),
+                     request.pods, request.catalog)
+    say(f"fault (b) [{card}]: a 1 TiB allocation in device_guard("
+        f"'scan-batch') raised DeviceResourceExhausted (from {cause}); "
+        f"board {ids[0]}: {state['state']}, last kind {state['last_kind']}"
+        f"; the next headline window equals the plain CPU solve word for "
+        f"word ({card_words.shape[0]} words) and validates clean")
+    return {"cause": cause, "board": state}
+
+
+def fault_launch_error(dev, card: str, solver, request) -> dict:
+    """(c) The FFD library's C entry, called through its ctypes binding
+    with N above its maximum (which the Python wrapper refuses first),
+    returns cudaErrorInvalidValue before any launch; raised by the
+    wrappers' ``check_launch`` inside a guard it is a ``DeviceFaultError``
+    of kind "error".  The wrapper's own refusal (a ValueError) passes the
+    guard unrecorded, and the context stays usable."""
+    from karpenter_tpu_torch import faulttol
+
+    board, _ = fresh_planes()
+    ids = [faulttol.device_id(dev)]
+    lib = cuda_build.load("ffd_scan")
+    nmax = lib.ffd_scan_max_nodes()
+    G, O = 1, 128
+    meta = torch.zeros((1, G, 8), dtype=torch.int32, device=dev)
+    compat = torch.zeros((1, G, O), dtype=torch.int32, device=dev)
+    alloc = torch.zeros((O, 4), dtype=torch.int32, device=dev)
+    rank = torch.zeros(O, dtype=torch.float32, device=dev)
+    rows = torch.zeros((1, G, lib.ffd_scan_row_words(O)), dtype=torch.int32,
+                       device=dev)
+    outs = [torch.zeros(n, dtype=torch.int32, device=dev)
+            for n in (nmax + 1, G * (nmax + 1), G)]
+    err = lib.ffd_scan_launch(
+        meta.data_ptr(), compat.data_ptr(), 0, alloc.data_ptr(), 0,
+        rank.data_ptr(), 0, 0, rows.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), 1, G, O, nmax + 1,
+        ffd_kernel.FIT_BIG, dev.index, cuda_build.stream_handle(dev.index))
+    if err != 1:
+        raise AssertionError(f"(c) ffd_scan_launch with N={nmax + 1} "
+                             f"returned cudaError {err}, want 1 "
+                             f"(cudaErrorInvalidValue)")
+    try:
+        with faulttol.device_guard("scan", devices=ids):
+            cuda_build.check_launch("ffd_scan", err,
+                                    lib.ffd_scan_error_string)
+    except faulttol.DeviceFaultError as e:
+        typed = (type(e).__name__, e.kind, type(e.__cause__).__name__,
+                 e.__cause__.code)
+    else:
+        raise AssertionError("(c) the launch error passed the guard")
+    if typed != ("DeviceFaultError", "error", "KernelLaunchError", 1):
+        raise AssertionError(f"(c) typed as {typed}")
+    before = board.faults_recorded
+    try:
+        with faulttol.device_guard("scan", devices=ids):
+            ffd_kernel.ffd_scan(meta, compat, alloc, rank, nmax + 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("(c) the wrapper took N above its maximum")
+    if board.faults_recorded != before:
+        raise AssertionError("(c) the wrapper's ValueError was recorded as "
+                             "a device fault")
+    torch.cuda.synchronize(dev)
+    clean_and_placed("(c) window after the launch error",
+                     solver.solve(request), request.pods, request.catalog)
+    msg = lib.ffd_scan_error_string(err).decode()
+    say(f"fault (c) [{card}]: ffd_scan_launch(N={nmax + 1}) through ctypes "
+        f"returned cudaError {err} ({msg}) before any launch; in "
+        f"device_guard('scan') check_launch raised {typed[0]} (kind "
+        f"{typed[1]}, cause {typed[2]} code {typed[3]}); the wrapper's own "
+        f"check raised ValueError ({refused}) and the guard recorded "
+        f"nothing; the next headline window validates clean")
+    return {"cuda_error": err, "message": msg, "typed": list(typed),
+            "faults_recorded": board.faults_recorded}
+
+
+def fault_probation(dev, card: str) -> dict:
+    """(d) A quarantined card (three faults; the quarantine writes its
+    triage bundle) turns to probation on the clock, and the probation
+    ticks run the torch health probe on the card: two passing probes
+    make it healthy again."""
+    import shutil
+    import tempfile
+
+    from karpenter_tpu_torch import faulttol
+    from karpenter_tpu_torch.obs.watchdog import write_triage_bundle
+
+    ids = [faulttol.device_id(dev)]
+    triage = tempfile.mkdtemp(prefix="triage-")
+    bundles = []
+    now = [1000.0]
+
+    def writer(trigger, detail):
+        bundles.append(write_triage_bundle(trigger, detail,
+                                           triage_dir=triage))
+
+    try:
+        board = faulttol.HealthBoard(clock=lambda: now[0],
+                                     triage_writer=writer)
+        for _ in range(board.fault_threshold):
+            board.record_fault(ids[0], kind="error", kernel="scan")
+        walk = [board.state(ids[0])]
+        t0 = time.perf_counter()
+        probe_ok = board._run_probe(ids[0])
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(board.probe_successes):
+            now[0] += board.recovery_timeout_s + 1.0
+            board.tick()
+            walk.append(board.state(ids[0]))
+        keys = sorted(json.loads(
+            (Path(bundles[0]) / "bundle.json").read_text())) if bundles \
+            else []
+    finally:
+        shutil.rmtree(triage, ignore_errors=True)
+    if walk != ["quarantined", "probation", "healthy"] or not probe_ok \
+            or len(bundles) != 1:
+        raise AssertionError(f"(d) walk {walk}, probe {probe_ok}, bundles "
+                             f"{len(bundles)}")
+    say(f"fault (d) [{card}]: {ids[0]} quarantined after "
+        f"{board.fault_threshold} faults (one triage bundle: {keys}); "
+        f"probation ticks ran the torch probe on the card: "
+        f"{' -> '.join(walk)}; one probe {probe_ms:.3f} ms")
+    return {"walk": walk, "probe_ms": probe_ms, "bundle_keys": keys}
+
+
+def fault_oom_halving(dev, card: str, pods, catalog) -> dict:
+    """(e) An injected ``oom`` on a FAULT["batch"]-window batch halves it
+    on the card (``solve_encoded_batch``): every plan equal to the
+    unchunked batch's, cost word included."""
+    from karpenter_tpu_torch import faulttol
+
+    board, _ = fresh_planes()
+    C = FAULT["batch"]
+    problems = [encode_mod.encode(pods[i::C], catalog) for i in range(C)]
+    solver = TorchSolver(device=dev)
+    whole = solver.solve_encoded_batch(problems)
+    if solver.last_stats.get("batch") != C:
+        raise AssertionError(f"(e) the {C} windows did not share one batch:"
+                             f" {solver.last_stats.get('path')}")
+    guards0 = board.guards_entered
+    inj = ScriptedInjector(["oom"])
+    faulttol.install_injector(inj)
+    try:
+        halved = solver.solve_encoded_batch(problems)
+    finally:
+        faulttol.clear_injector()
+    last = solver.last_stats.get("batch")
+    for i, (a, b) in enumerate(zip(halved, whole)):
+        plans_equal(f"(e) window {i} of the halved batch", a, b)
+    if inj.injected != 1 or last != C // 2 or len(halved) != C:
+        raise AssertionError(f"(e) injected {inj.injected}, last batch "
+                             f"{last}, plans {len(halved)}")
+    guards = board.guards_entered - guards0
+    say(f"fault (e) [{card}]: an injected oom on the {C}-window batch "
+        f"halved it on the card ({guards} guarded batch dispatches, the "
+        f"last of {last} windows); all {C} plans equal the unchunked "
+        f"batch's, cost words included")
+    return {"batch": C, "last_batch": last, "guards": guards}
+
+
+COLD_TAG = "cold-child: "
+
+
+def cold_child(side: str) -> int:
+    """One side of (f), in a fresh process of this script: the base
+    window (the process's own first costs: CUDA context, libraries,
+    allocator), then with ``side == "with"`` ``warmup_solver`` over the
+    cold sizes' ladder shapes, then for each cold size its first window
+    and the p50 of FAULT["warm"] more, each plan checked.  Prints one
+    line, COLD_TAG and a JSON object."""
+    from karpenter_tpu_torch.obs.devtel import get_devtel
+    from karpenter_tpu_torch.solver.warmup import warmup_solver
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    solver = TorchSolver(device=dev)
+    base_pods, base_catalog = workload.build_workload(
+        FAULT["cold_base"]["pods"], FAULT["cold_base"]["types"],
+        seed=FAULT["cold_base"]["seed"])
+    clean_and_placed("(f) base window", solver.solve(
+        SolveRequest(base_pods, base_catalog)), base_pods, base_catalog)
+    catalog = workload.build_catalog(FAULT["cold_types"])
+    windows = []
+    for n in FAULT["cold_pods"]:
+        pods, _ = workload.build_workload(n, FAULT["cold_types"],
+                                          seed=FAULT["cold_seed"])
+        problem = encode_mod.encode(pods, catalog)
+        prep = solver._prepare(problem)
+        windows.append((pods, catalog, problem, prep))
+    tel = get_devtel()
+    warm_s = 0.0
+    if side == "with":
+        t0 = time.perf_counter()
+        warmup_solver(solver, catalog, shapes=[
+            (prep.G_pad, prep.U_pad, prep.N, int(problem.group_count.sum()))
+            for _, _, problem, prep in windows], batch_widths=())
+        warm_s = time.perf_counter() - t0
+    out = []
+    for pods, catalog, problem, prep in windows:
+        rec0 = tel.recompiles
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        plan = solver.solve_encoded(problem)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        recompiles = tel.recompiles - rec0
+        clean_and_placed(f"(f) first window at {len(pods)} pods", plan,
+                         pods, catalog)
+        walls = []
+        for _ in range(FAULT["warm"]):
+            t0 = time.perf_counter()
+            solver.solve_encoded(problem)
+            walls.append(time.perf_counter() - t0)
+        p50 = float(np.percentile(walls, 50)) * 1e3
+        out.append({"pods": len(pods), "shape": [prep.G_pad, prep.O_pad,
+                                                  prep.U_pad, prep.N],
+                    "cold_ms": cold_ms, "warm_p50_ms": p50,
+                    "ratio": cold_ms / p50,
+                    "first_dispatches": recompiles})
+    print(COLD_TAG + json.dumps({"side": side, "warmup_s": warm_s,
+                                 "windows": out}), flush=True)
+    return 0
+
+
+def fault_warmup(dev, card: str) -> dict:
+    """(f) The first window of each cold size beside its warm p50, in
+    fresh processes of this script (``--cold-child``), run in the order
+    FAULT["cold_sides"]: the same sizes, catalog and base window on both
+    sides, which differ only in ``warmup_solver``.  Printed with the
+    medians per side, not gated; a child that fails fails the run."""
+    script = Path(__file__).resolve()
+    runs = []
+    for side in FAULT["cold_sides"]:
+        proc = subprocess.run(
+            [sys.executable, str(script), "--cold-child", side],
+            cwd=script.parent, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(COLD_TAG)]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(
+                f"(f) the {side} child exited {proc.returncode}:\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = json.loads(lines[0][len(COLD_TAG):])
+        runs.append(run)
+        say(f"fault (f) [{card}]: child {len(runs)}, {side} warmup_solver "
+            f"(warmup {run['warmup_s'] * 1e3:.3f} ms): " + "; ".join(
+                f"{w['pods']} pods {tuple(w['shape'])}: first "
+                f"{w['cold_ms']:.4f} ms, warm p50 {w['warm_p50_ms']:.4f} "
+                f"ms (x{w['ratio']:.3f}, {w['first_dispatches']} first "
+                f"dispatches)" for w in run["windows"]))
+    out = {"runs": runs}
+    for side in ("without", "with"):
+        ws = [w for r in runs if r["side"] == side for w in r["windows"]]
+        out[side] = {"median_ratio": float(np.median([w["ratio"]
+                                                      for w in ws])),
+                     "median_cold_ms": float(np.median([w["cold_ms"]
+                                                        for w in ws])),
+                     "median_warm_p50_ms": float(np.median(
+                         [w["warm_p50_ms"] for w in ws])),
+                     "first_dispatches": sum(w["first_dispatches"]
+                                             for w in ws),
+                     "windows": len(ws)}
+    say(f"fault (f) [{card}]: medians over {out['without']['windows']} "
+        f"first windows a side: without warmup_solver x"
+        f"{out['without']['median_ratio']:.3f} the warm p50 (first "
+        f"{out['without']['median_cold_ms']:.4f} ms, warm "
+        f"{out['without']['median_warm_p50_ms']:.4f} ms, "
+        f"{out['without']['first_dispatches']} first dispatches), with it "
+        f"x{out['with']['median_ratio']:.3f} (first "
+        f"{out['with']['median_cold_ms']:.4f} ms, warm "
+        f"{out['with']['median_warm_p50_ms']:.4f} ms, "
+        f"{out['with']['first_dispatches']} first dispatches)")
+    return out
+
+
+def fault_kernels_per_window(dev, card: str, solver, request) -> dict:
+    """(g) Kernels per window of the headline and the pref window with
+    the guard and the profiler in place and with both taken out (a null
+    guard, a profiler that never samples): equal, or the run fails;
+    printed beside the previous slice's counts."""
+    import contextlib
+
+    from karpenter_tpu_torch.obs.prof import DeviceProfiler
+    from karpenter_tpu_torch.solver import torch_backend
+
+    pods, catalog = workload.build_workload(
+        HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
+    pref_request = SolveRequest(workload.with_preferences(pods), catalog)
+    pref_solver = TorchSolver(device=dev)
+    pref_solver.solve(pref_request)
+    runs = {"headline": (solver, request, "ffd_scan"),
+            "pref": (pref_solver, pref_request, "ffd_scan_pref")}
+    out = {}
+    for label, (s, req, key) in runs.items():
+        counts = {}
+        for mode in ("guarded", "bare"):
+            with contextlib.ExitStack() as stack:
+                if mode == "bare":
+                    bare = DeviceProfiler(interval=0)
+                    stack.enter_context(_patched(
+                        torch_backend, "device_guard", NullGuard))
+                    stack.enter_context(_patched(
+                        torch_backend, "get_profiler", lambda: bare))
+                counts[mode] = kernels_per_call(
+                    lambda: s.solve(req), f"fault_{label}_{mode}",
+                    ffd_kernel.LAUNCHES, key, spans=5)
+        if counts["guarded"] != counts["bare"]:
+            raise AssertionError(f"(g) {label}: {counts['guarded']} kernels "
+                                 f"per window guarded, {counts['bare']} "
+                                 f"without the guard")
+        out[label] = counts["guarded"]
+        say(f"fault (g) [{card}]: {label} window: {counts['guarded']} "
+            f"kernels per window with the guard and the profiler, "
+            f"{counts['bare']} without (the previous slice's run: "
+            f"{PR9_KERNELS[label]})")
+    return out
+
+
+class NullGuard:
+    """``device_guard`` taken out: no board, no clock, the same fetch."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def fetch(self, out, event=None):
+        from karpenter_tpu_torch.faulttol.dispatch import host_copy
+
+        if event is not None:
+            event.synchronize()
+        if isinstance(out, (tuple, list)):
+            return tuple(host_copy(o) for o in out)
+        return host_copy(out)
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def phase_fault(dev, card: str, pods, catalog) -> dict:
+    """(s) The fault and profiling planes on the card, after every path:
+    (a) guard and profiler overheads over FAULT["windows"] headline
+    windows, the sampled split and the headline wall with the planes on
+    and taken out in turns, (b) a real allocator OOM, (c) a
+    launch error from the FFD library's C entry, (d) a probation walk
+    with the torch probe, (e) the batch's OOM halving, (f) first windows
+    of new signatures in fresh processes without and with warmup, (g) kernels per window with and without
+    the planes.  Run it alone with ``phase_fault(dev, card_line(),
+    *workload.build_workload(10_000, 500, seed=42))`` (the solver it
+    makes builds the kernels)."""
+    solver = TorchSolver(device=dev)
+    request = SolveRequest(pods, catalog)
+    problem = encode_mod.encode(pods, catalog)
+    solver.solve(request)
+    out = {"overheads": fault_overheads(dev, card, solver, request, problem),
+           "planes_cost": fault_planes_cost(dev, card, solver, request),
+           "real_oom": fault_real_oom(dev, card, solver, request, problem),
+           "launch_error": fault_launch_error(dev, card, solver, request),
+           "probation": fault_probation(dev, card),
+           "oom_halving": fault_oom_halving(dev, card, pods, catalog),
+           "warmup": fault_warmup(dev, card),
+           "kernels_per_window": fault_kernels_per_window(
+               dev, card, solver, request)}
+    out["launches"] = out["overheads"]["launches"]
+    fresh_planes()
+    return out
+
+
 def _read_bytes(t: torch.Tensor) -> int:
     """Bytes of an input read once: a catalog expanded over the problems
     (stride 0) is one catalog."""
@@ -3520,11 +4136,17 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-out", type=Path, default=None,
                         help="also write every measurement to this file")
+    parser.add_argument("--cold-child", choices=("with", "without"),
+                        default=None,
+                        help="run one side of the fault phase's cold "
+                             "windows (f) and exit; the phase starts these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs one CUDA card", file=sys.stderr)
         return 2
+    if args.cold_child is not None:
+        return cold_child(args.cold_child)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # the batched paths run their rows through torch.func.vmap: an op with
@@ -3590,6 +4212,7 @@ def main() -> int:
     sharded_churn = phase_sharded_churn(dev, card, catalog)
     sharded_serving = phase_sharded_serving(dev, card, catalog)
     repack = phase_repack(dev, card)
+    fault = phase_fault(dev, card, pods, catalog)
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
         checks["ffd_scan_fleet"]["max_abs_err"], sharded["scan"]
         ["max_abs_err"], sharded_churn["scan"]["max_abs_err"])
@@ -3621,7 +4244,8 @@ def main() -> int:
                      "sharded": sharded["launches"],
                      "sharded_churn": sharded_churn["launches"],
                      "sharded_serving": sharded_serving["launches"],
-                     "repack": repack["launches"]}
+                     "repack": repack["launches"],
+                     "fault": fault["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
@@ -3656,6 +4280,7 @@ def main() -> int:
             "gang": gang, "preempt": preempt, "sharded": sharded,
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
+            "fault": fault,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

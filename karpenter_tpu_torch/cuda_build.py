@@ -78,6 +78,28 @@ _SIGNATURES = {
 
 KERNEL_SOURCES = tuple(sorted(_SIGNATURES))
 
+
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's C entry returned a cudaError: ``kernel`` names the
+    library, ``code`` is the ``cudaError_t`` value.  The argument checks
+    of every entry run before any launch, so their
+    ``cudaErrorInvalidValue`` (1) leaves the context usable; a code from
+    a launch itself may be sticky (see ``faulttol/health.py``)."""
+
+    def __init__(self, kernel: str, code: int, message: str = ""):
+        super().__init__(f"{kernel} launch failed: cudaError {code} "
+                         f"({message})")
+        self.kernel = kernel
+        self.code = int(code)
+
+
+def check_launch(kernel: str, err: int, error_string) -> None:
+    """Raise :class:`KernelLaunchError` for a non-zero cudaError returned
+    by ``kernel``'s C entry (``error_string`` is its message function)."""
+    if err != 0:
+        raise KernelLaunchError(kernel, err, error_string(err).decode())
+
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # kernel name -> (seconds the build took, ptxas report), for this process
@@ -133,6 +155,32 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, float]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+_ready = False
+
+
+def use_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on (the warm-restart
+    directory of ``solver/warmup.enable_persistent_compile_cache``);
+    libraries already loaded stay loaded."""
+    global BUILD_DIR, _ready
+    with _lock:
+        BUILD_DIR = Path(path).resolve()
+        _ready = False
+    return BUILD_DIR
+
+
+def ensure_built() -> None:
+    """Build every kernel once per process (a flag test afterwards):
+    what ``device.resolve_device`` calls when an entry point selects the
+    card, so that no ``nvcc`` run lands in a dispatch's deadline
+    window."""
+    global _ready
+    if not _ready:
+        with _lock:
+            build_all()
+        _ready = True
 
 
 def stream_handle(index: int) -> int:

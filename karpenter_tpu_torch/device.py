@@ -5,6 +5,11 @@ the current CUDA device and raises when there is none — a solve that
 was meant for the card never carries on silently on the CPU.  Callers
 that want the CPU (the tests, the plain-version comparisons) pass
 ``"cpu"``.
+
+Selecting the card also builds every hand kernel, once per process
+(``cuda_build.ensure_built``, a flag test afterwards): every entry
+point resolves its device at construction or call, so the ``nvcc``
+runs land there and never inside a guarded dispatch's deadline window.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ def resolve_device(device="cuda") -> torch.device:
                 "False; pass device='cpu' to run the plain PyTorch path")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        from karpenter_tpu_torch import cuda_build
+
+        cuda_build.ensure_built()
         return dev
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or "

@@ -34,6 +34,9 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.gang.encode import GangProblem
 from karpenter_tpu_torch.gang.topology import (
     best_placement, rank_assignment, split_mask_words,
@@ -94,14 +97,29 @@ class GangPlanner:
                 return torch.from_numpy(
                     np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-            fits, first = free_grid_torch(
-                put(occ_lo, np.int32), put(occ_hi, np.int32),
-                put(m_lo, np.int32), put(m_hi, np.int32),
-                put(valid, np.bool_), put(resid, np.int32),
-                put(need, np.int32), put(label_ok, np.bool_),
-                put(hops, np.int32))
+            # a DeviceFaultError raises to the caller (the reference's numpy
+            # grid after a fault is ROADMAP queue 1 item 13); the reference
+            # notes no devtel here, the port notes the grid's shape
+            get_devtel().note_dispatch(
+                "gang-grid", (Nn, P, resid.shape[1]),
+                h2d_bytes=int(occ.nbytes + masks.nbytes + valid.nbytes
+                              + resid.nbytes + need.nbytes
+                              + label_ok.nbytes + hops.nbytes),
+                donated=False)
+            with device_guard("gang-grid",
+                              devices=[device_id(dev)]) as guard:
+                with get_profiler().sampled("gang-grid") as probe:
+                    fits, first = free_grid_torch(
+                        put(occ_lo, np.int32), put(occ_hi, np.int32),
+                        put(m_lo, np.int32), put(m_hi, np.int32),
+                        put(valid, np.bool_), put(resid, np.int32),
+                        put(need, np.int32), put(label_ok, np.bool_),
+                        put(hops, np.int32))
+                    probe.dispatched((fits, first))
+                fits, first = guard.fetch((fits, first))
+            get_devtel().note_d2h(int(fits.nbytes + first.nbytes))
             self.device_steps += 1
-            return fits.cpu().numpy(), first.cpu().numpy().astype(np.int64)
+            return fits, first.astype(np.int64)
         free = valid & ((masks & occ[:, None]) == 0)
         cap_ok = (resid >= need[None, :]).all(axis=1)
         fits = label_ok & cap_ok & free.any(axis=1)

@@ -13,6 +13,10 @@ With ``resident_buf`` (a ``resident.store.ResidentBuffer``) the stacked
 input stays on the device across windows: an unchanged window reuses it
 and a churned one moves only its word delta.
 
+Each dispatch and each fetch runs inside ``device_guard("fleet-pallas")``
+(the reference's name for this site), the dispatch inside a sampled
+profiler bracket and a devtel note.
+
 Not ported: ``fleet_solve`` / ``fleet_solve_pallas_sharded`` /
 ``fleet_solve_sharded_offerings``, which shard the fleet or the catalog
 over a device mesh and need more than one device.
@@ -26,6 +30,9 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.solver.packed import fleet_packed_torch
 from karpenter_tpu_torch.solver.torch_backend import (
     _pad2, coo_buffer_full, dedup_rows, grow_coo, pack_input, start_fetch,
@@ -141,27 +148,42 @@ def fleet_solve_packed(problem: FleetProblem, *, num_nodes: int,
     if coo_state is None:
         coo_state = CooCapacity(0, 0)
 
+    ids = [device_id(dev)]
+
     def dispatch(dev_ins, K):
-        out = fleet_packed_torch(dev_ins, alloc_all, rank_all, price_all,
-                                 C=C, G=G, O=O, U=U_pad, N=N,
-                                 right_size=right_size, compact=K)
+        # a host buffer is an H2D upload no donated device buffer
+        # replaced; the resident buffer accounts its own delta
+        host_input = dev_ins is None
+        get_devtel().note_dispatch(
+            "fleet-pallas", (C, G, O, U_pad, N, K, right_size),
+            h2d_bytes=int(ins.nbytes) if host_input else 0,
+            donated=not host_input)
+        with device_guard("fleet-pallas", devices=ids):
+            with get_profiler().sampled("fleet-pallas") as probe:
+                out = fleet_packed_torch(
+                    upload(ins, dev) if host_input else dev_ins, alloc_all,
+                    rank_all, price_all, C=C, G=G, O=O, U=U_pad, N=N,
+                    right_size=right_size, compact=K)
+                probe.dispatched(out)
         return start_fetch(out)
 
     K0 = coo_state.k
-    first = dispatch(upload(ins, dev) if resident_buf is None
-                     else resident_buf.update(ins, dev)[0], K0)
+    first = dispatch(None if resident_buf is None
+                     else resident_buf.update(ins, dev,
+                                              kernel="fleet-resident")[0],
+                     K0)
 
     def finalize():
         K, (host, event) = K0, first
         while True:
-            if event is not None:
-                event.synchronize()
-            out_np = host.numpy()
+            with device_guard("fleet-pallas", devices=ids) as guard:
+                out_np = guard.fetch(host, event=event)
+            get_devtel().note_d2h(int(out_np.nbytes))
             if 0 < K < coo_state.cap and any(
                     coo_buffer_full(out_np[c], G, N, K) for c in range(C)):
                 K = grow_coo(K, coo_state.cap)
                 coo_state.k = max(coo_state.k, K)   # persist across windows
-                host, event = dispatch(upload(ins, dev), K)
+                host, event = dispatch(None, K)
                 continue
             return fleet_parse_outputs(out_np, C, G, N, K)
 

@@ -36,6 +36,9 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.preempt.encode import VictimSet, group_node_compat
 from karpenter_tpu_torch.preempt.types import (
     Eviction, PlannerOptions, PreemptionPlan,
@@ -90,10 +93,24 @@ class PreemptionPlanner:
                 return torch.from_numpy(
                     np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
-            out = fit_grid_torch(put(resid0), put(freed_prefix),
-                                 put(consumed), put(req))
+            # a DeviceFaultError raises to the caller (the reference's numpy
+            # grid after a fault is ROADMAP queue 1 item 13); the reference
+            # notes no devtel here, the port notes the grid's shape
+            get_devtel().note_dispatch(
+                "preempt-grid", (Nn, K, _R),
+                h2d_bytes=4 * int(resid0.size + freed_prefix.size
+                                  + consumed.size + req.size),
+                donated=False)
+            with device_guard("preempt-grid",
+                              devices=[device_id(dev)]) as guard:
+                with get_profiler().sampled("preempt-grid") as probe:
+                    out = fit_grid_torch(put(resid0), put(freed_prefix),
+                                         put(consumed), put(req))
+                    probe.dispatched(out)
+                out = guard.fetch(out)
+            get_devtel().note_d2h(int(out.nbytes))
             self.device_steps += 1
-            return out.cpu().numpy().astype(np.int64)
+            return out.astype(np.int64)
         cap = resid0[:, None, :] + freed_prefix - consumed[:, None, :]
         per = np.where(req[None, None, :] > 0,
                        cap // np.maximum(req, 1)[None, None, :], _FIT_BIG)

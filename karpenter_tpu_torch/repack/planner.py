@@ -50,6 +50,9 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.gang.topology import split_mask_words
 from karpenter_tpu_torch.repack.encode import RepackProblem, lowest_free_chips
 from karpenter_tpu_torch.repack.types import (
@@ -195,16 +198,29 @@ class RepackPlanner:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        kind, score, reopened = score_grid_torch(
-            rows.to(dev), up(alloc), padn(p.price_milli, np.int32),
-            padn(p.movable_all, bool), padn(p.maxpod, np.int32),
-            padn(p.sing_count > 0, bool), padn(p.sing_demand, np.int32),
-            padn(p.sing_max, np.int32), padn(occ_lo, np.int32),
-            padn(occ_hi, np.int32), padn(sing_lo, np.int32),
-            padn(sing_hi, np.int32), up(m_lo), up(m_hi), up(v),
-            up(tot_pos), up(real), padn(p.eligible, bool))
+        # a DeviceFaultError raises to the caller (the reference's numpy
+        # grid after a fault is ROADMAP queue 1 item 13); the reference
+        # notes no devtel here, the port notes the grid's shape
+        get_devtel().note_dispatch(
+            "repack-grid", (Np, O, Sp, Pp),
+            h2d_bytes=int(m_lo.nbytes + m_hi.nbytes + v.nbytes),
+            donated=p.rows_dev is not None)
+        with device_guard("repack-grid", devices=[device_id(dev)]) as guard:
+            with get_profiler().sampled("repack-grid") as probe:
+                kind, score, reopened = score_grid_torch(
+                    rows.to(dev), up(alloc), padn(p.price_milli, np.int32),
+                    padn(p.movable_all, bool), padn(p.maxpod, np.int32),
+                    padn(p.sing_count > 0, bool),
+                    padn(p.sing_demand, np.int32),
+                    padn(p.sing_max, np.int32), padn(occ_lo, np.int32),
+                    padn(occ_hi, np.int32), padn(sing_lo, np.int32),
+                    padn(sing_hi, np.int32), up(m_lo), up(m_hi), up(v),
+                    up(tot_pos), up(real), padn(p.eligible, bool))
+                out = torch.stack([kind, score, reopened])
+                probe.dispatched(out)
+            out = guard.fetch(out)
+        get_devtel().note_d2h(int(out.nbytes))
         self.device_steps += 1
-        out = torch.stack([kind, score, reopened]).cpu().numpy()
         return (out[0, :Nn].astype(np.int64), out[1, :Nn].astype(np.int64),
                 out[2, :Nn].astype(np.int64), "device")
 

@@ -24,8 +24,13 @@ hide a broken resident program behind a working one.
 - :class:`OccupancySnapshot` — one occupancy view per repack tick, in
   place of a scan of every pod per claim.
 
-Not ported here: the device-telemetry, metrics and profiler hooks (the
-port has no ``obs.devtel`` / ``obs.prof`` yet).
+Every device update and solve runs inside ``faulttol.device_guard`` and
+a sampled ``obs.prof`` bracket (kernels ``resident-update`` — or the
+caller's name, ``fleet-resident`` — and ``resident``), and every window
+is noted in ``obs.devtel`` (``note_resident_window``, ``note_dispatch``,
+``note_resident_invalidation``) as the reference notes it.  Where the
+reference catches a ``DeviceFaultError`` of the update and rebuilds from
+the host, the port invalidates and raises (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ import threading
 
 import numpy as np
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.resident.delta import (
     DELTA_BUCKETS, REBUILD_FRACTION, WindowDelta, diff_words, empty_delta,
     pack_window, pad_delta, pod_churn,
@@ -97,10 +106,13 @@ class ResidentBuffer:
         self.pending_reason = ""
         self.stats["rebuild"] += 1
 
-    def update(self, host: np.ndarray, device, generation=None):
+    def update(self, host: np.ndarray, device, generation=None,
+               kernel: str = "resident-update"):
         """-> (device buffer of ``host``'s shape, WindowDelta).  ``host``
-        must be int32.  A failed scatter invalidates the buffer and
-        raises."""
+        must be int32.  The scatter runs under ``device_guard(kernel)``;
+        a failed scatter invalidates the buffer and raises (the
+        reference rebuilds from the host there: ROADMAP queue 1 item
+        13)."""
         from karpenter_tpu_torch.resident.kernels import update_resident
         from karpenter_tpu_torch.solver.torch_backend import upload
 
@@ -119,8 +131,14 @@ class ResidentBuffer:
         else:
             didx, dval = pad_delta(idx, flat[idx], flat.size)
             try:
-                update_resident(self.dev, upload(didx, dev),
-                                upload(dval, dev))
+                with device_guard(kernel, devices=[device_id(dev)]):
+                    with get_profiler().sampled(kernel) as probe:
+                        update_resident(self.dev, upload(didx, dev),
+                                        upload(dval, dev))
+                        # fetch=False: the updated state stays resident;
+                        # fetching all of it would measure a transfer
+                        # production never makes
+                        probe.dispatched(self.dev, fetch=False)
             except Exception:
                 self.invalidate("update_error")
                 raise
@@ -128,7 +146,20 @@ class ResidentBuffer:
             self.stats["delta"] += 1
             delta = WindowDelta(mode="delta", words=int(idx.size),
                                 h2d_bytes=int(didx.nbytes + dval.nbytes))
+        self._note(kernel, host, delta, generation)
         return self.dev[:-1].view(host.shape), delta
+
+    @staticmethod
+    def _note(kernel: str, host: np.ndarray, delta: WindowDelta,
+              generation) -> None:
+        get_devtel().note_resident_window(
+            delta.mode, h2d_bytes=delta.h2d_bytes, words=delta.words,
+            reason=delta.reason, resident_bytes=int(host.nbytes),
+            generation=generation)
+        if delta.mode != "hit":
+            get_devtel().note_dispatch(
+                kernel, (host.size, delta.mode == "rebuild"),
+                h2d_bytes=delta.h2d_bytes, donated=delta.mode == "delta")
 
 
 class _SolveState:
@@ -176,6 +207,7 @@ class ResidentStore:
             for st in self._states.values():
                 st.buf.invalidate(reason)
             self.invalidations += 1
+        get_devtel().note_resident_invalidation(reason)
 
     def _account(self, key: tuple, delta: WindowDelta) -> None:
         with self._lock:
@@ -200,6 +232,7 @@ class ResidentStore:
         gen = (catalog.generation, catalog.availability_generation)
         buf = self._state_for(key).buf
         flat = packed.reshape(-1)
+        t0 = obs.now()
         reason, idx = plan_update(buf, flat, gen)
         if reason:
             buf.rebuild(flat, self.device, gen)
@@ -221,12 +254,28 @@ class ResidentStore:
                 delta = WindowDelta(mode="hit", words=0,
                                     h2d_bytes=int(didx.nbytes + dval.nbytes))
         off_alloc, off_price, off_rank = catalog_tensors
-        buf.dev, out = solve_resident(
-            buf.dev, upload(didx, self.device), upload(dval, self.device),
-            off_alloc, off_price, off_rank, G=prep.G_pad, O=prep.O_pad,
-            U=prep.U_pad, N=prep.N, right_size=right_size, compact=prep.K,
-            dense16=prep.dense16, coo16=prep.coo16)
+        get_devtel().note_dispatch(
+            "resident", (prep.G_pad, prep.O_pad, prep.U_pad, prep.N,
+                         didx.size, prep.K, prep.dense16, prep.coo16,
+                         right_size),
+            h2d_bytes=delta.h2d_bytes, donated=delta.mode != "rebuild")
+        get_devtel().note_resident_window(
+            delta.mode, h2d_bytes=delta.h2d_bytes, words=delta.words,
+            reason=delta.reason, resident_bytes=int(flat.nbytes),
+            generation=(catalog.uid,) + gen)
+        with device_guard("resident", devices=[device_id(self.device)]):
+            with get_profiler().sampled("resident") as probe:
+                buf.dev, out = solve_resident(
+                    buf.dev, upload(didx, self.device),
+                    upload(dval, self.device), off_alloc, off_price,
+                    off_rank, G=prep.G_pad, O=prep.O_pad, U=prep.U_pad,
+                    N=prep.N, right_size=right_size, compact=prep.K,
+                    dense16=prep.dense16, coo16=prep.coo16)
+                probe.dispatched(out)
         self._account(key, delta)
+        obs.record("resident.window", t0, obs.now(), mode=delta.mode,
+                   words=delta.words, h2d_bytes=delta.h2d_bytes,
+                   reason=delta.reason)
         return out
 
     def track_window(self, pods, catalog, nodepool=None) -> WindowDelta:
@@ -295,7 +344,8 @@ class ResidentStore:
                 buf = self._occ_buf = ResidentBuffer(name="occupancy")
         gen = (catalog.uid, catalog.generation,
                catalog.availability_generation)
-        dev, delta = buf.update(arr, self.device, generation=gen)
+        dev, delta = buf.update(arr, self.device, generation=gen,
+                                kernel="resident-occupancy")
         return names, dev, delta
 
     def occupancy_rows(self) -> np.ndarray | None:

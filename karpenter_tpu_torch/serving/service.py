@@ -17,9 +17,15 @@ Routing, counted in ``stats()``:
    that find the output ring full (``backpressured``), which leave the
    mirror untouched so the next admitted delta takes up their churn.
 
-A kick or fetch that fails invalidates the ring and raises: the port has
-no host failover and no classic re-solve of a failed window, which would
-hide a broken serving program behind a working one.
+Each kick runs inside ``device_guard("serving-kick")`` and each fetch
+inside ``device_guard("serving-fetch")`` (``guard.fetch`` waits for the
+copy the kick started), each in a sampled profiler bracket; the kick is
+noted in ``obs.devtel`` with the reference's signature, every admitted
+window as a resident window and every invalidation as one.  A kick or
+fetch that fails invalidates the ring and raises: the port has no host
+failover and no classic re-solve of a failed window, which would hide a
+broken serving program behind a working one (the reference's failover
+consumes ``DeviceFaultError``: ROADMAP queue 1 item 13).
 
 ``ShardedServingLoop`` does the same for the sharded service: each
 window is a kick of ``ShardedSolveService._kick_window`` (the stacked
@@ -31,14 +37,18 @@ callers (the chaos harness, shutdown) are not ported either.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 
+from karpenter_tpu_torch import obs
+from karpenter_tpu_torch.faulttol import device_guard
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.resident.delta import empty_delta, pad_delta
 from karpenter_tpu_torch.resident.store import ResidentBuffer, plan_update
 from karpenter_tpu_torch.serving import RING_SLOTS
 from karpenter_tpu_torch.serving.oracle import RingOracle
 from karpenter_tpu_torch.serving.ring import OutputRing, OutputSlot, Staging
+from karpenter_tpu_torch.utils import metrics
 
 
 class ServingPending:
@@ -90,6 +100,7 @@ class ServingLoop:
         self.oracle.reset()
         self.invalidations += 1
         self.last_reason = reason
+        get_devtel().note_resident_invalidation(reason)
 
     @property
     def overlap_fraction(self) -> float:
@@ -168,6 +179,7 @@ class ServingLoop:
     def _classic(self, problem, mode: str):
         self.classic_windows += 1
         self.last_mode = mode
+        metrics.SERVING_WINDOWS.labels(mode).inc()
         return self.solver.solve_encoded_async(problem)
 
     def _admit(self, problem, prep):
@@ -180,20 +192,26 @@ class ServingLoop:
         reason, idx = plan_update(self.buf, flat, generation)
         try:
             if reason:
-                mode = "rebuild"
+                mode, words, h2d = "rebuild", int(flat.size), int(flat.nbytes)
                 didx, dval = empty_delta(flat.size)
                 self.buf.rebuild(flat, self.solver.device, generation)
                 self.rebuilds += 1
                 self.last_reason = reason
             elif idx.size == 0:
-                mode = "hit"
+                mode, words, h2d = "hit", 0, 0
                 didx, dval = pad_delta(idx, flat[idx], flat.size)
                 self.buf.stats["hit"] += 1
             else:
                 didx, dval = pad_delta(idx, flat[idx], flat.size)
-                mode = "delta"
+                mode, words = "delta", int(idx.size)
+                h2d = int(didx.nbytes + dval.nbytes)
                 self.buf.mirror[idx] = flat[idx]
                 self.buf.stats["delta"] += 1
+            get_devtel().note_resident_window(
+                mode, h2d_bytes=h2d, words=words,
+                reason=reason if mode == "rebuild" else "",
+                resident_bytes=int(flat.nbytes), generation=generation)
+            metrics.SERVING_WINDOWS.labels(mode).inc()
             pair = self.staging.upload(didx, dval)
             seq = self.ring_windows
             if mode == "rebuild":
@@ -202,12 +220,13 @@ class ServingLoop:
                 self.oracle.apply(seq, didx, dval)
             self.ring_windows += 1
             self.last_mode = mode
-            return self._kick(problem, prep, mode, *pair)
+            return self._kick(problem, prep, mode, h2d, *pair)
         except Exception:
             self.invalidate("dispatch_error")
             raise
 
-    def _kick(self, problem, prep, mode: str, didx, dval) -> ServingPending:
+    def _kick(self, problem, prep, mode: str, h2d: int, didx,
+              dval) -> ServingPending:
         """Run one loop iteration on the uploaded pair and park the result
         in the output ring."""
         from karpenter_tpu_torch.serving.kernels import serve_window
@@ -219,16 +238,28 @@ class ServingLoop:
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
         off_alloc, off_price, off_rank = self.solver.device_offerings(
             prep.catalog, prep.O_pad)
-        t0 = time.perf_counter()
-        self.buf.dev, out = serve_window(
-            self.buf.dev, didx, dval, off_alloc, off_price, off_rank,
-            G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
-            right_size=self.solver.options.right_size, compact=prep.K,
-            dense16=prep.dense16, coo16=prep.coo16)
+        rs = self.solver.options.right_size
+        get_devtel().note_dispatch(
+            "serving-kick",
+            (prep.G_pad, prep.O_pad, prep.U_pad, prep.N, prep.K,
+             prep.dense16, prep.coo16, rs, mode == "rebuild"),
+            h2d_bytes=h2d, donated=mode != "rebuild")
+        t0 = obs.now()
+        with device_guard("serving-kick", devices=self.solver.device_ids):
+            with get_profiler().sampled("serving-kick") as probe:
+                self.buf.dev, out = serve_window(
+                    self.buf.dev, didx, dval, off_alloc, off_price,
+                    off_rank, G=prep.G_pad, O=prep.O_pad, U=prep.U_pad,
+                    N=prep.N, right_size=rs, compact=prep.K,
+                    dense16=prep.dense16, coo16=prep.coo16)
+                # fetch=False: the new state stays resident and the
+                # result's copy is the serving-fetch site's to account
+                probe.dispatched(self.buf.dev, fetch=False)
         oseq = self.output.push(OutputSlot(
             seq=-1, dev=out, prep=prep, problem=problem, mode=mode,
-            t_disp=t0, t_issued=time.perf_counter(), kick_seq=self.kicks))
+            t_disp=t0, t_issued=obs.now(), kick_seq=self.kicks))
         self.kicks += 1
+        metrics.SERVING_RING_OCCUPANCY.set(float(self.output.occupancy))
         return ServingPending(self, oseq)
 
     def _finish(self, seq: int):
@@ -245,12 +276,17 @@ class ServingLoop:
         self.fetched += 1
         if self.kicks > slot.kick_seq + 1:
             self.overlapped += 1
+        metrics.SERVING_OVERLAP.set(self.overlap_fraction)
         try:
-            if slot.event is not None:
-                slot.event.synchronize()
+            with device_guard("serving-fetch",
+                              devices=self.solver.device_ids) as guard:
+                with get_profiler().sampled("serving-fetch") as probe:
+                    probe.dispatched(slot.dev)
+                guard.fetch(slot.host, event=slot.event)
         except Exception:
             self.invalidate("fetch_error")
             raise
+        metrics.SERVING_RING_OCCUPANCY.set(float(self.output.occupancy))
         pend = PendingSolve(
             self.solver, slot.problem, prep=slot.prep, host=slot.host,
             t_disp=slot.t_disp, t_issued=slot.t_issued,

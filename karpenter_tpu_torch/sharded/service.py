@@ -28,9 +28,11 @@ On one card the shard mesh is one device wide (``mesh_devices`` 1).
 Not ported: the host route of windows with soft preferences, a
 stochastic pool or armed affinity (the reference solves those with the
 greedy oracle; here they raise ``NotImplementedError``), the health-board
-failover, the device telemetry and profiler hooks, and the degraded
-wrapper (ROADMAP queue 1 items 9 and 13).  A failed kick or fetch
-invalidates the resident state and raises.
+failover and the degraded wrapper (ROADMAP queue 1 item 13).  The kick,
+the fetch and the rebalance run inside ``device_guard`` ("sharded-solve",
+"sharded-fetch", "rebalance"), the kick and the rebalance in a sampled
+profiler bracket, each noted in ``obs.devtel`` as the reference notes
+it.  A failed kick or fetch invalidates the resident state and raises.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ import torch
 
 from karpenter_tpu_torch.apis.pod import pod_key
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.resident.delta import (
     DELTA_BUCKETS, WindowDelta, pad_delta,
 )
@@ -94,6 +99,7 @@ class ShardedSolveService:
         self.num_shards = num_shards
         self.right_size = right_size
         self.device = resolve_device(device)
+        self.device_ids = [device_id(self.device)]
         self._lock = threading.Lock()
         # stacked resident state: host mirror [S, L] + device state
         # [S, L + 1], generation-tracked like resident/store
@@ -139,6 +145,8 @@ class ShardedSolveService:
             cached = tuple(torch.from_numpy(np.ascontiguousarray(a))
                            .to(self.device) for a in arrays)
             self._device_catalog[key] = cached
+            get_devtel().note_catalog_upload(
+                int(sum(a.nbytes for a in arrays)))
         return cached
 
     # -- admission front-end -----------------------------------------------
@@ -276,16 +284,26 @@ class ShardedSolveService:
             state = self._dev
         off_alloc, off_price, off_rank = self._catalog_tensors(
             catalog, window.O_pad)
+        get_devtel().note_dispatch(
+            "sharded-solve",
+            (S, window.G_pad, window.O_pad, window.U_pad, window.N,
+             didx.shape[1], self.right_size),
+            h2d_bytes=delta.h2d_bytes, donated=True)
         try:
-            _, out = solve_shards(
-                state, upload(didx, self.device), upload(dval, self.device),
-                off_alloc, off_price, off_rank, G=window.G_pad,
-                O=window.O_pad, U=window.U_pad, N=window.N,
-                right_size=self.right_size)
+            with device_guard("sharded-solve", devices=self.device_ids):
+                with get_profiler().sampled("sharded-solve") as probe:
+                    _, out = solve_shards(
+                        state, upload(didx, self.device),
+                        upload(dval, self.device), off_alloc, off_price,
+                        off_rank, G=window.G_pad, O=window.O_pad,
+                        U=window.U_pad, N=window.N,
+                        right_size=self.right_size)
+                    probe.dispatched(out)
             host, event = start_fetch(out)
         except Exception:
             # the state took the scatter, or may have: it can no longer
-            # be trusted; the host mirror can
+            # be trusted; the host mirror can (the reference's host
+            # re-solve of the window is ROADMAP queue 1 item 13)
             self.invalidate("dispatch_error")
             raise
         return ShardKick(window=window, delta=delta, host=host, event=event,
@@ -296,9 +314,11 @@ class ShardedSolveService:
         account the window.  A failure invalidates and raises."""
         window, delta = kick.window, kick.delta
         try:
-            if kick.event is not None:
-                kick.event.synchronize()
-            plan = self._decode(window, kick.host.numpy())
+            with device_guard("sharded-fetch",
+                              devices=self.device_ids) as guard:
+                out_np = guard.fetch(kick.host, event=kick.event)
+            get_devtel().note_d2h(int(out_np.nbytes))
+            plan = self._decode(window, out_np)
         except Exception:
             self.invalidate("fetch_error")
             raise
@@ -316,10 +336,12 @@ class ShardedSolveService:
         (``decode_plan_entries``), each shard's result checked first."""
         from karpenter_tpu_torch.solver.encode import decode_plan_entries
         from karpenter_tpu_torch.solver.result_layout import (
-            unpack_reason_words,
+            TELEMETRY_LEN, unpack_reason_words,
         )
 
         G, N = window.G_pad, window.N
+        get_devtel().note_telemetry_d2h(
+            len(window.problems) * TELEMETRY_LEN * 4)
         plans = []
         for s, problem in enumerate(window.problems):
             node_off, assign, unplaced, cost = unpack_result(
@@ -367,8 +389,15 @@ class ShardedSolveService:
         if pods is None:
             pods = self.backlog_pods()
         mat = self.pressure(pods)
-        tile_np = rebalance_shards(
-            torch.from_numpy(mat).to(self.device)).cpu().numpy()
+        get_devtel().note_dispatch("rebalance", (self.num_shards,
+                                                 mat.shape[1]),
+                                   h2d_bytes=int(mat.nbytes), donated=False)
+        with device_guard("rebalance", devices=self.device_ids) as guard:
+            with get_profiler().sampled("rebalance") as probe:
+                tile = rebalance_shards(torch.from_numpy(mat).to(self.device))
+                probe.dispatched(tile)
+            tile_np = guard.fetch(tile)
+        get_devtel().note_d2h(int(tile_np.nbytes))
         donor, receiver, amount, skew = (int(tile_np[0, 0]),
                                          int(tile_np[0, 1]),
                                          int(tile_np[0, 2]),

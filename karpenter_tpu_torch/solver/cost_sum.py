@@ -138,8 +138,6 @@ def cost_word(node_off: torch.Tensor,
         err = launch(node_off.data_ptr(), off_price.data_ptr(),
                      out.data_ptr(), C, N, O, O if pd == 2 else 0,
                      cuda_build.stream_handle(index))
-        if err != 0:
-            raise RuntimeError(f"cost_word launch failed: cudaError {err} "
-                               f"({error_string(err).decode()})")
+        cuda_build.check_launch("cost_word", err, error_string)
         LAUNCHES["cost_sum"] += 1
     return out

@@ -317,9 +317,7 @@ def _launch(meta, compat, alloc, alloc_stride, rank, rank_stride,
         node_off.data_ptr(),
         assign.data_ptr(), unplaced.data_ptr(), C, G, O, N, FIT_BIG,
         dev.index, stream)
-    if err != 0:
-        msg = lib.ffd_scan_error_string(err).decode()
-        raise RuntimeError(f"ffd_scan launch failed: cudaError {err} ({msg})")
+    cuda_build.check_launch("ffd_scan", err, lib.ffd_scan_error_string)
     return node_off, assign, unplaced
 
 

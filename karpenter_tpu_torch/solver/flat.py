@@ -60,6 +60,7 @@ from karpenter_tpu_torch.solver.segment_sum import segment_sum
 from karpenter_tpu_torch.solver.types import (
     COO_BUCKETS, GROUP_BUCKETS, NODE_BUCKETS, OFFERING_BUCKETS, Plan, bucket,
 )
+from karpenter_tpu_torch.utils import metrics
 
 ITEM_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768)
 _MAX_ROUNDS = 12
@@ -593,6 +594,8 @@ def finalize_flat_arrays(solver, problem: EncodedProblem, a: FlatAttempt):
             idx = out_np[N + G_pad + 1:N + G_pad + 1 + K]
             cnt = out_np[N + G_pad + 1 + K:N + G_pad + 1 + 2 * K]
         spilled = int(out_np[-1])
+        metrics.SOLVE_PATH.labels("flat").inc()
+        metrics.SOLVE_D2H_BYTES.labels("torch").observe(int(out_np.nbytes))
         solver.last_stats = {
             "path": f"flat-{solver.device.type}",
             "device": str(solver.device), "wall_s": t_fetch - a.t_disp,

@@ -62,9 +62,7 @@ def _launch(present: torch.Tensor, miss: torch.Tensor) -> torch.Tensor:
     index = present.get_device()
     err = launch(present.data_ptr(), miss.data_ptr(), out.data_ptr(), G, N,
                  O, index, cuda_build.stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"presence_sum launch failed: cudaError {err} "
-                           f"({error_string(err).decode()})")
+    cuda_build.check_launch("presence_sum", err, error_string)
     return out
 
 

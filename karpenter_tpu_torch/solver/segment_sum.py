@@ -92,8 +92,6 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
     err = launch(vals.data_ptr(), seg.data_ptr(), out.data_ptr(), items,
                  num_segments, cols, seg.element_size(),
                  cuda_build.stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: cudaError {err} "
-                           f"({error_string(err).decode()})")
+    cuda_build.check_launch("segment_sum", err, error_string)
     LAUNCHES["segment_sum"] += 1
     return out

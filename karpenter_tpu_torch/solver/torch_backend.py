@@ -12,8 +12,18 @@ Batches of same-catalog, same-shape windows — ``solve_encoded_batch``
 (the zone-candidate rounds) and the window-batching arm of
 ``solve_stream`` — stack their buffers into one [C, Li] upload, run
 ``solve_packed_batch_torch`` (one launch of the fleet FFD kernel) and
-come back in one [C, Lo] copy.  A failed launch or an out-of-memory
-error raises; no batch is halved or re-run down another route.
+come back in one [C, Lo] copy.  ``solve_encoded_batch`` halves a batch
+that runs out of device memory (``DeviceResourceExhausted``) and solves
+the halves on the card, as the reference does; any other failure
+raises, and nothing is re-run down another route.
+
+Every dispatch runs inside ``faulttol.device_guard`` and a sampled
+``obs.prof`` bracket under the reference's kernel name ("scan" for the
+FFD route on both devices, "scan-pref", "stochastic", "affinity",
+"resident", "scan-batch"), with a ``obs.devtel`` note whose signature is
+the reference's tuple.  The single window's fetch stays outside the
+guard, as the reference's; the zone-candidate batch fetches inside it
+(``guard.fetch``).
 
 The routes the reference's dispatch takes on its own are served too,
 each from the same packed buffer plus a small leaf: stochastic windows
@@ -40,16 +50,24 @@ import time
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.affinity.encode import pack_affinity
 from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import (
+    DeviceResourceExhausted, device_guard, device_id,
+)
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.obs.telemetry_words import decode_window
 from karpenter_tpu_torch.solver.encode import EncodedProblem
 from karpenter_tpu_torch.solver.flat import dispatch_flat, flat_viable
 from karpenter_tpu_torch.solver.packed import (
     solve_packed_batch_torch, solve_packed_pref_torch, solve_packed_torch,
 )
-from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
+from karpenter_tpu_torch.solver.result_layout import (
+    TELEMETRY_LEN, unpack_reason_words,
+)
 from karpenter_tpu_torch.solver.types import (
     BATCH_BUCKETS, COO_BUCKETS, GROUP_BUCKETS, LABELROW_BUCKETS,
     NODE_BUCKETS, OFFERING_BUCKETS, Plan, SolveRequest, SolverOptions,
@@ -60,6 +78,42 @@ from karpenter_tpu_torch.stochastic.encode import pack_stochastic
 from karpenter_tpu_torch.stochastic.kernel import (
     build_fit_grids, solve_packed_stochastic,
 )
+from karpenter_tpu_torch.utils import metrics
+from karpenter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("solver.torch")
+
+TELEMETRY_LEN_BYTES = TELEMETRY_LEN * 4
+
+# the reference's kernel name of each route (devtel, guard, profiler)
+ROUTE_KERNEL = {"ffd": "scan", "pref": "scan-pref",
+                "stochastic": "stochastic", "affinity": "affinity",
+                "resident": "resident"}
+
+
+def _phase(name: str, t0: float, t1: float, parent=None, **attrs) -> None:
+    """One measurement feeds both observability layers, as the
+    reference's ``_phase``: a retroactive span ``solve.<name>`` in the
+    flight recorder and the solve_phase histogram, with the span's
+    trace id as its exemplar."""
+    sp = obs.record("solve." + name, t0, t1, parent=parent, **attrs)
+    metrics.SOLVE_PHASE.labels(name).observe(
+        t1 - t0, exemplar={"trace_id": str(sp.trace_id)})
+
+
+def note_fetched(path: str, out_np: np.ndarray, windows: int,
+                 G: int) -> None:
+    """The fetched result's accounting, where the reference writes it:
+    the path counter, the D2H bytes, and the explain and telemetry
+    shares of them (``windows`` rows of G reason words and one
+    telemetry block each)."""
+    nbytes = int(out_np.nbytes)
+    metrics.SOLVE_PATH.labels(path).inc()
+    metrics.SOLVE_D2H_BYTES.labels("torch").observe(nbytes)
+    tel = get_devtel()
+    tel.note_d2h(nbytes)
+    tel.note_explain_d2h(windows * G * 4)
+    tel.note_telemetry_d2h(windows * TELEMETRY_LEN_BYTES)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +387,7 @@ class TorchSolver:
                  device="cuda"):
         self.options = options or SolverOptions()
         self.device = resolve_device(device)
+        self.device_ids = [device_id(self.device)]
         self.path = "ffd-cuda" if self.device.type == "cuda" \
             else "ffd-reference"
         opts = self.options
@@ -383,13 +438,17 @@ class TorchSolver:
             attempt = dispatch_flat(self, problem)
             if attempt is not None:
                 return PendingSolve(self, problem, flat=attempt)
-        t_enc = time.perf_counter()
+        par = obs.current_span()
+        t_enc = obs.now()
         prep = self._prepare(problem)
-        t0 = time.perf_counter()
+        t0 = obs.now()
+        _phase("encode", t_enc, t0, parent=par)
         host, event = self._dispatch(prep)
+        t_iss = obs.now()
+        _phase("h2d", t0, t_iss, parent=par, path=ROUTE_KERNEL[prep.route])
         return PendingSolve(self, problem, prep=prep, host=host, event=event,
-                            t_disp=t0, t_issued=time.perf_counter(),
-                            prepare_s=t0 - t_enc)
+                            t_disp=t0, t_issued=t_iss, prepare_s=t0 - t_enc,
+                            span=par)
 
     def solve_stream(self, problems, depth: int = 2, batch: object = "auto"):
         """Solve an iterable of EncodedProblems through a depth-``depth``
@@ -476,7 +535,10 @@ class TorchSolver:
         fetch (the zone-candidate rounds: each problem is the base with
         one compat row re-pinned).  As in the reference, problems that
         cannot share one batch (another catalog, a route other than the
-        default, another group bucket) are solved one by one."""
+        default, another group bucket) are solved one by one, and a
+        batch that runs out of device memory (``DeviceResourceExhausted``)
+        is halved and each half solved the same way, on the card, down to
+        one problem, which raises (``jax_backend.py:1551-1561``)."""
         if not problems:
             return []
         catalog = problems[0].catalog
@@ -492,7 +554,18 @@ class TorchSolver:
         preps = [self._prepare(p, u_pad=U_pad) for p in problems]
         if any(pr.G_pad != preps[0].G_pad for pr in preps):
             return [self.solve_encoded(p) for p in problems]
-        return BatchPendingSolve(self, list(zip(problems, preps))).results()
+        try:
+            return BatchPendingSolve(self, list(zip(problems, preps)),
+                                     fetch_in_guard=True).results()
+        except DeviceResourceExhausted:
+            C = len(problems)
+            if C <= 1:
+                raise
+            log.warning("scan-batch out of device memory; halving",
+                        batch=C)
+            mid = (C + 1) // 2
+            return (self.solve_encoded_batch(problems[:mid])
+                    + self.solve_encoded_batch(problems[mid:]))
 
     # -- internals ---------------------------------------------------------
 
@@ -606,47 +679,79 @@ class TorchSolver:
                            .to(self.device)
                            for a in (off_alloc, off_price, off_rank))
             self._device_catalog[key] = cached
+            get_devtel().note_catalog_upload(
+                int(off_alloc.nbytes + off_price.nbytes + off_rank.nbytes))
         return cached
+
+    def _note_dispatch(self, kernel: str, prep: _Prepared,
+                       extra: tuple = ()) -> None:
+        """Device telemetry of one dispatch (``jax_backend.py:1747``): the
+        reference's signature tuple, and the packed host buffer as an H2D
+        upload that no donated device buffer replaced."""
+        get_devtel().note_dispatch(
+            kernel, (prep.G_pad, prep.O_pad, prep.U_pad, prep.N, prep.K,
+                     prep.dense16, prep.coo16) + tuple(extra),
+            h2d_bytes=int(prep.packed.nbytes), donated=False)
 
     def dispatch_packed(self, prep: _Prepared) -> torch.Tensor:
         """Issue one window on the device; returns the device result.
-        The route follows the prepared leaves (:attr:`_Prepared.route`).
-        A failure of the resident program invalidates the store and
-        raises; no route falls back to another."""
+        The route follows the prepared leaves (:attr:`_Prepared.route`),
+        each inside ``device_guard`` and a sampled profiler bracket under
+        the route's kernel name (:data:`ROUTE_KERNEL`).  A failure of the
+        resident program invalidates the store and raises; no route
+        falls back to another (the reference's fallbacks consume typed
+        faults: ROADMAP queue 1 item 13)."""
         prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
         catalog_t = self.device_offerings(prep.catalog, prep.O_pad)
         route = prep.route
+        rs = self.options.right_size
         if route == "resident":
             try:
                 return self.resident.dispatch_solve(
-                    prep, prep.packed, catalog_t, self.options.right_size)
+                    prep, prep.packed, catalog_t, rs)
             except Exception:
                 self.resident.invalidate("dispatch_error")
                 raise
         off_alloc, off_price, off_rank = catalog_t
-        packed = upload(prep.packed, self.device)
         kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
-                  right_size=self.options.right_size, compact=prep.K,
-                  dense16=prep.dense16, coo16=prep.coo16)
+                  right_size=rs, compact=prep.K, dense16=prep.dense16,
+                  coo16=prep.coo16)
+        kernel = ROUTE_KERNEL[route]
         if route == "pref":
-            return solve_packed_pref_torch(
-                packed, upload(prep.pref_rows, self.device),
-                upload(prep.pref_idx, self.device), off_alloc, off_price,
-                off_rank, P=prep.pref_rows.shape[0],
-                lam_bp=int(self.options.preference_lambda * 10000), **kw)
-        if prep.sto is not None:
+            self._note_dispatch(kernel, prep, (prep.pref_rows.shape[0], rs))
+        elif route == "stochastic":
             sto = upload(prep.sto, self.device)
             kd, kc = self._fit_grids(prep, sto, off_alloc)
-            return solve_packed_stochastic(
-                packed, sto, kd, kc, off_alloc, off_price, off_rank,
-                z_bp=prep.z_bp, **kw)
-        if prep.aff is not None:
-            return solve_packed_affinity(
-                packed, upload(prep.aff, self.device), off_alloc, off_price,
-                off_rank, **kw)
-        return solve_packed_torch(packed, off_alloc, off_price, off_rank,
-                                  **kw)
+            self._note_dispatch(kernel, prep, (prep.z_bp, rs))
+        else:
+            self._note_dispatch(kernel, prep, (rs,))
+        with device_guard(kernel, devices=self.device_ids):
+            with get_profiler().sampled(kernel) as probe:
+                packed = upload(prep.packed, self.device)
+                if route == "pref":
+                    out = solve_packed_pref_torch(
+                        packed, upload(prep.pref_rows, self.device),
+                        upload(prep.pref_idx, self.device), off_alloc,
+                        off_price, off_rank, P=prep.pref_rows.shape[0],
+                        lam_bp=int(self.options.preference_lambda * 10000),
+                        **kw)
+                elif route == "stochastic":
+                    out = solve_packed_stochastic(
+                        packed, sto, kd, kc, off_alloc, off_price, off_rank,
+                        z_bp=prep.z_bp, **kw)
+                elif route == "affinity":
+                    out = solve_packed_affinity(
+                        packed, upload(prep.aff, self.device), off_alloc,
+                        off_price, off_rank, **kw)
+                else:
+                    out = solve_packed_torch(packed, off_alloc, off_price,
+                                             off_rank, **kw)
+                probe.dispatched(out)
+        if route == "stochastic":
+            metrics.OVERCOMMIT_SOLVES.labels("stochastic").inc()
+            metrics.OVERCOMMIT_Z.set(prep.z_bp / 10000.0)
+        return out
 
     def _fit_grids(self, prep: _Prepared, sto: torch.Tensor, off_alloc):
         """The stochastic fit grids (kd, kc) of the window on this
@@ -706,12 +811,14 @@ class PendingSolve:
     route: a program that fails raises."""
 
     __slots__ = ("_solver", "_problem", "_prep", "_flat", "_host", "_event",
-                 "_t_disp", "_t_issued", "_prepare_s", "_done", "_path")
+                 "_t_disp", "_t_issued", "_prepare_s", "_done", "_path",
+                 "_span")
 
     def __init__(self, solver, problem, prep=None, host=None, event=None,
                  t_disp=0.0, t_issued=0.0, prepare_s=0.0, done=None,
-                 flat=None, path=None):
+                 flat=None, path=None, span=None):
         self._solver = solver
+        self._span = span
         self._problem = problem
         self._prep = prep
         self._flat = flat
@@ -737,35 +844,46 @@ class PendingSolve:
         solver, prep = self._solver, self._prep
         host, event = self._host, self._event
         t_disp, t_issued = self._t_disp, self._t_issued
+        par = self._span
+        kernel = "serving" if self._path else ROUTE_KERNEL[prep.route]
         escalations = coo_growths = 0
         while True:
+            # the fetch stays outside the guard, as the reference's
+            # np.asarray fetch (jax_backend.py:1396-1402)
             if event is not None:
                 event.synchronize()
             out_np = host.numpy()
-            t_fetch = time.perf_counter()
+            t_fetch = obs.now()
+            _phase("compute", t_issued, t_fetch, parent=par, path=kernel)
             G, N, K = prep.G_pad, prep.N, prep.K
             if coo_buffer_full(out_np, G, N, K, prep.coo16) \
                     and prep.K0 < prep.K_cap:
                 prep.grow_K0(grow_coo(prep.K0, prep.K_cap))
                 solver._note_coo_growth(G, prep.K0)
                 coo_growths += 1
-                t_disp = time.perf_counter()
+                t_disp = obs.now()
                 host, event = solver._dispatch(prep)
-                t_issued = time.perf_counter()
+                t_issued = obs.now()
+                _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
+                       retry="coo_growth")
                 continue
             node_off = out_np[:N]
             unplaced = out_np[N:N + G]
+            note_fetched(kernel, out_np, 1, G)
             if needs_node_escalation(node_off, unplaced, N, prep.N_cap):
                 prep.escalate_N(bucket(prep.N * 4, NODE_BUCKETS))
                 escalations += 1
-                t_disp = time.perf_counter()
+                t_disp = obs.now()
                 host, event = solver._dispatch(prep)
-                t_issued = time.perf_counter()
+                t_issued = obs.now()
+                _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
+                       retry="node_escalation")
                 continue
-            t_dec = time.perf_counter()
+            t_dec = obs.now()
             self._done = solver._decode(self._problem, out_np, G, N, K,
                                         prep.dense16, prep.coo16)
-            t_end = time.perf_counter()
+            t_end = obs.now()
+            _phase("d2h", t_dec, t_end, parent=par, bytes=int(out_np.nbytes))
             solver.last_stats = {
                 "path": self._path or solver.route_path(prep.route),
                 "device": str(solver.device),
@@ -803,10 +921,14 @@ class BatchPendingSolve:
     __slots__ = ("_solver", "_problems", "_preps", "_C", "_C_pad", "_rows",
                  "_N", "_N_cap", "_K0", "_K_cap", "_dense16_ok", "_K",
                  "_dense16", "_coo16", "_host", "_event", "_t_disp",
-                 "_t_issued", "_done")
+                 "_t_issued", "_done", "_in_guard", "_out_np", "_span")
 
-    def __init__(self, solver: TorchSolver, items):
+    def __init__(self, solver: TorchSolver, items,
+                 fetch_in_guard: bool = False):
         self._solver = solver
+        self._in_guard = fetch_in_guard
+        self._out_np = None
+        self._span = obs.current_span()
         self._problems = [p for p, _ in items]
         self._preps = [pr for _, pr in items]
         p0 = self._preps[0]
@@ -822,20 +944,46 @@ class BatchPendingSolve:
         self._done = None
         self._dispatch()
 
+    def _signature(self) -> tuple:
+        p0 = self._preps[0]
+        return (p0.G_pad, p0.O_pad, p0.U_pad, self._N, self._C_pad, self._K,
+                self._dense16, self._coo16,
+                self._solver.options.right_size)
+
     def _dispatch(self) -> None:
+        """One guarded launch of the batch.  With ``fetch_in_guard`` (the
+        zone-candidate batch, ``jax_backend.py:1525-1532``) the result is
+        fetched inside the guard (``guard.fetch``); otherwise (the
+        stream, ``:2317-2330``) its copy starts behind the launch and
+        ``results()`` waits for it outside the guard."""
         solver, p0 = self._solver, self._preps[0]
-        self._t_disp = time.perf_counter()
+        self._t_disp = obs.now()
         self._K, self._dense16, self._coo16 = clamp_output_opts(
             self._K0, self._dense16_ok, p0.G_pad, self._N)
         off_alloc, off_price, off_rank = solver.device_offerings(
             p0.catalog, p0.O_pad)
-        out = solve_packed_batch_torch(
-            upload(self._rows, solver.device), off_alloc, off_price,
-            off_rank, C=self._C_pad, G=p0.G_pad, O=p0.O_pad, U=p0.U_pad,
-            N=self._N, right_size=solver.options.right_size,
-            compact=self._K, dense16=self._dense16, coo16=self._coo16)
-        self._host, self._event = start_fetch(out)
-        self._t_issued = time.perf_counter()
+        with device_guard("scan-batch", devices=solver.device_ids) as guard:
+            with get_profiler().sampled("scan-batch") as probe:
+                out = solve_packed_batch_torch(
+                    upload(self._rows, solver.device), off_alloc, off_price,
+                    off_rank, C=self._C_pad, G=p0.G_pad, O=p0.O_pad,
+                    U=p0.U_pad, N=self._N,
+                    right_size=solver.options.right_size, compact=self._K,
+                    dense16=self._dense16, coo16=self._coo16)
+                probe.dispatched(out)
+            self._t_issued = obs.now()
+            if self._in_guard:
+                self._out_np = guard.fetch(out)
+            else:
+                self._host, self._event = start_fetch(out)
+        if not self._in_guard:
+            # the zone-candidate batch notes its final shapes once, after
+            # its loop, as the reference does
+            get_devtel().note_dispatch(
+                "scan-batch", self._signature(),
+                h2d_bytes=int(self._rows.nbytes), donated=False)
+            _phase("h2d", self._t_disp, self._t_issued, parent=self._span,
+                   path="scan-batch", batch=self._C)
 
     def results(self) -> list[Plan]:
         if self._done is not None:
@@ -844,10 +992,15 @@ class BatchPendingSolve:
         G = p0.G_pad
         escalations = coo_growths = 0
         while True:
-            if self._event is not None:
-                self._event.synchronize()
-            out_np = self._host.numpy()
-            t_fetch = time.perf_counter()
+            if self._in_guard:
+                out_np = self._out_np
+            else:
+                if self._event is not None:
+                    self._event.synchronize()
+                out_np = self._host.numpy()
+            t_fetch = obs.now()
+            _phase("compute", self._t_issued, t_fetch, parent=self._span,
+                   path="scan-batch", batch=self._C)
             N, K = self._N, self._K
             if self._K0 < self._K_cap and any(
                     coo_buffer_full(out_np[c], G, N, K, self._coo16)
@@ -868,18 +1021,25 @@ class BatchPendingSolve:
                 escalations += 1
                 self._dispatch()
                 continue
-            t_dec = time.perf_counter()
+            note_fetched("scan-batch", out_np, self._C, G)
+            if self._in_guard:
+                get_devtel().note_dispatch(
+                    "scan-batch", self._signature(),
+                    h2d_bytes=int(self._rows.nbytes), donated=False)
+            t_dec = obs.now()
             self._done = [
                 solver._decode(p, out_np[c], G, N, K, self._dense16,
                                self._coo16)
                 for c, p in enumerate(self._problems)]
+            _phase("d2h", t_dec, obs.now(), parent=self._span,
+                   bytes=int(out_np.nbytes), batch=self._C)
             solver.last_stats = {
                 "path": solver.path + "-batch", "device": str(solver.device),
                 "batch": self._C, "batch_pad": self._C_pad,
                 "wall_s": t_fetch - self._t_disp,
                 "dispatch_s": self._t_issued - self._t_disp,
                 "exec_fetch_s": t_fetch - self._t_issued,
-                "decode_s": time.perf_counter() - t_dec,
+                "decode_s": obs.now() - t_dec,
                 "d2h_bytes": int(out_np.nbytes),
                 "h2d_bytes": int(self._rows.nbytes),
                 "compact": bool(K), "G": G, "O": p0.O_pad, "N": N, "K": K,

@@ -32,6 +32,9 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
+from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.whatif.scenario import (
     Scenario, StackedScenarios, WhatIfBaseline, lower_scenarios,
 )
@@ -212,6 +215,8 @@ class WhatIfPlanner:
             cached = tuple(torch.from_numpy(np.ascontiguousarray(a))
                            .to(self.device) for a in arrays)
             self._device_catalog[key] = cached
+            get_devtel().note_catalog_upload(
+                int(sum(a.nbytes for a in arrays)))
         return cached
 
     # -- output shape ------------------------------------------------------
@@ -248,15 +253,32 @@ class WhatIfPlanner:
         K = stacked.K
         outs: list[np.ndarray] = []
         dispatches = 0
+        ids = [device_id(self.device)]
         for lo in range(0, K, self.max_k):
             hi = min(lo + self.max_k, K)
-            didx = torch.from_numpy(stacked.didx[lo:hi]).to(self.device)
-            dval = torch.from_numpy(stacked.dval[lo:hi]).to(self.device)
-            out = solve_scenarios(
-                base, didx, dval, *ct, G=baseline.G_pad, O=baseline.O_pad,
-                U=baseline.U_pad, N=N, right_size=self.right_size,
-                compact=K_coo, dense16=dense16, coo16=coo16)
-            outs.append(out.cpu().numpy())
+            get_devtel().note_dispatch(
+                "whatif",
+                (hi - lo, stacked.D, baseline.G_pad, baseline.O_pad,
+                 baseline.U_pad, N, K_coo, coo16, self.right_size),
+                h2d_bytes=int(baseline.packed.nbytes
+                              + stacked.didx[lo:hi].nbytes
+                              + stacked.dval[lo:hi].nbytes),
+                donated=True)
+            with device_guard("whatif", devices=ids) as guard:
+                with get_profiler().sampled("whatif") as probe:
+                    didx = torch.from_numpy(stacked.didx[lo:hi]).to(
+                        self.device)
+                    dval = torch.from_numpy(stacked.dval[lo:hi]).to(
+                        self.device)
+                    out = solve_scenarios(
+                        base, didx, dval, *ct, G=baseline.G_pad,
+                        O=baseline.O_pad, U=baseline.U_pad, N=N,
+                        right_size=self.right_size, compact=K_coo,
+                        dense16=dense16, coo16=coo16)
+                    probe.dispatched(out)
+                out_np = guard.fetch(out)
+            get_devtel().note_d2h(int(out_np.nbytes))
+            outs.append(out_np)
             dispatches += 1
         raw = np.concatenate(outs) if len(outs) > 1 else outs[0]
         plan = self._decode(baseline, stacked, raw, N, K_coo, coo16,
@@ -294,7 +316,7 @@ class WhatIfPlanner:
                 backend: str, dispatches: int) -> WhatIfPlan:
         from karpenter_tpu_torch.explain import fold_reason
         from karpenter_tpu_torch.solver.result_layout import (
-            unpack_reason_words,
+            TELEMETRY_LEN, unpack_reason_words,
         )
         from karpenter_tpu_torch.solver.torch_backend import unpack_result
         from karpenter_tpu_torch.whatif import WHATIF_RETRY_S
@@ -304,6 +326,9 @@ class WhatIfPlanner:
         gang_mask = np.asarray(baseline.problem.group_gang) >= 0
         price = np.asarray(baseline.catalog.off_price, dtype=np.float64)
         outcomes: list[ScenarioOutcome] = []
+        if backend == "device":
+            get_devtel().note_telemetry_d2h(
+                len(stacked.scenarios) * TELEMETRY_LEN * 4)
         for k, scenario in enumerate(stacked.scenarios):
             node_off, assign, unp, cost = unpack_result(
                 raw[k], G, N, K_coo, coo16=coo16)

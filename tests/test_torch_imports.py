@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert res["torch"]
     # the walk really covered the package (kernel wrappers, build, carry,
     # the resident store, the serving loop, the what-if, gang and
-    # preemption planes, the sharded service and the repack plane)
+    # preemption planes, the sharded service, the repack plane, and the
+    # fault and profiling planes)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -88,7 +89,23 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.sharded.validate",
               "karpenter_tpu_torch.repack.types",
               "karpenter_tpu_torch.repack.encode",
-              "karpenter_tpu_torch.repack.planner"):
+              "karpenter_tpu_torch.repack.planner",
+              # the fault and profiling planes
+              "karpenter_tpu_torch.utils.logging",
+              "karpenter_tpu_torch.utils.metrics",
+              "karpenter_tpu_torch.faulttol.errors",
+              "karpenter_tpu_torch.faulttol.deadline",
+              "karpenter_tpu_torch.faulttol.inject",
+              "karpenter_tpu_torch.faulttol.health",
+              "karpenter_tpu_torch.faulttol.dispatch",
+              "karpenter_tpu_torch.obs.trace",
+              "karpenter_tpu_torch.obs.ledger",
+              "karpenter_tpu_torch.obs.export",
+              "karpenter_tpu_torch.obs.devtel",
+              "karpenter_tpu_torch.obs.prof",
+              "karpenter_tpu_torch.obs.watchdog",
+              "karpenter_tpu_torch.solver.warmup",
+              "karpenter_tpu_torch.resident.aot"):
         assert m in res["modules"]
 
 
