@@ -55,7 +55,9 @@ no result line:
    64}, every N in NODE_BUCKETS and ragged lengths, with 30-70% of the
    nodes open and totals small and near 2^24, and ``cost_word`` (the
    gather, mask and sum in one launch) over the same shapes with a
-   price row per problem, one shared row and one row;
+   price row per problem, one shared row and one row, and at every N
+   from 1 to 64 (rows of 30-32 nodes take the 8-lane order) and from 929
+   to 1024 (30-32 window sums at the last level) with C in {1, 4, 8};
 4. the paths, each with every launch count set to 0 just before and
    read just after, each needing its kernels launched and no pod left
    unplaced: (a) the main path, whose plan must validate clean and
@@ -156,7 +158,24 @@ no result line:
    window of each of three new signatures beside its warm p50, in fresh
    processes of this script, two without ``warmup_solver`` and two with
    it (printed, not gated); kernels per window of the headline and pref windows
-   equal with and without the guard and the profiler;
+   equal with and without the guard and the profiler; (t) the host
+   greedy oracles on the card's plans: the native per-pod twin built
+   from ``csrc/ffd_host.cpp``; the headline and flat plans clean,
+   placing at least the greedy oracle's pods at no more than its cost
+   (the flat oracle uncapped, ``max_nodes=32768``); the greedy's p50 on
+   its python and native paths and ``solve_per_pod_native``'s (the
+   per-pod loop that stands in for karpenter-core's ``Scheduler.Solve``)
+   beside the card's warm p50, with bench.py's verdict name (printed,
+   not gated); the stochastic and affinity routes' packed results equal
+   to ``solve_stochastic_host`` / ``solve_affinity_host`` on node_off,
+   assign, unplaced and words, their cost words equal to the oracles'
+   plans priced in the reference's order; ``check_plan_reasons`` empty
+   on the headline, pref, flat, stochastic and affinity plans; the gang,
+   preemption and repack plans on the card equal to the greedy
+   planners' at bench.py's shapes; the recorder's telemetry
+   ring holding one entry per solved headline window and
+   ``solve_quality_windows_total{plane="scan"}`` the same count, with
+   the recording's host time per window;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -234,6 +253,21 @@ from karpenter_tpu_torch.solver.validate import (
 from karpenter_tpu_torch.whatif import kernels as whatif_kernels
 from karpenter_tpu_torch.whatif import oracle as whatif_oracle
 from karpenter_tpu_torch.whatif import scenario as whatif_scenario
+from karpenter_tpu_torch import native, obs
+from karpenter_tpu_torch.affinity.greedy import solve_affinity_host
+from karpenter_tpu_torch.explain.validate import check_plan_reasons
+from karpenter_tpu_torch.gang import GreedyGangPlanner
+from karpenter_tpu_torch.obs import telemetry_words
+from karpenter_tpu_torch.preempt import GreedyPreemptionPlanner
+from karpenter_tpu_torch.repack import (
+    GreedyRepacker, RepackOptions, RepackPlanner, encode_repack,
+)
+from karpenter_tpu_torch.solver.greedy import (
+    GreedySolver, expand_per_pod, solve_per_pod_native,
+)
+from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
+from karpenter_tpu_torch.stochastic.greedy import solve_stochastic_host
+from karpenter_tpu_torch.utils import metrics
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -2032,7 +2066,30 @@ def phase_cost_sum_checks(dev) -> dict:
     say(f"kernel check cost_word: {words} cases (C in 1, 8, 64; the same "
         f"N; a price row per problem, one shared row, one row; 30-70% "
         f"open, totals past 2^24) bit for bit against the plain version")
-    return {"max_abs_err": 0.0, "cases": cases, "cost_word_cases": words}
+    # the short rows (30-32 nodes sum in 8 lanes) and the band whose last
+    # level holds 30-32 window sums, prices over six decades so another
+    # order of the adds gives another word
+    lane_rows = 0
+    O = 512
+    price = torch.from_numpy((rng.rand(O) * 10.0 ** rng.uniform(
+        -3, 3, O)).astype(np.float32)).to(dev)
+    for C in (1, 4, 8):
+        for N in list(range(1, 65)) + list(range(929, 1025)):
+            node = torch.from_numpy(rng.randint(-1, O, size=(C, N)).astype(
+                np.int32)).to(dev)
+            got = cost_sum.cost_word(node, price)
+            want = cost_sum.cost_word_reference(node, price)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"cost_word differs from its plain "
+                                     f"version at C={C} N={N}")
+            lane_rows += 1
+    say(f"kernel check cost_word on short and lane rows: {lane_rows} cases "
+        f"(C in 1, 4, 8; every N in 1-64 and 929-1024; prices over six "
+        f"decades) bit for bit against the plain version")
+    return {"max_abs_err": 0.0, "cases": cases, "cost_word_cases": words,
+            "lane_row_cases": lane_rows}
 
 
 def kernel_device_ms(fn, kernel: str, reps: int = 50,
@@ -3110,6 +3167,302 @@ def phase_repack(dev, card: str) -> dict:
         f"grid on the card (cold {cold_s * 1e3:.3f} ms), numpy grid "
         f"{off_ms:.4f} ms; encode through the store {encode_ms:.3f} ms, "
         f"fresh {fresh_ms:.3f} ms")
+    return out
+
+
+# -- (t) the host greedy oracles on the card's plans ---------------------------
+
+# the oracle phase: timing repeats and headline windows recorded (the
+# repack oracle's python loop is quadratic in claims: 1.010 s at 400
+# claims and 25.891 s at run_repack's 2000 on the host of an NVIDIA H100
+# 80GB HBM3 machine, 700.00 W)
+ORACLES = dict(python_iters=5, native_iters=10, rounds=10,
+               telemetry_windows=20, record_reps=300)
+
+
+def greedy_gate(label: str, plan, greedy, pods, catalog) -> tuple:
+    """The card's plan against the greedy oracle's, as bench.py and the
+    reference's test_parity_with_oracle_mixed hold them: both clean, the
+    card placing at least the oracle's pods at no more than its cost
+    (+1e-6).  Returns (cost ratio, placed, oracle placed)."""
+    for who, p in (("card", plan), ("greedy", greedy)):
+        errors = validate_plan(p, pods, catalog)
+        if errors:
+            raise AssertionError(f"{label}: the {who} plan: validate_plan "
+                                 f"{errors[:3]}")
+    if plan.placed_count < greedy.placed_count:
+        raise AssertionError(f"{label}: the card places "
+                             f"{plan.placed_count} pods, the greedy oracle "
+                             f"{greedy.placed_count}")
+    if plan.total_cost_per_hour > greedy.total_cost_per_hour + 1e-6:
+        raise AssertionError(f"{label}: the card's cost "
+                             f"{plan.total_cost_per_hour} exceeds the greedy "
+                             f"oracle's {greedy.total_cost_per_hour}")
+    return (plan.total_cost_per_hour / max(greedy.total_cost_per_hour, 1e-9),
+            plan.placed_count, greedy.placed_count)
+
+
+def reasons_clean(label: str, problem, plan) -> None:
+    errors = check_plan_reasons(problem, plan)
+    if errors:
+        raise AssertionError(f"{label}: check_plan_reasons: {errors[:3]}")
+
+
+def verdict(naive_ms: float, card_ms: float, placed_ok: bool,
+            cost_ratio: float) -> tuple[float, str]:
+    """bench.py's ``vs_baseline`` and its verdict name (bench.py:279-288)."""
+    if not naive_ms:
+        return 0.0, "no-native-baseline"
+    if not placed_ok:
+        return 0.0, "places-fewer-than-baseline"
+    if cost_ratio > 1.0 + 1e-6:
+        return 0.0, "cost-exceeds-baseline"
+    ratio = naive_ms / card_ms
+    return ratio, "below-baseline" if ratio < 1.0 else "ok"
+
+
+def route_oracle(dev, label: str, solver, problem, host_fn) -> dict:
+    """The card's packed result of a route window against its numpy
+    oracle: node_off, assign, unplaced and reason words equal; the cost
+    word equal to the oracle's plan priced in the reference's order."""
+    prep = solver._prepare(problem)
+    out = solver.dispatch_packed(prep).cpu().numpy()
+    G, N, g = prep.G_pad, prep.N, problem.num_groups
+    node_off, assign, unplaced, cost = unpack_result(
+        out, G, N, prep.K, prep.dense16, prep.coo16)
+    words = unpack_reason_words(out, G, N, prep.K, prep.dense16, prep.coo16)
+    t0 = time.perf_counter()
+    h_off, h_assign, h_unp, _, h_words = host_fn(prep)
+    host_s = time.perf_counter() - t0
+    for name, a, b in (("node_off", node_off, h_off),
+                       ("assign", assign[:g], h_assign),
+                       ("unplaced", unplaced[:g], h_unp),
+                       ("words", words[:g], h_words)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: the card's {name} differs from "
+                                 f"the host oracle's")
+    price = torch.from_numpy(np.asarray(problem.catalog.off_price,
+                                        dtype=np.float32))
+    want = cost_sum.cost_word_reference(torch.from_numpy(
+        np.ascontiguousarray(h_off, dtype=np.int32)), price)
+    if np.float32(cost).view(np.int32) != want.numpy().view(np.int32):
+        raise AssertionError(f"{label}: cost word {cost} vs the oracle's "
+                             f"plan priced in the reference's order "
+                             f"{float(want)}")
+    say(f"{label}: the card's packed result equals the host oracle's "
+        f"(node_off, assign, unplaced, words; G={g}, N={N}) and its cost "
+        f"word {cost!r} the oracle's plan priced in the reference's order; "
+        f"oracle {host_s * 1e3:.3f} ms")
+    return {"oracle_ms": host_s * 1e3, "cost": float(cost), "N": N}
+
+
+def headline_oracle(dev, card: str, solver, request) -> dict:
+    """The headline through the card and both greedy paths, the per-pod
+    loop beside the card in turns, and the telemetry ring."""
+    pods, catalog = request.pods, request.catalog
+    problem = encode_mod.encode(pods, catalog)
+    plan = solver.solve(request)
+    reasons_clean("headline", problem, plan)
+    py = GreedySolver(SolverOptions(backend="greedy", use_native="off"))
+    nat = GreedySolver(SolverOptions(backend="greedy"))
+    gplan, nplan = py.solve(request), nat.solve(request)
+    if (gplan.backend, nplan.backend) != ("greedy", "greedy-native") \
+            or plan_view(gplan) != plan_view(nplan):
+        raise AssertionError(f"headline: the greedy's python plan "
+                             f"({gplan.backend}) and native plan "
+                             f"({nplan.backend}) differ")
+    ratio, placed, g_placed = greedy_gate("headline", plan, gplan, pods,
+                                          catalog)
+    py_ms = timed_p50(lambda: py.solve(request), ORACLES["python_iters"])
+    nat_ms = timed_p50(lambda: nat.solve(request), ORACLES["native_iters"])
+    expanded = expand_per_pod(problem)
+    if solve_per_pod_native(problem, expanded=expanded) is None:
+        raise AssertionError("solve_per_pod_native: no native library")
+    card_w, naive_w = [], []
+    for _ in range(ORACLES["rounds"]):
+        t0 = time.perf_counter()
+        solver.solve(request)
+        t1 = time.perf_counter()
+        solve_per_pod_native(problem, expanded=expanded)
+        card_w.append(t1 - t0)
+        naive_w.append(time.perf_counter() - t1)
+    card_ms, naive_ms = p50_ms(card_w), p50_ms(naive_w)
+    vs, gate = verdict(naive_ms, card_ms, placed >= g_placed, ratio)
+    say(f"headline oracle: the card's plan clean, {placed} placed (greedy "
+        f"{g_placed}), cost {plan.total_cost_per_hour:.6f} $/h against "
+        f"the greedy's {gplan.total_cost_per_hour:.6f} (ratio "
+        f"{ratio:.6f}); python and native greedy plans equal; "
+        f"check_plan_reasons clean")
+    say(f"timing [{card}]: host greedy p50 {py_ms:.4f} ms (python loop), "
+        f"{nat_ms:.4f} ms (native, per group); solve_per_pod_native p50 "
+        f"{naive_ms:.4f} ms (expand_per_pod hoisted, {len(expanded[0])} "
+        f"rows) beside the card's warm p50 {card_ms:.4f} ms in "
+        f"{ORACLES['rounds']} rounds of turns: vs_baseline {vs:.4f} "
+        f"({gate}); printed, not gated")
+
+    # the telemetry ring: one entry per solved window, none lost
+    obs.reset_recorder()
+    metrics.SOLVE_QUALITY_WINDOWS.reset()
+    for _ in range(ORACLES["telemetry_windows"]):
+        solver.solve(request)
+    ring = obs.get_recorder().telemetry()
+    recorded = metrics.SOLVE_QUALITY_WINDOWS.get("scan")
+    if len(ring) != ORACLES["telemetry_windows"] \
+            or recorded != ORACLES["telemetry_windows"] \
+            or {e["plane"] for e in ring} != {"scan"}:
+        raise AssertionError(f"telemetry: {len(ring)} ring entries and "
+                             f"solve_quality_windows_total{{plane=scan}} "
+                             f"{recorded} after "
+                             f"{ORACLES['telemetry_windows']} windows")
+    summary = telemetry_words.summary()["planes"]["scan"]
+    prep = solver._prepare(problem)
+    out = solver.dispatch_packed(prep).cpu().numpy()
+    args = (out, prep.G_pad, prep.N, prep.K)
+    # (the ring keeps its last entries only: these evict the windows')
+    kw = dict(dense16=prep.dense16, coo16=prep.coo16, plane="probe")
+    t0 = time.perf_counter()
+    for _ in range(ORACLES["record_reps"]):
+        telemetry_words.decode_and_record(*args, **kw)
+    record_us = (time.perf_counter() - t0) / ORACLES["record_reps"] * 1e6
+    say(f"telemetry: {len(ring)} ring entries and "
+        f"solve_quality_windows_total{{plane=\"scan\"}} {recorded} after "
+        f"{ORACLES['telemetry_windows']} headline windows; summary "
+        f"{json.dumps(summary)}")
+    say(f"timing [{card}]: decode_and_record {record_us:.3f} us of host "
+        f"time a window ({ORACLES['record_reps']} calls on the headline's "
+        f"result)")
+    obs.reset_recorder()
+    return {"cost_ratio": ratio, "placed": placed, "greedy_placed": g_placed,
+            "greedy_python_p50_ms": py_ms, "greedy_native_p50_ms": nat_ms,
+            "per_pod_native_p50_ms": naive_ms, "card_p50_ms": card_ms,
+            "vs_baseline": vs, "verdict": gate,
+            "telemetry_ring": len(ring), "telemetry_windows": recorded,
+            "record_us": record_us, "telemetry_summary": summary}
+
+
+def phase_oracles(dev, card: str, solver, request) -> dict:
+    """(t) The host greedy oracles against the card's plans (see the
+    module docstring); no kernel launches are counted here, every path
+    having been driven already."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("the native per-pod twin did not build from "
+                             "csrc/ffd_host.cpp; the baseline is unmeasured")
+    say(f"native: {native.library_path().name} built from "
+        f"{native.SOURCE.name} and loaded in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    out = {"headline": headline_oracle(dev, card, solver, request)}
+
+    # the flat window, the oracle uncapped (bench.py:256)
+    pods, catalog = workload.build_hetero_workload(
+        HEADLINE["pods"], HEADLINE["types"], **FLAT_WINDOWS[0])
+    req = SolveRequest(pods, catalog)
+    card_solver = TorchSolver(device=dev)
+    plan = card_solver.solve(req)
+    if card_solver.last_stats["path"] != f"flat-{dev.type}":
+        raise AssertionError(f"flat oracle window took "
+                             f"{card_solver.last_stats['path']!r}")
+    t0 = time.perf_counter()
+    greedy = GreedySolver(SolverOptions(backend="greedy", max_nodes=32768)
+                          ).solve(req)
+    g_ms = (time.perf_counter() - t0) * 1e3
+    ratio, placed, g_placed = greedy_gate("flat", plan, greedy, pods,
+                                          catalog)
+    reasons_clean("flat", encode_mod.encode(pods, catalog), plan)
+    say(f"flat oracle (seed {FLAT_WINDOWS[0]['seed']}): the card's plan "
+        f"clean, {placed} placed (greedy {g_placed}, {greedy.backend}, "
+        f"max_nodes 32768, {g_ms:.3f} ms), cost ratio {ratio:.6f}; "
+        f"check_plan_reasons clean")
+    out["flat"] = {"cost_ratio": ratio, "placed": placed,
+                   "greedy_placed": g_placed, "greedy_ms": g_ms}
+
+    # the pref plan's reasons
+    pods, catalog = workload.build_workload(
+        HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
+    pods = workload.with_preferences(pods)
+    reasons_clean("pref", encode_mod.encode(pods, catalog),
+                  TorchSolver(device=dev).solve(SolveRequest(pods, catalog)))
+
+    # the routes against their numpy oracles
+    catalog = workload.build_catalog(HEADLINE["types"])
+    pool = NodePool(name="default", overcommit=STOCHASTIC["overcommit"])
+    pods = workload.stochastic_pods(HEADLINE["pods"],
+                                    seed=STOCHASTIC["seed"])
+    problem = encode_mod.encode(pods, catalog, pool)
+    card_solver = TorchSolver(device=dev)
+    reasons_clean("stochastic", problem, card_solver.solve(
+        SolveRequest(pods, catalog, pool)))
+    out["stochastic"] = route_oracle(
+        dev, "stochastic oracle", card_solver, problem,
+        lambda prep: solve_stochastic_host(problem, prep.N, prep.z_bp,
+                                           right_size=True))
+    pods = workload.affinity_bench_pods(
+        AFFINITY["tag"], HEADLINE["pods"],
+        np.random.RandomState(AFFINITY["rng_seed"]))
+    problem = encode_mod.encode(pods, catalog)
+    card_solver = TorchSolver(device=dev)
+    reasons_clean("affinity", problem, card_solver.solve(
+        SolveRequest(pods, catalog)))
+    out["affinity"] = route_oracle(
+        dev, "affinity oracle", card_solver, problem,
+        lambda prep: solve_affinity_host(problem, prep.N, right_size=True))
+
+    # the planes: the torch grids on the card against the greedy planners
+    gcat = workload.build_catalog(GANG["types"], workload.ACCEL_FAMILIES)
+    gprob = encode_gangs(gang_pods(GANG), gcat)
+    gplan = GangPlanner(GangOptions(use_device="on"), device=dev).plan(gprob)
+    t0 = time.perf_counter()
+    gref = GreedyGangPlanner().plan(gprob)
+    gang_ms = (time.perf_counter() - t0) * 1e3
+    if gang_fingerprint(gplan) != gang_fingerprint(gref):
+        raise AssertionError("gang: the card's plan differs from "
+                             "GreedyGangPlanner's")
+    pcat, cluster, pending = preempt_cluster(PREEMPT)
+    pprob = encode_mod.encode(pending, pcat)
+    victims = encode_victims(cluster, pcat)
+    compat = group_node_compat(pprob, victims)
+    budget = PREEMPT["claims"] * 3
+    pplan = PreemptionPlanner(PlannerOptions(use_device="on",
+                                             max_evictions=budget),
+                              device=dev).plan(pprob, victims, compat)
+    t0 = time.perf_counter()
+    pref_plan = GreedyPreemptionPlanner(PlannerOptions(
+        max_evictions=budget)).plan(pprob, victims, compat)
+    preempt_ms = (time.perf_counter() - t0) * 1e3
+    if preempt_fingerprint(pplan) != preempt_fingerprint(pref_plan):
+        raise AssertionError("preemption: the card's plan differs from "
+                             "GreedyPreemptionPlanner's")
+    rcat, rcl = repack_fleet(REPACK)
+    rprob = encode_repack(rcl, rcat)
+    rplan = RepackPlanner(RepackOptions(use_device="on"),
+                          device=dev).plan(rprob)
+    t0 = time.perf_counter()
+    rref = GreedyRepacker().plan(rprob)
+    repack_ms = (time.perf_counter() - t0) * 1e3
+    dcat, dcl = defrag_fleet()
+    dprob = encode_repack(dcl, dcat)
+    dplan = RepackPlanner(RepackOptions(use_device="on"),
+                          device=dev).plan(dprob)
+    if repack_fingerprint(rplan) != repack_fingerprint(rref) \
+            or repack_fingerprint(dplan) != repack_fingerprint(
+                GreedyRepacker().plan(dprob)) or not rplan.migrations:
+        raise AssertionError("repack: the card's plan differs from "
+                             "GreedyRepacker's")
+    say(f"plane oracles: gang ({gprob.num_gangs} gangs), preemption "
+        f"({PREEMPT['pending']} pending x {PREEMPT['claims']} claims, "
+        f"{pplan.eviction_count} evictions) and repack ({REPACK['claims']} "
+        f"claims, {rplan.migration_count} migrations; the torus defrag "
+        f"case too) "
+        f"plans on the card equal to GreedyGangPlanner's, "
+        f"GreedyPreemptionPlanner's and GreedyRepacker's; oracles "
+        f"{gang_ms:.3f} / {preempt_ms:.3f} / {repack_ms:.3f} ms")
+    out["planes"] = {"gang_oracle_ms": gang_ms,
+                     "preempt_oracle_ms": preempt_ms,
+                     "repack_oracle_ms": repack_ms}
+    out["host_s"] = time.perf_counter() - t_phase
+    say(f"oracle phase: {out['host_s']:.3f} s")
     return out
 
 
@@ -4212,6 +4565,7 @@ def main() -> int:
     sharded_churn = phase_sharded_churn(dev, card, catalog)
     sharded_serving = phase_sharded_serving(dev, card, catalog)
     repack = phase_repack(dev, card)
+    oracles = phase_oracles(dev, card, solver, request)
     fault = phase_fault(dev, card, pods, catalog)
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
         checks["ffd_scan_fleet"]["max_abs_err"], sharded["scan"]
@@ -4280,7 +4634,7 @@ def main() -> int:
             "gang": gang, "preempt": preempt, "sharded": sharded,
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
-            "fault": fault,
+            "oracles": oracles, "fault": fault,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

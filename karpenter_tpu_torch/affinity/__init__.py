@@ -8,6 +8,7 @@ pairwise constraint through per-node class presence:
 - ``affinity/encode.py``   — selector classes, bitmasks, spread bounds,
   the zone co-pin prepass and the packed suffix leaf;
 - ``affinity/kernel.py``   — the affinity-gated FFD scan;
+- ``affinity/greedy.py``   — the bit-identical numpy parity oracle;
 - ``affinity/enforce.py``  — the decode choke: every plan of a window
   with the plane passes host-side edge and bound enforcement;
 - ``affinity/validate.py`` — the independent validator.

@@ -12,16 +12,22 @@ from karpenter_tpu_torch.solver.types import SolverOptions
 
 
 def make_solver(options: SolverOptions | None = None, device="cuda"):
-    """The solver for ``options`` on ``device``: the sharded service
-    (``ShardedSolver``) when ``sharded_shards(options)`` resolves more
-    than one shard, as the reference routes it; ``TorchSolver``
+    """The solver for ``options`` on ``device``: the host greedy oracle
+    (``GreedySolver``, no device) for ``backend="greedy"``; the sharded
+    service (``ShardedSolver``) when ``sharded_shards(options)`` resolves
+    more than one shard, as the reference routes it; ``TorchSolver``
     otherwise.
 
-    It is returned UNWRAPPED.  The reference wraps its solver in
-    ``ResilientSolver``, which degrades a failed solve to the host greedy
-    oracle; here that would hide a broken kernel, so the degraded mode
-    waits for ROADMAP queue 1 item 13 (the unserved fallbacks)."""
+    The card's solver is returned UNWRAPPED.  The reference wraps its
+    solver in ``ResilientSolver``, which degrades a failed solve to the
+    host greedy oracle; here that would hide a broken kernel, so the
+    degraded mode waits for ROADMAP queue 1 item 13 (the unserved
+    fallbacks)."""
     options = options or SolverOptions()
+    if options.backend == "greedy":
+        from karpenter_tpu_torch.solver.greedy import GreedySolver
+
+        return GreedySolver(options)
     shards = sharded_shards(options)
     if shards > 1:
         from karpenter_tpu_torch.sharded.solver import ShardedSolver

@@ -1,22 +1,35 @@
 // The order-fixed cost word for Hopper (sm_90a).
 //
 // The cost word is the float32 sum of the open nodes' prices (0 for a
-// closed node).  The reference takes it with jnp.sum
+// closed node).  The reference takes it with jnp.sum(jnp.where(node_off
+// >= 0, off_price[clip(node_off, 0)], 0.0))
 // (karpenter_tpu/solver/jax_backend.py:746, :984), and XLA on the CPU
-// rewrites that reduction into a tree of 32-wide windows: while more
-// than 32 values are left, they are zero-padded to whole windows (half
-// the padding in front, the rest behind) and each window is replaced by
-// its sum taken left to right from 0; the last <= 32 values are then
-// added left to right from 0.  A zone candidate wins only by more than
-// 1e-9 (solver/zonesplit.py), so one ulp of this word can change a
-// plan: the order of the adds is part of the result.  A warp shuffle
-// tree, a library reduction or atomics would each add in another order.
+// fuses that sum with its gather and mask and adds in this order:
+//   1. a row of 30, 31 or 32 values: values 0 .. 8 * floor(n / 8) - 1
+//      into 8 lane accumulators (value i into lane i mod 8, each lane
+//      left to right from 0), the lanes combined by halving (lane l
+//      plus lane l + 4, then l + 2, then l + 1), then the n mod 8 values
+//      left over added to that, left to right;
+//   2. any other row of at most 32 values: left to right from 0;
+//   3. a longer row: while more than 32 values are left, they are
+//      zero-padded to whole 32-wide windows (half the padding in front,
+//      the rest behind) and each window is replaced by its sum taken
+//      left to right from 0; the last <= 32 values are then added left
+//      to right from 0 (never in the 8-lane order of rule 1, also when
+//      30-32 window sums are left, as at 929-1024 values).
+// A zone candidate wins only by more than 1e-9 (solver/zonesplit.py), so
+// one ulp of this word can change a plan: the order of the adds is part
+// of the result.  A warp shuffle tree, a library reduction or atomics
+// would each add in another order.
 //
-// One warp per row (one row per block).  At every level lane l sums the
-// windows l, l + 32, ... of the level's input, one IEEE round-to-nearest
-// add at a time (__fadd_rn, never contracted, no fast math), into a
-// buffer in shared memory that the next level reads; lane 0 adds the
-// last <= 32 values.
+// One warp per row (one row per block).  Every add is one IEEE
+// round-to-nearest add (__fadd_rn, never contracted, no fast math).
+// Rule 1: lane l (< 8) adds values l, l + 8, ... in order; lanes 0-3
+// then add lane l + 4's sum, lanes 0-1 lane l + 2's, lane 0 lane 1's
+// (each sum moved by __shfl_down_sync, added by the receiving lane);
+// lane 0 then adds the tail.  Rule 3: at every level lane l sums the
+// windows l, l + 32, ... of the level's input into a buffer in shared
+// memory that the next level reads; lane 0 adds the last <= 32 values.
 //
 // The word's gather and mask are fused into the first level: it reads
 // each node's offering (node_off, int32, -1 = closed) and adds
@@ -29,7 +42,8 @@
 // What bounds it: nothing on this card at the sizes the solver gives it
 // (N <= 16384 nodes a row, C <= 128 rows): a launch's fixed cost.  Its
 // byte bound is 4 (N + 1) C bytes plus the open nodes' price words at
-// 3.35 TB/s.  Each level is a
+// 3.35 TB/s (the NVIDIA H100 80GB HBM3 data sheet;
+// the card ran at a 700.00 W limit).  Each level is a
 // dependent chain of 32 adds per lane, and level 1 reads 32 consecutive
 // floats per lane (served from L1 after the first touch of each line).
 
@@ -39,6 +53,8 @@ namespace {
 
 constexpr int kWindow = 32;
 constexpr int kMaxLen = kWindow * 8192;   // level-1 partials fit 32 KB
+constexpr int kLanes = 8;                 // rule 1's lane accumulators
+constexpr int kLaneMin = 30;              // rule 1 holds for n in 30-32
 
 // The values of a level: the partials of the level before ...
 struct RowValues {
@@ -90,12 +106,34 @@ __device__ int window_level(Src src, int n, float* dst, int lane) {
   return m_count;
 }
 
+// Rule 1 (n in 30-32): the 8-lane sum of src(0), ..., src(n - 1) into
+// *out; every lane of the warp calls it
+template <class Src>
+__device__ void lane_sum(Src src, int n, float* out, int lane) {
+  const int k = kLanes * (n / kLanes);
+  float acc = 0.0f;
+  if (lane < kLanes)
+    for (int i = lane; i < k; i += kLanes) acc = __fadd_rn(acc, src(i));
+  for (int h = kLanes / 2; h > 0; h /= 2) {
+    const float other = __shfl_down_sync(0xffffffffu, acc, h);
+    if (lane < h) acc = __fadd_rn(acc, other);
+  }
+  if (lane == 0) {
+    for (int i = k; i < n; ++i) acc = __fadd_rn(acc, src(i));
+    *out = acc;
+  }
+}
+
 // The row's sum in the reference's order into *out; the first level
 // reads the row through src, the later ones the partials in a / b; the
 // last <= 32 values are added by lane 0, unpadded.
 template <class Src>
 __device__ void row_sum(Src src, int N, float* a, float* b, float* out,
                         int lane) {
+  if (N >= kLaneMin && N <= kWindow) {
+    lane_sum(src, N, out, lane);
+    return;
+  }
   if (N <= kWindow) {
     if (lane == 0) *out = window_sum<false>(src, 0, N);
     return;

@@ -22,8 +22,9 @@ The grid step runs as torch ops on the planner's device (two int32 words
 per chip bitmask) from ``_DEVICE_MIN_CELLS`` cells on, or when forced
 with ``use_device="on"``; below that size the numpy grid is the route.
 Both are integer/bool exact, so the route never changes the plan.  A
-failure on the device raises: the reference's greedy fallback waits for
-ROADMAP queue 1 item 13.
+failure on the device raises.  The greedy oracle (``gang/greedy.py``)
+is ported; the reference's degraded fallback onto it waits for ROADMAP
+queue 1 item 13.
 """
 
 from __future__ import annotations

@@ -1,24 +1,29 @@
 """Telemetry words: the per-window solver-quality slots on the result wire.
 
-Port of the wire half of ``karpenter_tpu/obs/telemetry_words.py``: the
-slot registry (wire order), the strict decode of a packed result's
-telemetry block, the host-slot fill, and the numpy oracle of the block
-(:func:`telemetry_words_np`, which the what-if oracle packs).  The device
-reduction that writes the block is ``solver/packed.telemetry_words``.  The metric
-families and the flight-recorder ring the reference feeds belong to its
-observability plane, which this package does not carry; decoded slots
-land in ``TorchSolver.last_stats["telemetry"]`` instead.
+Port of ``karpenter_tpu/obs/telemetry_words.py``: the slot registry
+(wire order), the strict decode of a packed result's telemetry block,
+the record step every solve plane's decode site calls
+(:func:`decode_and_record`: fill the host-sourced slots, set the
+``solve_quality_*`` metric families, append to the flight recorder's
+telemetry ring, feed the watchdog's quality detector), the sharded
+plane's rebalance-skew note, the ring's :func:`summary`, and the numpy
+oracle of the block (:func:`telemetry_words_np`, which the what-if
+oracle packs).  The device reduction that writes the block is
+``solver/packed.telemetry_words``.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 from karpenter_tpu_torch.solver.result_layout import (
-    BP_SCALE, SLOT_BINDING_GROUPS, SLOT_COO_GROWTHS, SLOT_ESCALATIONS,
-    SLOT_FILL_ACCEL_BP, SLOT_FILL_CPU_BP, SLOT_FILL_MEM_BP,
+    BP_SCALE, SLOT_BINDING_GROUPS, SLOT_COO_GROWTHS, SLOT_DELTA_WORDS,
+    SLOT_ESCALATIONS, SLOT_FILL_ACCEL_BP, SLOT_FILL_CPU_BP, SLOT_FILL_MEM_BP,
     SLOT_FILL_PODS_BP, SLOT_GROUPS_PLACED, SLOT_GROUPS_UNPLACED,
-    SLOT_NODES_OPEN, SLOT_PODS_UNPLACED, SLOT_SLACK_MEAN_BP,
+    SLOT_NODES_OPEN, SLOT_PODS_UNPLACED, SLOT_REBALANCE_SKEW,
+    SLOT_SLACK_MEAN_BP,
     SLOT_SLACK_MIN_BP, TELEMETRY_MAGIC, TELEMETRY_SLOT_COUNT,
     SuffixLayoutError, unpack_telemetry_words,
 )
@@ -48,22 +53,142 @@ TELEMETRY_SLOTS = (
 SLOT_NAMES = tuple(name for name, _ in TELEMETRY_SLOTS)
 
 
-def decode_window(out_np: np.ndarray, G: int, N: int, K: int, *,
-                  dense16: bool = False, coo16: bool = False,
-                  escalations: int = 0,
-                  coo_growths: int = 0) -> dict | None:
-    """Slot name -> value for one packed result, host slots filled.
-    Telemetry never fails a solve: a buffer without the expected suffix
-    decodes to None."""
-    try:
-        slots = unpack_telemetry_words(np.asarray(out_np), G, N, K,
-                                       dense16, coo16)
-    except SuffixLayoutError:
-        return None
+HOST_SLOTS = (SLOT_ESCALATIONS, SLOT_COO_GROWTHS, SLOT_DELTA_WORDS,
+              SLOT_REBALANCE_SKEW)
+
+_FILL_SLOTS = ((SLOT_FILL_CPU_BP, "cpu"), (SLOT_FILL_MEM_BP, "mem"),
+               (SLOT_FILL_ACCEL_BP, "accel"), (SLOT_FILL_PODS_BP, "pods"))
+
+
+# -- host edge: decode, fill host slots, record ------------------------------
+
+# the last rebalance skew the sharded plane observed: a plane-level fact
+# (not per-window device data), stamped into SLOT_REBALANCE_SKEW of the
+# windows recorded after it
+_SKEW_LOCK = threading.Lock()
+_LAST_REBALANCE_SKEW = 0
+
+
+def note_rebalance_skew(skew: int) -> None:
+    """The sharded rebalance's observed pod-count skew, stamped into the
+    host-sourced rebalance_skew slot of later recorded windows."""
+    global _LAST_REBALANCE_SKEW
+    with _SKEW_LOCK:
+        _LAST_REBALANCE_SKEW = int(skew)
+
+
+def decode_slots(out_np: np.ndarray, G: int, N: int, K: int,
+                 dense16: bool = False,
+                 coo16: bool = False) -> np.ndarray:
+    """Strict telemetry decode of a packed result buffer (raises
+    ``SuffixLayoutError`` on an old-layout buffer, see
+    ``solver/result_layout.py``)."""
+    return unpack_telemetry_words(np.asarray(out_np), G, N, K,
+                                  dense16, coo16)
+
+
+def record_window(plane: str, slots: np.ndarray, *,
+                  escalations: int = 0, coo_growths: int = 0,
+                  delta_words: int = 0) -> dict:
+    """One decoded window's telemetry: fill the host-sourced slots, set
+    the solve_quality metric families, append to the flight recorder's
+    telemetry ring and feed the watchdog's quality detector.  Returns
+    the entry (``plane`` and every slot by name)."""
+    # lazy imports: obs' package __init__ and the watchdog both reach
+    # back into obs modules, so a module-top import could meet the
+    # package half-built
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.obs.watchdog import get_watchdog
+    from karpenter_tpu_torch.utils import metrics
+
     s = np.asarray(slots, np.int32).copy()
     s[SLOT_ESCALATIONS] = escalations
     s[SLOT_COO_GROWTHS] = coo_growths
-    return {name: int(s[i]) for i, name in enumerate(SLOT_NAMES)}
+    s[SLOT_DELTA_WORDS] = delta_words
+    with _SKEW_LOCK:
+        s[SLOT_REBALANCE_SKEW] = _LAST_REBALANCE_SKEW
+    for idx, resource in _FILL_SLOTS:
+        metrics.SOLVE_QUALITY_FILL.labels(plane, resource).set(
+            int(s[idx]) / BP_SCALE)
+    metrics.SOLVE_QUALITY_SLACK.labels(plane, "min").set(
+        int(s[SLOT_SLACK_MIN_BP]) / BP_SCALE)
+    metrics.SOLVE_QUALITY_SLACK.labels(plane, "mean").set(
+        int(s[SLOT_SLACK_MEAN_BP]) / BP_SCALE)
+    for idx, kind in ((SLOT_NODES_OPEN, "nodes_open"),
+                      (SLOT_GROUPS_PLACED, "groups_placed"),
+                      (SLOT_GROUPS_UNPLACED, "groups_unplaced"),
+                      (SLOT_PODS_UNPLACED, "pods_unplaced"),
+                      (SLOT_BINDING_GROUPS, "binding_groups")):
+        metrics.SOLVE_QUALITY_COUNT.labels(plane, kind).set(int(s[idx]))
+    metrics.SOLVE_QUALITY_WINDOWS.labels(plane).inc()
+    if escalations:
+        metrics.SOLVE_QUALITY_ESCALATIONS.labels(plane, "node").inc(
+            escalations)
+    if coo_growths:
+        metrics.SOLVE_QUALITY_ESCALATIONS.labels(plane, "coo").inc(
+            coo_growths)
+    entry = {"plane": plane}
+    entry.update({name: int(s[i]) for i, name in enumerate(SLOT_NAMES)})
+    obs.get_recorder().add_telemetry(entry)
+    fill_bp = max(int(s[idx]) for idx, _ in _FILL_SLOTS)
+    get_watchdog().note_quality(plane, fill_bp,
+                               escalations=escalations + coo_growths)
+    return entry
+
+
+def decode_and_record(out_np: np.ndarray, G: int, N: int, K: int, *,
+                      dense16: bool = False, coo16: bool = False,
+                      plane: str = "scan", escalations: int = 0,
+                      coo_growths: int = 0,
+                      delta_words: int = 0) -> dict | None:
+    """Decode and record in one call, as every solve plane's decode site
+    does.  Telemetry never fails a solve: a buffer without the expected
+    suffix records nothing and returns None."""
+    try:
+        slots = decode_slots(out_np, G, N, K, dense16, coo16)
+    except SuffixLayoutError:
+        return None
+    return record_window(plane, slots, escalations=escalations,
+                         coo_growths=coo_growths, delta_words=delta_words)
+
+
+def summary() -> dict:
+    """The recorder's telemetry ring by plane: the window count, the
+    latest slots, and the mean fill and unplaced pods over the retained
+    ring."""
+    from karpenter_tpu_torch import obs
+
+    entries = obs.get_recorder().telemetry()
+    planes: dict[str, dict] = {}
+    for e in entries:
+        p = planes.setdefault(e["plane"], {
+            "windows": 0, "fill_bp_sum": 0, "pods_unplaced_sum": 0,
+            "escalations": 0, "coo_growths": 0, "last": None})
+        p["windows"] += 1
+        p["fill_bp_sum"] += max(e["fill_cpu_bp"], e["fill_mem_bp"],
+                                e["fill_accel_bp"], e["fill_pods_bp"])
+        p["pods_unplaced_sum"] += e["pods_unplaced"]
+        p["escalations"] += e["escalations"]
+        p["coo_growths"] += e["coo_growths"]
+        p["last"] = {k: v for k, v in e.items() if k != "plane"}
+    out = {}
+    for plane, p in planes.items():
+        n = p["windows"]
+        out[plane] = {
+            "windows": n,
+            "mean_fill_fraction": round(p["fill_bp_sum"] / n / BP_SCALE, 4),
+            "mean_pods_unplaced": round(p["pods_unplaced_sum"] / n, 2),
+            "escalations": p["escalations"],
+            "coo_growths": p["coo_growths"],
+            "last": p["last"],
+        }
+    return {
+        "slots": [{"index": i, "name": name, "source": source}
+                  for i, (name, source) in enumerate(TELEMETRY_SLOTS)],
+        "host_slot_indices": list(HOST_SLOTS),
+        "windows_recorded": len(entries),
+        "planes": out,
+    }
 
 
 # -- numpy oracle (the device twin is solver/packed.telemetry_words) ---------

@@ -24,8 +24,9 @@ The grid step runs as int32 torch ops on the planner's device from
 ``_DEVICE_MIN_CELLS`` cells on (or forced with ``use_device="on"``), as
 long as every tensor fits int32; otherwise the numpy grid is the route,
 a rule of size and range, not a fallback.  Both are integer exact, so
-the route never changes the plan.  A failure on the device raises: the
-reference's greedy fallback waits for ROADMAP queue 1 item 13.
+the route never changes the plan.  A failure on the device raises.  The
+greedy oracle (``preempt/greedy.py``) is ported; the reference's
+degraded fallback onto it waits for ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations

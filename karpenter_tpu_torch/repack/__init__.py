@@ -7,16 +7,18 @@
 - :mod:`planner` — one batched scoring grid per plan (torch ops on the
   planner's device, or numpy below ``_DEVICE_MIN_CELLS``; integer exact
   both ways) and the integral rounding;
+- :mod:`greedy` — the scalar host-loop oracle the planner must equal;
 - ``validate_repack_plan`` (``solver/validate.py``) — the independent
   feasibility check of a plan.
 
-The reference's greedy oracle (``repack/greedy.py``) and degraded
-wrapper (``repack/degraded.py``) wait for ROADMAP queue 1 item 13.
+The reference's degraded wrapper (``repack/degraded.py``) waits for
+ROADMAP queue 1 item 13.
 """
 
 from karpenter_tpu_torch.repack.encode import (
     RepackProblem, encode_repack, parked_gang_shapes,
 )
+from karpenter_tpu_torch.repack.greedy import GreedyRepacker
 from karpenter_tpu_torch.repack.planner import RepackPlanner
 from karpenter_tpu_torch.repack.types import (
     KIND_DEFRAG, KIND_DRAIN, Migration, ReopenedSlice, RepackOptions,
@@ -24,7 +26,7 @@ from karpenter_tpu_torch.repack.types import (
 )
 
 __all__ = [
-    "KIND_DEFRAG", "KIND_DRAIN", "Migration", "ReopenedSlice",
+    "GreedyRepacker", "KIND_DEFRAG", "KIND_DRAIN", "Migration", "ReopenedSlice",
     "RepackOptions", "RepackPlan", "RepackPlanner", "RepackProblem",
     "encode_repack", "parked_gang_shapes",
 ]

@@ -33,8 +33,8 @@ numpy grid is the route, a rule of size and range, not a fallback.  The
 torch grid reads the resident occupancy rows directly when the problem
 carries them (``ResidentStore.occupancy_tensors``).  Both grids are
 integer exact, so the route never changes the plan.  A failure on the
-device raises: the reference's greedy oracle and degraded wrapper wait
-for ROADMAP queue 1 item 13.
+device raises.  The greedy oracle (``repack/greedy.py``) is ported; the
+reference's degraded wrapper onto it waits for ROADMAP queue 1 item 13.
 
 Chip masks are uint64, split into two int32 words (``split_mask_words``)
 for the torch grid; only ``&``, ``|``, ``~`` and ``== 0`` touch them,

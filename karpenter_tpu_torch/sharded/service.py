@@ -49,6 +49,7 @@ from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.faulttol import device_guard, device_id
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
+from karpenter_tpu_torch.obs.telemetry_words import note_rebalance_skew
 from karpenter_tpu_torch.resident.delta import (
     DELTA_BUCKETS, WindowDelta, pad_delta,
 )
@@ -318,7 +319,7 @@ class ShardedSolveService:
                               devices=self.device_ids) as guard:
                 out_np = guard.fetch(kick.host, event=kick.event)
             get_devtel().note_d2h(int(out_np.nbytes))
-            plan = self._decode(window, out_np)
+            plan = self._decode(window, out_np, delta_words=delta.words)
         except Exception:
             self.invalidate("fetch_error")
             raise
@@ -330,10 +331,12 @@ class ShardedSolveService:
         plan.solve_seconds = time.perf_counter() - kick.t0
         return plan
 
-    def _decode(self, window: ShardedWindow,
-                out_np: np.ndarray) -> ShardedPlan:
+    def _decode(self, window: ShardedWindow, out_np: np.ndarray,
+                delta_words: int = 0) -> ShardedPlan:
         """Per-shard decode through the shared COO decode
-        (``decode_plan_entries``), each shard's result checked first."""
+        (``decode_plan_entries``), each shard's telemetry recorded and its
+        result checked first."""
+        from karpenter_tpu_torch.obs.telemetry_words import decode_and_record
         from karpenter_tpu_torch.solver.encode import decode_plan_entries
         from karpenter_tpu_torch.solver.result_layout import (
             TELEMETRY_LEN, unpack_reason_words,
@@ -347,6 +350,8 @@ class ShardedSolveService:
             node_off, assign, unplaced, cost = unpack_result(
                 out_np[s], G, N, 0)
             words = unpack_reason_words(out_np[s], G, N, 0)
+            decode_and_record(out_np[s], G, N, 0, plane="sharded",
+                              delta_words=delta_words)
             if (not np.isfinite(cost)
                     or int(node_off.min(initial=0)) < -1
                     or int(node_off.max(initial=0)) > window.O_pad
@@ -405,6 +410,9 @@ class ShardedSolveService:
         decision = RebalanceDecision(donor=donor, receiver=receiver,
                                      amount=amount, skew=skew,
                                      pressure=mat, tile=tile_np)
+        # the host-sourced telemetry slot: windows recorded after this
+        # carry the skew in SLOT_REBALANCE_SKEW
+        note_rebalance_skew(skew)
         if amount > 0 and donor != receiver:
             decision.moved_keys = self._apply_migration(pods, decision)
         with self._lock:

@@ -1,15 +1,24 @@
 """The order-fixed cost word: the CUDA kernel and its plain twins.
 
 The cost word of a packed result is the float32 sum of the open nodes'
-prices.  The reference takes it with ``jnp.sum``
-(``karpenter_tpu/solver/jax_backend.py:746``, ``:984``), which XLA on
-the CPU rewrites into a tree of 32-wide windows:
+prices.  The reference takes it with ``jnp.sum(jnp.where(node_off >= 0,
+off_price[clip(node_off, 0)], 0.0))`` (``karpenter_tpu/solver/
+jax_backend.py:746``, ``:984``), which XLA on the CPU fuses with its
+gather and mask and sums in this order:
 
-1. while more than 32 values are left, pad them with zeros to a whole
-   number of 32-wide windows (half the padding before the values, the
-   other half, rounded up, after them) and replace each window by its
-   sum, taken left to right from 0;
-2. add the last <= 32 values left to right from 0.
+1. a row of 30, 31 or 32 values: the first 8 * floor(n / 8) values go
+   into 8 lane accumulators (value i into lane i mod 8, each lane left
+   to right from 0), the lanes are combined by halving (lane l plus
+   lane l + 4, then l + 2, then l + 1), and the n mod 8 values left
+   over are added to that, left to right;
+2. any other row of at most 32 values: left to right from 0;
+3. a longer row: while more than 32 values are left, pad them with
+   zeros to a whole number of 32-wide windows (half the padding before
+   the values, the other half, rounded up, after them) and replace
+   each window by its sum, taken left to right from 0; then add the
+   last <= 32 values left to right from 0 (the 8-lane order of rule 1
+   is never taken at an inner level: 929-1024 values end left to
+   right over their 30-32 window sums).
 
 The same rule holds row by row for a ``[C, N]`` sum and under
 ``jax.vmap``.  A plan can hang on one ulp of this word (a zone candidate
@@ -20,9 +29,9 @@ the catalog's prices: on a CUDA tensor one launch of
 ``csrc/cost_sum.cu`` (one warp per row) gathers, masks and sums, with no
 masked-price row and no gather or ``where`` launch before it; on a CPU
 tensor :func:`cost_word_reference` forms the masked row and sums it with
-:func:`cost_sum_reference`, the same windows as a loop over the 32
-columns.  The choice follows the tensor's device, never a failure: on a
-CUDA tensor the kernel launches or the call raises.
+:func:`cost_sum_reference`, the same order as loops over the columns.
+The choice follows the tensor's device, never a failure: on a CUDA
+tensor the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -35,6 +44,9 @@ from karpenter_tpu_torch import cuda_build
 LAUNCHES = {"cost_sum": 0}
 
 WINDOW = 32
+# rows of these lengths are summed in 8 lanes (rule 1 of the header)
+LANES = 8
+LANE_ROWS = (30, 31, 32)
 
 
 def _window_sums(v: torch.Tensor) -> torch.Tensor:
@@ -52,9 +64,29 @@ def _window_sums(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """[..., n] (n in 30-32) -> [...]: rule 1 of the header."""
+    n = v.shape[-1]
+    k = LANES * (n // LANES)
+    acc = torch.zeros((*v.shape[:-1], LANES), dtype=torch.float32,
+                      device=v.device)
+    for j in range(0, k, LANES):
+        acc = acc + v[..., j:j + LANES]
+    half = LANES // 2
+    while half:
+        acc = acc[..., :half] + acc[..., half:2 * half]
+        half //= 2
+    acc = acc[..., 0]
+    for j in range(k, n):
+        acc = acc + v[..., j]
+    return acc
+
+
 def cost_sum_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version on any device: float32 ``[N]`` -> ``[]`` or
     ``[C, N]`` -> ``[C]``, each row summed in the reference's order."""
+    if x.shape[-1] in LANE_ROWS:
+        return _lane_sum(x)
     v = x
     while v.shape[-1] > WINDOW:
         v = _window_sums(v)

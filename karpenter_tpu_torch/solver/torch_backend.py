@@ -59,7 +59,7 @@ from karpenter_tpu_torch.faulttol import (
 )
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
-from karpenter_tpu_torch.obs.telemetry_words import decode_window
+from karpenter_tpu_torch.obs.telemetry_words import decode_and_record
 from karpenter_tpu_torch.solver.encode import EncodedProblem
 from karpenter_tpu_torch.solver.flat import dispatch_flat, flat_viable
 from karpenter_tpu_torch.solver.packed import (
@@ -846,6 +846,9 @@ class PendingSolve:
         t_disp, t_issued = self._t_disp, self._t_issued
         par = self._span
         kernel = "serving" if self._path else ROUTE_KERNEL[prep.route]
+        # the telemetry plane is the path of the dispatch that gave the
+        # result, as the reference's: a serving kick until a re-dispatch
+        plane = kernel
         escalations = coo_growths = 0
         while True:
             # the fetch stays outside the guard, as the reference's
@@ -863,6 +866,7 @@ class PendingSolve:
                 coo_growths += 1
                 t_disp = obs.now()
                 host, event = solver._dispatch(prep)
+                plane = ROUTE_KERNEL[prep.route]
                 t_issued = obs.now()
                 _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
                        retry="coo_growth")
@@ -875,11 +879,16 @@ class PendingSolve:
                 escalations += 1
                 t_disp = obs.now()
                 host, event = solver._dispatch(prep)
+                plane = ROUTE_KERNEL[prep.route]
                 t_issued = obs.now()
                 _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
                        retry="node_escalation")
                 continue
             t_dec = obs.now()
+            telemetry = decode_and_record(
+                out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
+                plane=plane, escalations=escalations,
+                coo_growths=coo_growths)
             self._done = solver._decode(self._problem, out_np, G, N, K,
                                         prep.dense16, prep.coo16)
             t_end = obs.now()
@@ -895,9 +904,7 @@ class PendingSolve:
                 "h2d_bytes": int(prep.packed.nbytes),
                 "compact": bool(K), "G": G, "O": prep.O_pad, "N": N, "K": K,
                 "escalations": escalations, "coo_growths": coo_growths,
-                "telemetry": decode_window(
-                    out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
-                    escalations=escalations, coo_growths=coo_growths)}
+                "telemetry": telemetry}
             if prep.route == "resident":
                 delta = solver.resident.last_delta
                 solver.last_stats.update(h2d_bytes=delta.h2d_bytes,
@@ -1022,6 +1029,11 @@ class BatchPendingSolve:
                 self._dispatch()
                 continue
             note_fetched("scan-batch", out_np, self._C, G)
+            for c in range(self._C):
+                decode_and_record(
+                    out_np[c], G, N, K, dense16=self._dense16,
+                    coo16=self._coo16, plane="scan-batch",
+                    escalations=escalations, coo_growths=coo_growths)
             if self._in_guard:
                 get_devtel().note_dispatch(
                     "scan-batch", self._signature(),

@@ -23,6 +23,8 @@ class SolverOptions:
     "auto" for their environment opt-ins), plus the shard count of the
     sharded service, which ``make_solver`` reads (``sharded/``)."""
 
+    backend: str = "torch"          # "greedy" (the host oracle,
+                                    # solver/greedy.py) | "torch" (the card)
     max_nodes: int = 4096           # static bound on nodes per solve
     right_size: bool = True         # post-pass: re-pick cheapest fitting offering
     bucket_groups: bool = True      # pad G/O/N to bucket ladders
@@ -43,6 +45,9 @@ class SolverOptions:
                                      # the pref scan and the flat program
     resident: str = "auto"          # device-resident state (resident/)
     serving: str = "auto"           # persistent serving loop (serving/)
+    use_native: str = "auto"        # greedy backend: the C++ per-pod FFD
+                                    # twin (csrc/ffd_host.cpp); "off" =
+                                    # the python loop
     sharded: int = 0                # shard count forced on the sharded
                                     # service (0: KARPENTER_ENABLE_SHARDED)
 

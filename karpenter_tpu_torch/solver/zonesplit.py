@@ -104,15 +104,16 @@ def _wins(candidate: Plan, incumbent: Plan) -> bool:
 def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
     """Encode+solve with the v1 pin, then refine zone-affinity groups'
     zone choices against solved candidates.  ``backend`` is a solver
-    exposing ``solve_encoded(problem) -> Plan`` and
-    ``solve_encoded_batch(problems) -> list[Plan]`` and carrying
-    ``options`` (zone_candidates gate + zone_candidate_solves budget).
+    exposing ``solve_encoded(problem) -> Plan`` and carrying ``options``
+    (zone_candidates gate + zone_candidate_solves budget).
 
     Candidates are evaluated in batched rounds: every remaining (group,
     zone) candidate is solved against the current base in one
-    ``solve_encoded_batch`` call.  Each round fixes the single best
-    improvement, then re-evaluates the remaining groups against the
-    updated base.
+    ``solve_encoded_batch`` call where the backend has one
+    (``TorchSolver``); a backend without it (the host greedy oracle)
+    solves each candidate in turn inside the same rounds.  Each round
+    fixes the single best improvement, then re-evaluates the remaining
+    groups against the updated base.
     """
     problem = encode(request.pods, request.catalog, request.nodepool)
     plan = backend.solve_encoded(problem)
@@ -126,6 +127,7 @@ def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
     budget = opts.zone_candidate_solves
     base = problem
     open_groups = {gi: (current, zones) for gi, current, zones in candidates}
+    batch_solve = getattr(backend, "solve_encoded_batch", None)
     # the budget is charged per UNIQUE (group, zone) candidate, as the
     # reference charges it; re-evaluations of an already-seen candidate
     # against an updated base are free
@@ -141,7 +143,10 @@ def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
         if not cand_keys:
             break
         probs = [_with_zone(base, gi, z) for gi, z in cand_keys]
-        plans = backend.solve_encoded_batch(probs)
+        if batch_solve is not None:
+            plans = batch_solve(probs)
+        else:
+            plans = [backend.solve_encoded(p) for p in probs]
         best_i: int | None = None
         for i, p in enumerate(plans):
             if _wins(p, plans[best_i] if best_i is not None else plan):

@@ -12,6 +12,7 @@ square-compare form ``zsq * sum(var) <= (cap - sum(mean))^2``.
 
 - ``stochastic/encode.py``   — usage rows and the packed mean/var leaf;
 - ``stochastic/kernel.py``   — the chance-constrained FFD scan;
+- ``stochastic/greedy.py``   — the bit-identical numpy parity oracle;
 - ``stochastic/validate.py`` — the independent chance-constraint check.
 
 Every numeric constant the scan and its checks share lives here.

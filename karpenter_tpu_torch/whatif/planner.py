@@ -315,6 +315,7 @@ class WhatIfPlanner:
                 raw: np.ndarray, N: int, K_coo: int, coo16: bool,
                 backend: str, dispatches: int) -> WhatIfPlan:
         from karpenter_tpu_torch.explain import fold_reason
+        from karpenter_tpu_torch.obs.telemetry_words import decode_and_record
         from karpenter_tpu_torch.solver.result_layout import (
             TELEMETRY_LEN, unpack_reason_words,
         )
@@ -333,6 +334,10 @@ class WhatIfPlanner:
             node_off, assign, unp, cost = unpack_result(
                 raw[k], G, N, K_coo, coo16=coo16)
             words = unpack_reason_words(raw[k], G, N, K_coo, coo16=coo16)
+            if backend == "device":
+                decode_and_record(
+                    raw[k], G, N, K_coo, coo16=coo16, plane="whatif",
+                    delta_words=int(stacked.delta_words[k]))
             counts = stacked.counts[k][:G_real]
             unp_r = unp[:G_real].astype(np.int64)
             pods = int(counts.sum())

@@ -7,7 +7,12 @@ summed as they lie (every node open on its own offering), random prices
 with 30-70% of the nodes open, rows whose totals reach 2^24 (where a
 float32 add starts to drop bits), and ragged lengths; and it must give
 the reference's word from the scan's ``node_off`` and the catalog's
-prices (one price row, a row per problem, or one shared row).  The flat program's
+prices (one price row, a row per problem, or one shared row).  A sweep
+holds it against the reference's fused, jitted word at every N from 1 to
+1024, the ``NODE_BUCKETS``, 2048, 4096 and 8192, single and ``[C, N]``
+rows (C in 1, 4, 8), which pins the 8-lane order of rows of 30-32 nodes;
+zone-affinity windows at ``max_nodes=32`` must then plan as the
+reference does.  The flat program's
 presence-averaged rank (``solver/flat.presence_rank_sum``,
 summed class by class) must equal the reference's jitted ``jnp.dot`` at
 the padded shapes the program runs: every U in ``CLASS_BUCKETS``, every
@@ -20,13 +25,26 @@ import numpy as np
 import pytest
 import torch
 
+import karpenter_tpu.apis.pod as j_pod
+import karpenter_tpu.apis.requirements as j_req
+from karpenter_tpu.solver import JaxSolver, SolverOptions
+from karpenter_tpu.solver import SolveRequest as JSolveRequest
 from karpenter_tpu.solver.flat import CLASS_BUCKETS
 from karpenter_tpu.solver.types import NODE_BUCKETS, OFFERING_BUCKETS
 
+import karpenter_tpu_torch.apis.pod as t_pod
+import karpenter_tpu_torch.apis.requirements as t_req
 from karpenter_tpu_torch.solver.cost_sum import (
     cost_sum_reference, cost_word, cost_word_reference,
 )
 from karpenter_tpu_torch.solver.flat import presence_rank_sum
+from karpenter_tpu_torch.solver import (
+    SolveRequest, SolverOptions as TSolverOptions, TorchSolver,
+)
+
+from tests.test_torch_solver import (  # noqa: F401 (fixtures)
+    assert_plans_equal, build_pods, jcatalog, mixed_specs, tcatalog,
+)
 
 _masked_sum = jax.jit(lambda p, o: jnp.sum(jnp.where(o, p, 0.0)))
 _masked_sum_batch = jax.vmap(_masked_sum)
@@ -73,12 +91,20 @@ def test_cost_sum_matches_jnp_sum(N):
 
 @pytest.mark.parametrize("N", [0, 1, 31, 33, 100, 1000, 4097])
 def test_cost_sum_ragged_lengths(N):
+    """A masked row summed as ``cost_word(arange(N), row)`` equals the
+    reference's word over the same gather (at 30-32 nodes XLA sums a
+    gathered row in 8 lanes, a ``where``-only row left to right: the
+    solve paths all gather)."""
     rng = np.random.default_rng(7 + N)
     prices, is_open = price_rows(rng, 3, N)
     masked = np.where(is_open, prices, np.float32(0)).astype(np.float32)
     got = cost_sum(torch.from_numpy(masked)).numpy()
-    want = np.asarray(_masked_sum_batch(prices, is_open)) if N \
-        else np.zeros(3, np.float32)
+    if N:
+        node = np.broadcast_to(np.arange(N, dtype=np.int32), (3, N))
+        want = np.asarray(_word_rows(np.ascontiguousarray(node),
+                                     np.pad(masked, ((0, 0), (0, 1)))))
+    else:
+        want = np.zeros(3, np.float32)
     np.testing.assert_array_equal(bits(got), bits(want))
 
 
@@ -189,3 +215,121 @@ def test_flat_presence_rank_sum_matches_jnp_dot(U):
                                 torch.from_numpy(rows)).numpy()
         bad = np.count_nonzero(bits(got) != bits(want))
         assert bad == 0, f"U={U} N={N} O={O}: {bad} words differ"
+
+
+# -- the sweep: every length against the reference's fused, jitted word ------
+
+def _word_program(Ns, C):
+    """One jitted program holding the reference's word once per length
+    (``_word`` for C = 0, its vmap over C rows with one shared price row
+    otherwise): each output is the same fused gather-mask-sum XLA
+    compiles for that length alone, and one compile serves the band."""
+    one = _word if C == 0 else jax.vmap(_word, in_axes=(0, None))
+    return jax.jit(lambda rows, price: [one(r, price) for r in rows])
+
+
+def _sweep(Ns, C, seed, chunk=128):
+    """Hold ``cost_word`` against the reference's word at every length in
+    ``Ns`` (C = 0: single rows; else [C, N] rows); returns the lengths
+    that differ."""
+    rng = np.random.default_rng(seed)
+    O = 211
+    price = (rng.random(O) * 10.0 ** rng.uniform(-3, 3, O)).astype(
+        np.float32)
+    bad = []
+    for i in range(0, len(Ns), chunk):
+        band = Ns[i:i + chunk]
+        rows = [node_rows(rng, max(C, 1), N, O, rng.uniform(0.3, 1.0))
+                for N in band]
+        rows = [r[0] if C == 0 else r for r in rows]
+        want = _word_program(band, C)(rows, price)
+        for N, r, w in zip(band, rows, want):
+            got = cost_word(torch.from_numpy(r), torch.from_numpy(price))
+            if not np.array_equal(bits(got.numpy()), bits(w)):
+                bad.append(N)
+    return bad
+
+
+_LONG = sorted(set(NODE_BUCKETS) | {2048, 4096, 8192})
+
+
+def test_cost_word_sweep_single_rows():
+    """Every N from 1 to 1024 and the long lengths, one row each."""
+    assert _sweep(list(range(1, 1025)) + _LONG, 0, 11) == []
+
+
+@pytest.mark.parametrize("band", ["1-64", "65-928", "929-1024", "long"])
+def test_cost_word_sweep_batched_rows(band):
+    """[C, N] rows: every C in 1, 4, 8 at N in 1-64 (the 8-lane rows),
+    929-1024 (whose last tree level holds 30-32 window sums) and the
+    long lengths; between them C cycles through 1, 4, 8."""
+    if band == "65-928":
+        bad = []
+        for k, C in enumerate((1, 4, 8)):
+            bad += _sweep(list(range(65 + k, 929, 3)), C, 20 + C)
+    else:
+        Ns = {"1-64": list(range(1, 65)),
+              "929-1024": list(range(929, 1025)), "long": _LONG}[band]
+        bad = [N for C in (1, 4, 8) for N in _sweep(Ns, C, 30 + C)]
+    assert bad == []
+
+
+def test_lane_rows_are_not_summed_left_to_right():
+    """The sweep has teeth at 30-32: on these rows the 8-lane order and
+    a left-to-right sum give different words, and the port gives the
+    reference's."""
+    rng = np.random.default_rng(5)
+    for N in (30, 31, 32):
+        prices = (rng.random((64, N)) * 10.0 ** rng.uniform(-3, 3, (64, N))
+                  ).astype(np.float32)
+        node = np.ascontiguousarray(
+            np.broadcast_to(np.arange(N, dtype=np.int32), (64, N)))
+        padded = np.pad(prices, ((0, 0), (0, 1)))
+        want = bits(_word_rows(node, padded))
+        seq = np.zeros(64, np.float32)
+        for n in range(N):
+            seq = (seq + prices[:, n]).astype(np.float32)
+        assert np.count_nonzero(bits(seq) != want) > 0
+        got = cost_word(torch.from_numpy(node), torch.from_numpy(padded))
+        np.testing.assert_array_equal(bits(got.numpy()), want)
+
+
+def _zone_window(pod_mod, req_mod, seed):
+    """220 pods: a seeded mixed window, three apps of 10 with hostname
+    anti-affinity and three of 10 with zone affinity."""
+    pods = build_pods(mixed_specs(160, seed), pod_mod, req_mod)
+    for kind in ("web", "za"):
+        for a in range(3):
+            app = f"{kind}{a}"
+            if kind == "web":
+                term = pod_mod.PodAffinityTerm(
+                    (("app", app),), pod_mod.HOSTNAME_TOPOLOGY_KEY,
+                    anti=True)
+                req = pod_mod.ResourceRequests(500, 1024, 0, 1)
+            else:
+                term = pod_mod.PodAffinityTerm((("app", app),),
+                                               req_mod.LABEL_ZONE)
+                req = pod_mod.ResourceRequests(1000, 2048, 0, 1)
+            pods += [pod_mod.PodSpec(f"{app}-{i}", requests=req,
+                                     labels=(("app", app),),
+                                     affinity=(term,))
+                     for i in range(10)]
+    return pods
+
+
+@pytest.mark.parametrize("seed", [3004, 3024, 3046])
+def test_zone_affinity_window_at_32_nodes_plans_as_reference(
+        jcatalog, tcatalog, seed):  # noqa: F811
+    """220-pod zone-affinity windows at ``max_nodes=32``: node rows of 32
+    price every zone candidate, so the winner hangs on the 8-lane word.
+    Summed left to right, seeds 3024 and 3046 picked another candidate
+    and their plans split from the reference's; 3004 split on the word
+    alone."""
+    jplan = JaxSolver(SolverOptions(use_pallas="off", max_nodes=32)).solve(
+        JSolveRequest(_zone_window(j_pod, j_req, seed), jcatalog))
+    ts = TorchSolver(TSolverOptions(max_nodes=32), device="cpu")
+    tplan = ts.solve(SolveRequest(_zone_window(t_pod, t_req, seed),
+                                  tcatalog))
+    assert ts.last_stats["N"] == 32
+    assert ts.last_stats["path"] == "ffd-reference-batch"
+    assert_plans_equal(jplan, tplan)

@@ -626,6 +626,30 @@ def test_cost_word_kernel_matches_plain_version(cuda_device, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_cost_word_kernel_short_and_lane_rows(cuda_device, C):
+    """The cost word at every N from 1 to 64 (rows of 30-32 take the
+    8-lane order) and 929-1024 (30-32 window sums at the last level),
+    bit for bit against its plain version; prices spread over six
+    decades so every order of the adds gives another word."""
+    from karpenter_tpu_torch.solver import cost_sum as cs
+
+    rng = np.random.RandomState(200 + C)
+    O = 512
+    prices = (rng.rand(O) * 10.0 ** rng.uniform(-3, 3, O)).astype(
+        np.float32)
+    price = torch.from_numpy(prices).to(cuda_device)
+    for N in list(range(1, 65)) + list(range(929, 1025)):
+        node = rng.randint(-1, O, size=(C, N)).astype(np.int32)
+        no = torch.from_numpy(node).to(cuda_device)
+        got = cs.cost_word(no, price)
+        want = cs.cost_word_reference(torch.from_numpy(node),
+                                      torch.from_numpy(prices))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), N
+
+
+@pytest.mark.cuda
 def test_whatif_on_card_matches_cpu(cuda_device):
     """The stacked what-if plan on the card: one fleet-kernel launch and
     one cost-sum launch, the CPU plan's words, the validator clean."""

@@ -105,8 +105,28 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.obs.prof",
               "karpenter_tpu_torch.obs.watchdog",
               "karpenter_tpu_torch.solver.warmup",
-              "karpenter_tpu_torch.resident.aot"):
+              "karpenter_tpu_torch.resident.aot",
+              # the host greedy oracles and the per-pod C++ twin
+              "karpenter_tpu_torch.native",
+              "karpenter_tpu_torch.solver.greedy",
+              "karpenter_tpu_torch.stochastic.greedy",
+              "karpenter_tpu_torch.affinity.greedy",
+              "karpenter_tpu_torch.explain.validate",
+              "karpenter_tpu_torch.gang.greedy",
+              "karpenter_tpu_torch.preempt.greedy",
+              "karpenter_tpu_torch.repack.greedy"):
         assert m in res["modules"]
+
+
+def test_native_twin_builds_from_the_port_source_alone():
+    """The per-pod C++ twin is the port's own file, built with g++ into
+    the port's build directory: never the reference's native/ tree."""
+    from karpenter_tpu_torch import cuda_build, native
+
+    assert native.SOURCE == cuda_build.CSRC_DIR / "ffd_host.cpp"
+    assert native.library_path().parent == cuda_build.BUILD_DIR
+    text = (REPO / "karpenter_tpu_torch" / "native.py").read_text()
+    assert "make" not in text.split() and "native/build" not in text
 
 
 def test_prefix_trap_is_handled():

@@ -47,6 +47,7 @@ from karpenter_tpu.sharded.router import (
 from karpenter_tpu.sharded.router import stable_shard as j_stable_shard
 from karpenter_tpu.solver import SolveRequest as JSolveRequest
 from karpenter_tpu.solver.jax_backend import solve_packed as j_solve_packed
+from karpenter_tpu.utils import metrics as j_metrics
 
 import karpenter_tpu_torch.apis.nodeclaim as t_nodeclaim
 import karpenter_tpu_torch.apis.pod as t_pod
@@ -72,6 +73,19 @@ from karpenter_tpu_torch.sharded.validate import (
     state_violations,
 )
 from karpenter_tpu_torch.solver.packed import solve_packed_torch
+
+
+@pytest.fixture(autouse=True)
+def reference_backlog_series():
+    """The reference's services publish ``shard_backlog_pods`` series
+    into the reference's process-wide registry; leave it as each test
+    found it, so a later test of the same worker reads only its own
+    series (a 4-shard service here used to leave shards 2 and 3)."""
+    before = j_metrics.SHARD_BACKLOG.samples()
+    yield
+    j_metrics.SHARD_BACKLOG.reset()
+    for labels, value in before.items():
+        j_metrics.SHARD_BACKLOG.labels(*labels).set(value)
 
 
 def carried(jcat):
