@@ -175,7 +175,32 @@ no result line:
    planners' at bench.py's shapes; the recorder's telemetry
    ring holding one entry per solved headline window and
    ``solve_quality_windows_total{plane="scan"}`` the same count, with
-   the recording's host time per window;
+   the recording's host time per window; (u) the degraded modes, after
+   the fault phase; no window leaves the card for a host oracle there:
+   (u1) ``make_solver()`` on the headline gives ``TorchSolver``'s plan,
+   a scripted error on the next dispatch raises ``DeviceFaultError`` out
+   of it with no breadcrumb and the resident store invalidated once,
+   and the next window launches ``ffd_scan`` again; (u2) the stochastic
+   and affinity windows of (g) and (f) with their route program raising:
+   one breadcrumb, the re-run launches ``ffd_scan``, the plan equals the
+   CPU twin's stripped plan, the same window again takes the scan with
+   none; a scripted device fault on the route strips nothing and raises
+   out of ``ResilientSolver``; (u3) ``ServingLoop`` faults at the kick
+   and the fetch of (j)'s windows fail over to the classic plan on the
+   card (``host_failovers`` 2), the pref window through
+   ``make_solver(sharded=2)`` takes the host route and equals the CPU
+   host route's plan, sharded kick and fetch faults raise out of
+   ``ResilientShardedService`` and the sharded serving loop
+   (``degraded_windows`` and ``host_failovers`` 0) and the next windows
+   run on the card; (u4) the gang, preemption, repack and what-if
+   wrappers pass their planners' clean plans on the card ((t)'s greedy
+   plans) and raise a scripted fault; (u5) the headline p50 through
+   ``make_solver()`` beside ``TorchSolver`` in 10 rounds of turns and
+   ``plan_defects`` alone (printed, not gated; no timed window may
+   degrade).  (u0) every phase but (s) and (u) runs under a gate that
+   fails the run if it moves a degradation breadcrumb
+   (``solver/degraded.breadcrumbs()``); ``sharded_solves_total{host}``
+   is printed, not gated;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -197,6 +222,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import cProfile
+import dataclasses
 import gc
 import importlib
 import json
@@ -265,6 +291,7 @@ from karpenter_tpu_torch.repack import (
 from karpenter_tpu_torch.solver.greedy import (
     GreedySolver, expand_per_pod, solve_per_pod_native,
 )
+from karpenter_tpu_torch.solver.degraded import breadcrumbs, plan_defects
 from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
 from karpenter_tpu_torch.stochastic.greedy import solve_stochastic_host
 from karpenter_tpu_torch.utils import metrics
@@ -2660,9 +2687,11 @@ def phase_sharded(dev, card: str, pods, catalog) -> dict:
 
     S = SHARDED["shards"]
     solver = make_solver(SolverOptions(sharded=S), device=dev)
-    if type(solver) is not ShardedSolver or solver.service.num_shards != S:
+    if type(solver.primary) is not ShardedSolver \
+            or solver.service.num_shards != S:
         raise AssertionError(f"make_solver(sharded={S}) gave {solver!r}")
-    kicks = keep_kicks(solver.service)
+    # the service behind the plane's degraded wrapper
+    kicks = keep_kicks(solver.service.primary)
     request = SolveRequest(pods, catalog)
     reset_launches()
     t0 = time.perf_counter()
@@ -3461,6 +3490,11 @@ def phase_oracles(dev, card: str, solver, request) -> dict:
     out["planes"] = {"gang_oracle_ms": gang_ms,
                      "preempt_oracle_ms": preempt_ms,
                      "repack_oracle_ms": repack_ms}
+    # the planes' problems and greedy plans, for phase (u)'s wrappers
+    out["cases"] = {"gang": (gprob, gref),
+                    "preempt": (pprob, victims, compat, PlannerOptions(
+                        max_evictions=budget), pref_plan),
+                    "defrag": (dprob, GreedyRepacker().plan(dprob))}
     out["host_s"] = time.perf_counter() - t_phase
     say(f"oracle phase: {out['host_s']:.3f} s")
     return out
@@ -4068,6 +4102,494 @@ def phase_fault(dev, card: str, pods, catalog) -> dict:
     return out
 
 
+# -- (u) the degraded modes ----------------------------------------------------
+
+# (u5): rounds of turns, headline windows per arm in each round, and the
+# plan_defects calls timed; (u4): the what-if menu's scenarios (plan_host
+# solves them one at a time on the host)
+DEGRADED = dict(rounds=10, per_round=5, defects_reps=20, whatif_k=4)
+def degradation_marks() -> dict:
+    """Every degradation breadcrumb of the process: the ``ERRORS``
+    samples of kind ``degraded_*`` / ``*_fallback`` (among them each
+    ``ResilientShardedService.degraded_windows`` and
+    ``degraded_rebalances`` step), ``SERVING_WINDOWS{host_failover}``
+    and ``OVERCOMMIT_SOLVES{degraded}`` (``solver/degraded.breadcrumbs``)."""
+    return breadcrumbs()
+
+
+def marks_moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0.0) for k in after
+            if after[k] != before.get(k, 0.0)}
+
+
+def gated(label: str, fn, *args, **kwargs):
+    """(u0) Run one phase; any degradation breadcrumb it moves fails the
+    run (the degraded modes never fire on a path that must not
+    degrade)."""
+    before = degradation_marks()
+    out = fn(*args, **kwargs)
+    moved = marks_moved(before, degradation_marks())
+    if moved:
+        raise AssertionError(f"phase {label}: a degraded mode fired: "
+                             f"{moved}")
+    return out
+
+
+class SiteInjector:
+    """Faults the next dispatch of one guard site (``kernel``; None =
+    whichever dispatch comes next) with ``kind``."""
+
+    def __init__(self, kernel=None, kind="error"):
+        self.kernel, self.kind = kernel, kind
+        self.injected = 0
+
+    def draw(self, kernel, candidates):
+        if not self.injected and self.kernel in (None, kernel):
+            self.injected = 1
+            return self.kind, candidates[0]
+        return None
+
+    def probe_faults(self, device):
+        return False
+
+
+@contextlib.contextmanager
+def injected(kernel=None, kind="error"):
+    """One scripted fault at the next dispatch of ``kernel``; the health
+    board is fresh before and after, so the fault quarantines nothing
+    later."""
+    from karpenter_tpu_torch import faulttol
+    from karpenter_tpu_torch.faulttol import health as health_mod
+
+    health_mod._BOARD = None
+    inj = SiteInjector(kernel, kind)
+    faulttol.install_injector(inj)
+    try:
+        yield inj
+    finally:
+        faulttol.clear_injector()
+        health_mod._BOARD = None
+    if not inj.injected:
+        raise AssertionError(f"the scripted fault on {kernel!r} was never "
+                             f"drawn")
+
+
+def expect_marks(label: str, before: dict, want: dict) -> None:
+    got = marks_moved(before, degradation_marks())
+    if got != want:
+        raise AssertionError(f"{label}: breadcrumbs moved {got}, want "
+                             f"{want}")
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def expect_fault(label: str, fn, *args, **kwargs) -> float:
+    """Call ``fn`` while a scripted fault is armed: on the card it must
+    raise ``DeviceFaultError`` and move no breadcrumb (no window leaves
+    the card for a host oracle).  Returns its wall in ms."""
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+
+    before = degradation_marks()
+    t0 = time.perf_counter()
+    try:
+        fn(*args, **kwargs)
+    except DeviceFaultError:
+        ms = (time.perf_counter() - t0) * 1e3
+    else:
+        raise AssertionError(f"{label}: the scripted fault did not raise")
+    expect_marks(label, before, {})
+    return ms
+
+
+def degraded_make_solver(dev, request, main_plan, launches: dict) -> dict:
+    """(u1) ``make_solver()`` on the headline: the plan of ``TorchSolver``
+    without faults; a scripted ``"error"`` on the next dispatch raises
+    ``DeviceFaultError`` out of the wrapped solver (a solver on the card
+    never degrades to the host), moves no breadcrumb and leaves the
+    resident store invalidated once; the next window runs on the card
+    again."""
+    from karpenter_tpu_torch import make_solver
+
+    solver = make_solver(device=dev)
+    plan = solver.solve(request)
+    plans_equal("make_solver headline", plan, main_plan)
+    if plan.backend.startswith("degraded:"):
+        raise AssertionError(f"make_solver headline: {plan.backend}")
+    res = make_solver(SolverOptions(resident="on"), device=dev)
+    plans_equal("make_solver resident headline", res.solve(request),
+                main_plan)
+    inv = res.resident.invalidations
+    with injected():
+        fault_ms = expect_fault("faulted headline", res.solve, request)
+    if res.resident.invalidations != inv + 1:
+        raise AssertionError(f"faulted headline: the resident store was "
+                             f"invalidated {res.resident.invalidations - inv}"
+                             f" times, want once")
+    reset_launches()
+    plan = res.solve(request)
+    got = launch_counts()
+    require_launches(got, ["ffd_scan", "cost_sum"], "window after a fault")
+    add_launches(launches, got)
+    plans_equal("window after a fault", plan, main_plan)
+    if res.resident.last_rebuild_reason != "dispatch_error":
+        raise AssertionError(f"window after a fault rebuilt for "
+                             f"{res.resident.last_rebuild_reason!r}")
+    say(f"degraded (u1): make_solver() headline plan equal to "
+        f"TorchSolver's ({plan.backend}); a scripted error on the next "
+        f"dispatch raised DeviceFaultError out of make_solver's solver in "
+        f"{fault_ms:.3f} ms, no breadcrumb, the resident store invalidated "
+        f"once; the next window on the card (launches {got}), rebuilt for "
+        f"dispatch_error")
+    return {"fault_ms": fault_ms}
+
+
+def strip_case(dev, label: str, route: str, request, program: str,
+               launches: dict) -> dict:
+    """(u2) One route strip at full width: the route's program raises a
+    host-side error; the window re-runs on the FFD route (``ffd_scan``
+    launched) with one breadcrumb, and its plan equals the CPU twin's
+    (the stripped window on the CPU solver: the deterministic /
+    unconstrained scan, the decode checks of the route still applied);
+    the same window again takes the scan with no second breadcrumb.  A
+    scripted ``DeviceFaultError`` on the route strips nothing, and
+    ``ResilientSolver`` raises it on the card."""
+    from karpenter_tpu_torch import make_solver
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+    from karpenter_tpu_torch.solver import torch_backend
+
+    pods, catalog, pool = request.pods, request.catalog, request.nodepool
+    crumbs = {f"errors{{solver,{route}_fallback}}": 1.0}
+    if route == "stochastic":
+        crumbs["overcommit_solves{degraded}"] = 1.0
+
+    def broken(*a, **k):
+        raise RuntimeError(f"scripted {route} program fault")
+
+    # the encode memoizes an unchanged window's problem, whose cached
+    # template the strip disarms: each step starts from a fresh one
+    encode_mod._ENCODE_MEMO.clear()
+    problem = encode_mod.encode(pods, catalog, pool)
+    solver = TorchSolver(device=dev)
+    with _patched(torch_backend, program, broken):
+        before = degradation_marks()
+        reset_launches()
+        t0 = time.perf_counter()
+        plan = solver.solve_encoded(problem)
+        strip_ms = (time.perf_counter() - t0) * 1e3
+        got = launch_counts()
+        require_launches(got, ["ffd_scan"], f"{label} strip re-run")
+        add_launches(launches, got)
+        expect_marks(f"{label} strip", before, crumbs)
+        # the CPU twin: the stripped window on the CPU solver, whose plan
+        # is the FFD route's with the route's decode checks still applied
+        want = TorchSolver(device="cpu").solve_encoded(problem)
+        plans_equal(f"{label} strip", plan, want)
+        if solver.last_stats["path"] != solver.path:
+            raise AssertionError(f"{label} strip took "
+                                 f"{solver.last_stats['path']!r}")
+        mid = degradation_marks()
+        reset_launches()
+        t0 = time.perf_counter()
+        again = solver.solve_encoded(problem)
+        again_ms = (time.perf_counter() - t0) * 1e3
+        got = launch_counts()
+        require_launches(got, ["ffd_scan"], f"{label} after the strip")
+        add_launches(launches, got)
+        expect_marks(f"{label} after the strip", mid, {})
+        plans_equal(f"{label} after the strip", again, want)
+    # a device fault on the route: never stripped, raised by the wrapper
+    encode_mod._ENCODE_MEMO.clear()
+    problem = encode_mod.encode(pods, catalog, pool)
+    with injected(route):
+        expect_fault(f"{label} device fault", TorchSolver(device=dev)
+                     .solve_encoded, problem)
+    leaf = "sto" if route == "stochastic" else "aff"
+    if any(getattr(t, leaf) is None for t in problem._prep_cache.values()):
+        raise AssertionError(f"{label}: a device fault stripped the route")
+    encode_mod._ENCODE_MEMO.clear()
+    wrapped = make_solver(device=dev)
+    with injected(route):
+        fault_ms = expect_fault(f"{label} device fault through "
+                                f"make_solver", wrapped.solve, request)
+    return {"plan_nodes": len(want.nodes), "strip_ms": strip_ms,
+            "again_ms": again_ms, "fault_ms": fault_ms}
+
+
+def degraded_serving(dev, launches: dict) -> dict:
+    """(u3) Phase (j)'s windows through ``ServingLoop``: a device fault
+    at the kick and one at the fetch each fail the window over to the
+    classic path, whose plan equals the classic plan."""
+    seqs, catalog = churn_stream(SERVING)
+    problems = [encode_mod.encode(p, catalog) for p in seqs[:3]]
+    on = TorchSolver(SolverOptions(serving="on"), device=dev)
+    off = TorchSolver(SolverOptions(serving="off"), device=dev)
+    loop = on.serving
+    loop.submit(problems[0]).result()
+    before = degradation_marks()
+    reset_launches()
+    with injected("serving-kick"):
+        kicked = loop.submit(problems[1]).result()
+    pend = loop.submit(problems[2])
+    with injected("serving-fetch"):
+        fetched = pend.result()
+    got = launch_counts()
+    require_launches(got, ["ffd_scan", "cost_sum"], "serving failovers")
+    add_launches(launches, got)
+    plans_equal("serving kick failover", kicked,
+                off.solve_encoded(problems[1]))
+    plans_equal("serving fetch failover", fetched,
+                off.solve_encoded(problems[2]))
+    if loop.host_failovers != 2:
+        raise AssertionError(f"serving: host_failovers "
+                             f"{loop.host_failovers}, want 2")
+    expect_marks("serving failovers", before,
+                 {"serving_windows{host_failover}": 2.0})
+    return {"host_failovers": loop.host_failovers}
+
+
+def degraded_sharded(dev, pods, catalog, launches: dict) -> dict:
+    """(u3) The pref window through ``make_solver(sharded=2)`` takes the
+    host route (equal to the CPU service's host route).  A device fault
+    at the sharded kick and one at the fetch raise out of
+    ``ResilientShardedService`` on the card (``degraded_windows`` 0, the
+    state invalidated), and so do the sharded serving loop's
+    (``host_failovers`` 0); the next window runs on the card again."""
+    from karpenter_tpu_torch import make_solver
+    from karpenter_tpu_torch.serving.service import ShardedServingLoop
+    from karpenter_tpu_torch.sharded.degraded import ResilientShardedService
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+
+    S = SHARDED["shards"]
+    pref = workload.with_preferences(pods)
+    solver = make_solver(SolverOptions(sharded=S), device=dev)
+    host0 = metrics.SHARDED_SOLVES.get("host")
+    t0 = time.perf_counter()
+    plan = solver.solve(SolveRequest(pref, catalog))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if plan.backend != "sharded-host" \
+            or metrics.SHARDED_SOLVES.get("host") != host0 + 1:
+        raise AssertionError(f"sharded pref window: backend {plan.backend}")
+    want = ShardedSolveService(S, device="cpu").solve_window_host(
+        catalog, pods=pref).merged()
+    plans_equal("sharded pref window (host route)", plan, want)
+    svc = ResilientShardedService(ShardedSolveService(S, device=dev))
+    clean = svc.solve_window(catalog, pods=pods).merged()
+    for site in ("sharded-solve", "sharded-fetch"):
+        inv = svc.invalidations
+        with injected(site):
+            expect_fault(f"sharded window faulted at {site}",
+                         svc.solve_window, catalog, pods=pods)
+        if svc.invalidations != inv + 1:
+            raise AssertionError(f"sharded {site}: the state was "
+                                 f"invalidated {svc.invalidations - inv} "
+                                 f"times, want once")
+    if svc.degraded_windows:
+        raise AssertionError(f"sharded: degraded_windows "
+                             f"{svc.degraded_windows}, want 0")
+    reset_launches()
+    again = svc.solve_window(catalog, pods=pods)
+    got = launch_counts()
+    require_window_launches(got, "sharded window after a fault")
+    add_launches(launches, got)
+    plans_equal("sharded window after a fault", again.merged(), clean)
+    loop = ShardedServingLoop(ShardedSolveService(S, device=dev),
+                              capacity=SHARDED["capacity"])
+    loop.submit(catalog, pods=pods).result()
+    with injected("sharded-solve"):
+        expect_fault("sharded serving kick fault", loop.submit, catalog,
+                     pods=pods)
+    pend = loop.submit(catalog, pods=pods)
+    with injected("sharded-fetch"):
+        expect_fault("sharded serving fetch fault", pend.result)
+    if loop.host_failovers:
+        raise AssertionError(f"sharded serving: host_failovers "
+                             f"{loop.host_failovers}, want 0")
+    plans_equal("sharded serving after the faults",
+                loop.submit(catalog, pods=pods).result().merged(), clean)
+    return {"host_route_ms": host_ms,
+            "degraded_windows": svc.degraded_windows,
+            "serving_host_failovers": loop.host_failovers}
+
+
+def degraded_planes(dev, cases: dict) -> dict:
+    """(u4) The gang, preemption, repack and what-if wrappers over their
+    planners on the card: a clean plan passes the wrapper's gate equal to
+    phase (t)'s greedy plans (the what-if plan on the device route), and
+    a scripted fault at the planner's next dispatch raises out of the
+    wrapper with no breadcrumb and no host plan."""
+    from karpenter_tpu_torch.gang import (
+        GangOptions, GangPlanner, ResilientGangPlanner,
+    )
+    from karpenter_tpu_torch.preempt import (
+        PreemptionPlanner, ResilientPlanner,
+    )
+    from karpenter_tpu_torch.repack import (
+        RepackOptions, RepackPlanner, ResilientRepacker,
+    )
+
+    gprob, gref = cases["gang"]
+    pprob, victims, compat, opts, pref_plan = cases["preempt"]
+    dprob, dref = cases["defrag"]
+    planes = (
+        ("gang", ResilientGangPlanner(GangPlanner(
+            GangOptions(use_device="on"), device=dev)), (gprob,),
+         gang_fingerprint, gref),
+        ("preemption", ResilientPlanner(PreemptionPlanner(
+            dataclasses.replace(opts, use_device="on"), device=dev)),
+         (pprob, victims, compat), preempt_fingerprint, pref_plan),
+        ("repack", ResilientRepacker(RepackPlanner(
+            RepackOptions(use_device="on"), device=dev)), (dprob,),
+         repack_fingerprint, dref))
+    for name, wrapper, args, fingerprint, ref in planes:
+        got = wrapper.plan(*args)
+        if fingerprint(got) != fingerprint(ref) \
+                or got.backend.startswith("degraded:"):
+            raise AssertionError(f"{name} wrapper on the card: plan "
+                                 f"({got.backend}) differs from the greedy "
+                                 f"planner's")
+        with injected():
+            expect_fault(f"{name} wrapper faulted", wrapper.plan, *args)
+    pods, catalog = workload.build_workload(WHATIF["pods"], WHATIF["types"])
+    baseline = whatif.build_baseline(pods, catalog)
+    menu = whatif_menu(baseline, catalog, DEGRADED["whatif_k"],
+                       np.random.RandomState(WHATIF["menu_seed"]))
+    wrapper = whatif.ResilientPlanner(whatif.WhatIfPlanner(device=dev))
+    got = wrapper.plan(baseline, menu)
+    if got.backend != "device" or wrapper.degraded_plans:
+        raise AssertionError(f"what-if wrapper on the card: {got.backend}")
+    with injected("whatif"):
+        expect_fault("what-if wrapper faulted", wrapper.plan, baseline,
+                     menu)
+    if wrapper.degraded_plans:
+        raise AssertionError("what-if wrapper on the card degraded a plan")
+    return {"whatif_k": len(menu)}
+
+
+def wrapper_cost(dev, card: str, request) -> dict:
+    """(u5) The headline p50 through ``make_solver()`` and through
+    ``TorchSolver`` in rounds of turns, and ``plan_defects`` alone on the
+    headline plan (printed, not gated).  Under the (u0) gate: no timed
+    window may degrade, so no wrapped plan's backend starts with
+    ``degraded:`` and no breadcrumb moves."""
+    from karpenter_tpu_torch import make_solver
+
+    wrapped = make_solver(device=dev)
+    direct = TorchSolver(device=dev)
+    plan = direct.solve(request)
+    wrapped.solve(request)
+    walls = {"make_solver": [], "TorchSolver": []}
+    ratios = []
+    backends = set()
+    before = degradation_marks()
+    for r in range(DEGRADED["rounds"]):
+        order = (("make_solver", wrapped), ("TorchSolver", direct))
+        if r % 2:
+            order = order[::-1]
+        got = {}
+        for name, s in order:
+            xs = []
+            for _ in range(DEGRADED["per_round"]):
+                t0 = time.perf_counter()
+                backends.add(s.solve(request).backend)
+                xs.append(time.perf_counter() - t0)
+            walls[name].extend(xs)
+            got[name] = float(np.median(xs))
+        ratios.append(got["make_solver"] / got["TorchSolver"])
+    expect_marks("wrapper cost", before, {})
+    if any(b.startswith("degraded:") for b in backends):
+        raise AssertionError(f"wrapper cost: a timed window degraded "
+                             f"({sorted(backends)})")
+    defects = []
+    for _ in range(DEGRADED["defects_reps"]):
+        t0 = time.perf_counter()
+        bad = plan_defects(plan, request)
+        defects.append(time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"plan_defects on the headline plan: {bad[:3]}")
+    out = {"make_solver_p50_ms": p50_ms(walls["make_solver"]),
+           "torch_solver_p50_ms": p50_ms(walls["TorchSolver"]),
+           "ratio_median": float(np.median(ratios)),
+           "ratios": ratios, "plan_defects_p50_ms": p50_ms(defects),
+           "pods": len(request.pods)}
+    say(f"timing [{card}]: degraded (u5) headline p50 through make_solver() "
+        f"{out['make_solver_p50_ms']:.4f} ms against TorchSolver "
+        f"{out['torch_solver_p50_ms']:.4f} ms ({DEGRADED['rounds']} rounds "
+        f"of turns x {DEGRADED['per_round']} windows; median round ratio "
+        f"{out['ratio_median']:.4f}, rounds {fmt_list(ratios)}); "
+        f"plan_defects alone {out['plan_defects_p50_ms']:.4f} ms p50 at "
+        f"{out['pods']} pods ({DEGRADED['defects_reps']} calls)")
+    return out
+
+
+def phase_degraded(dev, card: str, pods, catalog, cases: dict) -> dict:
+    """(u) The degraded modes on the card, after the fault phase: (u1)
+    ``make_solver()`` raising a faulted headline window, (u2) the
+    stochastic and affinity route strips, (u3) the serving loop's
+    failover, the sharded host route and the sharded wrappers raising,
+    (u4) the planes' wrappers raising, (u5) the wrapper's cost.  Every
+    scripted fault is drawn once and leaves the breadcrumbs it must, and
+    only those: a window that would leave the card raises instead."""
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    request = SolveRequest(pods, catalog)
+    main_plan = TorchSolver(device=dev).solve(request)
+    out = {"make_solver": degraded_make_solver(dev, request, main_plan,
+                                               launches)}
+    scat = workload.build_catalog(HEADLINE["types"])
+    pool = NodePool(name="default", overcommit=STOCHASTIC["overcommit"])
+    out["stochastic_strip"] = strip_case(
+        dev, "stochastic window", "stochastic", SolveRequest(
+            workload.stochastic_pods(HEADLINE["pods"],
+                                     seed=STOCHASTIC["seed"]), scat, pool),
+        "solve_packed_stochastic", launches)
+    out["affinity_strip"] = strip_case(
+        dev, "affinity window", "affinity", SolveRequest(
+            workload.affinity_bench_pods(
+                AFFINITY["tag"], HEADLINE["pods"],
+                np.random.RandomState(AFFINITY["rng_seed"])), scat),
+        "solve_packed_affinity", launches)
+    say(f"degraded (u2): the stochastic (seed {STOCHASTIC['seed']}) and "
+        f"affinity (seed {AFFINITY['rng_seed']}) windows with their route "
+        f"program raising: re-run on ffd_scan with one breadcrumb each, "
+        f"plans equal to the CPU solver's on the stripped windows; "
+        f"the same windows again on the scan with none; a device fault on "
+        f"each route strips nothing and raises out of ResilientSolver on "
+        f"the card; walls stochastic / affinity: the strip "
+        f"{out['stochastic_strip']['strip_ms']:.3f} / "
+        f"{out['affinity_strip']['strip_ms']:.3f} ms, the window again "
+        f"{out['stochastic_strip']['again_ms']:.3f} / "
+        f"{out['affinity_strip']['again_ms']:.3f} ms, the faulted window "
+        f"{out['stochastic_strip']['fault_ms']:.3f} / "
+        f"{out['affinity_strip']['fault_ms']:.3f} ms")
+    out["serving"] = degraded_serving(dev, launches)
+    out["sharded"] = degraded_sharded(dev, pods, catalog, launches)
+    say(f"degraded (u3): ServingLoop kick and fetch faults failed over to "
+        f"the classic path (host_failovers "
+        f"{out['serving']['host_failovers']}, plans equal); the pref "
+        f"window through make_solver(sharded={SHARDED['shards']}) on the "
+        f"host route ({out['sharded']['host_route_ms']:.3f} ms), equal to "
+        f"the CPU host route; sharded kick and fetch faults raised on the "
+        f"card (degraded_windows {out['sharded']['degraded_windows']}, the "
+        f"sharded serving loop's host_failovers "
+        f"{out['sharded']['serving_host_failovers']}), the next windows "
+        f"on the card")
+    out["planes"] = degraded_planes(dev, cases)
+    say("degraded (u4): the gang, preemption and repack wrappers over "
+        "their planners on the card pass phase (t)'s greedy plans, the "
+        "what-if wrapper its device plan (K = "
+        f"{out['planes']['whatif_k']}); a scripted fault at each planner's "
+        "next dispatch raised out of its wrapper, no breadcrumb, no host "
+        "plan")
+    out["cost"] = wrapper_cost(dev, card, request)
+    out["launches"] = launches
+    out["host_s"] = time.perf_counter() - t_phase
+    say(f"degraded phase: {out['host_s']:.3f} s, launches {launches}")
+    return out
+
+
 def _read_bytes(t: torch.Tensor) -> int:
     """Bytes of an input read once: a catalog expanded over the problems
     (stride 0) is one catalog."""
@@ -4525,48 +5047,67 @@ def main() -> int:
 
     pods, catalog = workload.build_workload(
         HEADLINE["pods"], HEADLINE["types"], seed=HEADLINE["seed"])
+    # (u0): every phase but the fault phase (s) and the degraded phase
+    # (u) runs under the gate: a degradation breadcrumb it moves fails the
+    # run
     tally = new_tally()
-    checks = {"ffd_scan": phase_kernel_checks(dev, catalog, tally),
-              "ffd_scan_fleet": phase_fleet_kernel_checks(dev, catalog,
-                                                          tally)}
-    design = phase_design_checks(dev, tally)
-    checks["ffd_scan_pref"] = phase_pref_kernel_checks(dev, catalog, tally)
-    checks["cost_sum"] = phase_cost_sum_checks(dev)
-    solver, request, problem, launches, stats, cold_s, err = \
-        phase_main_path(dev, pods, catalog, tally)
+    checks = {"ffd_scan": gated("kernel checks", phase_kernel_checks, dev,
+                                catalog, tally),
+              "ffd_scan_fleet": gated("fleet kernel checks",
+                                      phase_fleet_kernel_checks, dev,
+                                      catalog, tally)}
+    design = gated("design checks", phase_design_checks, dev, tally)
+    checks["ffd_scan_pref"] = gated("pref kernel checks",
+                                    phase_pref_kernel_checks, dev, catalog,
+                                    tally)
+    checks["cost_sum"] = gated("cost_sum checks", phase_cost_sum_checks, dev)
+    solver, request, problem, launches, stats, cold_s, err = gated(
+        "(a) main path", phase_main_path, dev, pods, catalog, tally)
     checks["ffd_scan"]["max_abs_err"] = max(
         checks["ffd_scan"]["max_abs_err"], err, design["max_abs_err"])
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
         checks["ffd_scan_fleet"]["max_abs_err"], design["max_abs_err"])
     checks["design"] = design
-    fleet = phase_fleet(dev)
-    stream = phase_stream(dev, catalog)
-    zone = phase_zone(dev, pods, catalog)
+    fleet = gated("(b) fleet", phase_fleet, dev)
+    stream = gated("(c) stream", phase_stream, dev, catalog)
+    zone = gated("(d) zone", phase_zone, dev, pods, catalog)
     # the timings come before the routes' phases, as in the earlier
     # slices; the order does not move them beyond the host's drift
     # (tools/torch_headline_aftereffect.py)
-    timing = phase_timings(dev, solver, request, problem, card)
-    timing.update(phase_batched_timings(dev, fleet, stream, card))
-    flat = phase_flat(dev, card)
-    affinity = phase_affinity(dev, card)
-    stochastic = phase_stochastic(dev, card)
-    pref = phase_pref(dev, card, tally)
+    timing = gated("timings", phase_timings, dev, solver, request, problem,
+                   card)
+    timing.update(gated("batched timings", phase_batched_timings, dev,
+                        fleet, stream, card))
+    flat = gated("(e) flat", phase_flat, dev, card)
+    affinity = gated("(f) affinity", phase_affinity, dev, card)
+    stochastic = gated("(g) stochastic", phase_stochastic, dev, card)
+    pref = gated("(h) pref", phase_pref, dev, card, tally)
     checks["ffd_scan_pref"]["max_abs_err"] = max(
         checks["ffd_scan_pref"]["max_abs_err"], pref["max_abs_err"])
     # the pref window's own scan counts toward the per-group coverage
     checks["coverage"] = require_design_coverage(tally)
-    resident = phase_resident(dev, card)
-    serving = phase_serving(dev, card)
-    fleet_resident = phase_fleet_resident(dev, fleet)
-    whatif_run = phase_whatif(dev, card)
-    gang = phase_gang(dev, card)
-    preempt = phase_preempt(dev, card)
-    sharded = phase_sharded(dev, card, pods, catalog)
-    sharded_churn = phase_sharded_churn(dev, card, catalog)
-    sharded_serving = phase_sharded_serving(dev, card, catalog)
-    repack = phase_repack(dev, card)
-    oracles = phase_oracles(dev, card, solver, request)
+    resident = gated("(i) resident", phase_resident, dev, card)
+    serving = gated("(j) serving", phase_serving, dev, card)
+    fleet_resident = gated("(k) fleet resident", phase_fleet_resident, dev,
+                           fleet)
+    whatif_run = gated("(l) what-if", phase_whatif, dev, card)
+    gang = gated("(m) gang", phase_gang, dev, card)
+    preempt = gated("(n) preempt", phase_preempt, dev, card)
+    sharded = gated("(o) sharded", phase_sharded, dev, card, pods, catalog)
+    sharded_churn = gated("(p) sharded churn", phase_sharded_churn, dev,
+                          card, catalog)
+    sharded_serving = gated("(q) sharded serving", phase_sharded_serving,
+                            dev, card, catalog)
+    repack = gated("(r) repack", phase_repack, dev, card)
+    oracles = gated("(t) oracles", phase_oracles, dev, card, solver,
+                    request)
+    say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
+        f"but (s); sharded_solves_total{{host}} "
+        f"{metrics.SHARDED_SOLVES.get('host')} (the host route, not a "
+        f"fallback; not gated)")
     fault = phase_fault(dev, card, pods, catalog)
+    degraded = phase_degraded(dev, card, pods, catalog,
+                              oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
         checks["ffd_scan_fleet"]["max_abs_err"], sharded["scan"]
         ["max_abs_err"], sharded_churn["scan"]["max_abs_err"])
@@ -4599,7 +5140,8 @@ def main() -> int:
                      "sharded_churn": sharded_churn["launches"],
                      "sharded_serving": sharded_serving["launches"],
                      "repack": repack["launches"],
-                     "fault": fault["launches"]}
+                     "fault": fault["launches"],
+                     "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
              for name in KERNELS}
     say(f"launches per path: {path_launches}; over all paths {total}")
@@ -4634,7 +5176,7 @@ def main() -> int:
             "gang": gang, "preempt": preempt, "sharded": sharded,
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
-            "oracles": oracles, "fault": fault,
+            "oracles": oracles, "fault": fault, "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

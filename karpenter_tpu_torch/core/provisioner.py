@@ -18,19 +18,27 @@ def make_solver(options: SolverOptions | None = None, device="cuda"):
     more than one shard, as the reference routes it; ``TorchSolver``
     otherwise.
 
-    The card's solver is returned UNWRAPPED.  The reference wraps its
-    solver in ``ResilientSolver``, which degrades a failed solve to the
-    host greedy oracle; here that would hide a broken kernel, so the
-    degraded mode waits for ROADMAP queue 1 item 13 (the unserved
-    fallbacks)."""
+    The device solvers come wrapped in ``ResilientSolver``, as the
+    reference's (``karpenter_tpu/core/provisioner.py:51-80``).  On the
+    CPU a failed solve or a structurally invalid plan degrades that one
+    solve to the greedy oracle, with an ``ERRORS{solver, degraded_*}``
+    sample and a ``degraded:`` backend tag; on the card it raises
+    (``solver/degraded.py``).  The primary is built first, outside the
+    wrapper: a missing card or a failed kernel build raises out of
+    ``make_solver``."""
     options = options or SolverOptions()
     if options.backend == "greedy":
         from karpenter_tpu_torch.solver.greedy import GreedySolver
 
         return GreedySolver(options)
+    from karpenter_tpu_torch.solver.degraded import ResilientSolver
+
     shards = sharded_shards(options)
     if shards > 1:
+        # two degradation layers on the CPU: the sharded plane's own
+        # host route for a failed window, then the solver-level greedy
         from karpenter_tpu_torch.sharded.solver import ShardedSolver
 
-        return ShardedSolver(shards, options, device=device)
-    return TorchSolver(options, device=device)
+        return ResilientSolver(ShardedSolver(shards, options, device=device),
+                               options)
+    return ResilientSolver(TorchSolver(options, device=device), options)

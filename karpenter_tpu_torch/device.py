@@ -10,6 +10,12 @@ Selecting the card also builds every hand kernel, once per process
 (``cuda_build.ensure_built``, a flag test afterwards): every entry
 point resolves its device at construction or call, so the ``nvcc``
 runs land there and never inside a guarded dispatch's deadline window.
+
+``holds_card(obj)`` says whether an object's work runs on the card.  The
+degraded modes that land on a host oracle (``ResilientSolver``, the
+sharded wrapper and failover, the planes' Resilient* wrappers) run only
+for a primary on the CPU: on the card a failure raises, as a kernel
+wrapper given a CUDA tensor launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,3 +40,10 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or "
                          f"'cpu'")
     return dev
+
+
+def holds_card(obj) -> bool:
+    """True when ``obj.device`` is a CUDA device: work that must never
+    move to the host."""
+    dev = getattr(obj, "device", None)
+    return isinstance(dev, torch.device) and dev.type == "cuda"

@@ -12,9 +12,13 @@
 - :mod:`inject` — the deterministic ``FaultyDeviceInjector``;
 - :mod:`errors` — the ``DeviceFaultError`` family.
 
-The port raises every fault to its caller: no site catches one and
-carries on, on the CPU or down another route (the reference's host
-fallbacks are ROADMAP queue 1 item 13).
+No dispatch site catches a fault and carries on.  On the card a typed
+fault reaches the caller, apart from the serving loop's failover, whose
+classic re-solve runs on the card again.  The ladders that land on a
+host oracle (``solver/degraded.py``, the sharded wrapper and failover,
+the planes' Resilient* wrappers) degrade only a primary on the CPU, each
+loudly and with a counted breadcrumb (``device.holds_card``).  No ladder
+runs a plain PyTorch version in place of a failed hand kernel.
 """
 
 from karpenter_tpu_torch.faulttol.deadline import DeadlineModel, get_deadline_model

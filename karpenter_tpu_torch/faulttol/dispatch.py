@@ -15,7 +15,7 @@ What the guard does, in order:
 - **admission**: ticks the health board (drives quarantine->probation
   transitions + probes) and refuses dispatch to quarantined devices
   (``DeviceQuarantinedError`` BEFORE the kernel launches — a known-bad
-  chip costs one host fallback, not a hang);
+  device costs one refused dispatch, not a hang);
 - **injection**: consults the installed ``FaultyDeviceInjector`` once
   per dispatch (chaos only; None in production) and simulates the drawn
   fault at the fetch/exit edge;

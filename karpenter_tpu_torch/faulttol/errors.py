@@ -1,17 +1,19 @@
 """Typed device-fault errors raised at the dispatch-guard seam (port of
 ``karpenter_tpu/faulttol/errors.py``).
 
-Every error derives from :class:`DeviceFaultError` so the existing
-fallback ladders (``ResilientSolver``, ``ResilientShardedService``,
-``ResilientPlanner``, the jax_backend ``_dispatch_*`` return-None
-idiom, the pallas->scan chain) catch the whole family with the broad
-``except Exception`` they already have — the types exist so callers
-that WANT to distinguish (the OOM chunking path, the quarantine gate)
-can, without string-matching XLA messages.
+Every error derives from :class:`DeviceFaultError` so the fallback
+ladders (``ResilientSolver``, ``ResilientShardedService``, the planes'
+Resilient* wrappers) catch the whole family with the broad ``except
+Exception`` they have — the types exist so callers that WANT to
+distinguish (the OOM chunking path, the quarantine gate, the route
+strips that never strip for a device fault) can, without
+string-matching messages.
 
-The port raises them and catches none: no site falls back to the host
-or to another route on a fault (that ladder is ROADMAP queue 1 item
-13).  Its classification adds what a CUDA device reports and XLA does
+No dispatch site of the port catches them.  The ladders that land on a
+host oracle degrade only a primary on the CPU; on the card the fault
+reaches the caller (``device.holds_card``), and the one failover that
+catches it there, the serving loop's, re-solves on the card.  Its
+classification adds what a CUDA device reports and XLA does
 not: :func:`is_resource_exhausted` also reads an allocator
 ``torch.cuda.OutOfMemoryError`` and a hand kernel's
 ``cudaErrorMemoryAllocation``, and :func:`is_device_error` names the
@@ -49,7 +51,7 @@ class DispatchDeadlineExceeded(DeviceFaultError):
 class DeviceQuarantinedError(DeviceFaultError):
     """Dispatch admission was refused: the target device is
     quarantined.  Raised BEFORE the kernel launches, so a known-bad
-    chip costs the caller nothing but the host fallback."""
+    device costs the caller no launch."""
 
     def __init__(self, message: str, *, kernel: str = "",
                  device: str = ""):

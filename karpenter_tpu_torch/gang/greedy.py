@@ -5,8 +5,9 @@ canonical algorithm of ``gang/planner.py`` (oldest-fitting-node first,
 lowest free placement, cheapest new offering by (rank, index)) with
 plain python loops: no numpy grids, no device.
 ``GreedyGangPlanner.plan`` must equal ``GangPlanner.plan`` on every
-input.  The reference also routes single plans here when its batched
-path fails (``gang/degraded.py``); the port has no such fallback.
+input.  ``gang/degraded.py`` also routes single plans here when a
+batched planner on the CPU fails, as the reference's; a planner on the
+card raises instead.
 """
 
 from __future__ import annotations

@@ -22,9 +22,9 @@ The grid step runs as torch ops on the planner's device (two int32 words
 per chip bitmask) from ``_DEVICE_MIN_CELLS`` cells on, or when forced
 with ``use_device="on"``; below that size the numpy grid is the route.
 Both are integer/bool exact, so the route never changes the plan.  A
-failure on the device raises.  The greedy oracle (``gang/greedy.py``)
-is ported; the reference's degraded fallback onto it waits for ROADMAP
-queue 1 item 13.
+failure on the device raises; ``gang/degraded.ResilientGangPlanner``
+degrades it onto the greedy oracle (``gang/greedy.py``) for a planner
+on the CPU, and raises it for one on the card.
 """
 
 from __future__ import annotations
@@ -98,9 +98,12 @@ class GangPlanner:
                 return torch.from_numpy(
                     np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-            # a DeviceFaultError raises to the caller (the reference's numpy
-            # grid after a fault is ROADMAP queue 1 item 13); the reference
-            # notes no devtel here, the port notes the grid's shape
+            # a DeviceFaultError raises to the caller, whose Resilient*
+            # wrapper degrades a plan on the CPU loudly and raises one on
+            # the card (the reference's silent numpy grid after a fault is
+            # not carried over, ROADMAP.md);
+            # the reference notes no devtel here, the port notes the
+            # grid's shape
             get_devtel().note_dispatch(
                 "gang-grid", (Nn, P, resid.shape[1]),
                 h2d_bytes=int(occ.nbytes + masks.nbytes + valid.nbytes

@@ -5,9 +5,9 @@ canonical algorithm of ``preempt/planner.py`` (cheapest feasible
 eviction prefix per node, rounds committed in ascending (weight, -fit,
 node) order) with plain python loops: no numpy grids, no device.
 ``GreedyPreemptionPlanner.plan`` must equal ``PreemptionPlanner.plan``
-on every input.  The reference also routes single plans here when its
-batched path fails (``preempt/degraded.py``); the port has no such
-fallback.
+on every input.  ``preempt/degraded.py`` also routes single plans here
+when a batched planner on the CPU fails, as the reference's; a planner
+on the card raises instead.
 """
 
 from __future__ import annotations

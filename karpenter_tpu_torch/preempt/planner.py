@@ -24,9 +24,10 @@ The grid step runs as int32 torch ops on the planner's device from
 ``_DEVICE_MIN_CELLS`` cells on (or forced with ``use_device="on"``), as
 long as every tensor fits int32; otherwise the numpy grid is the route,
 a rule of size and range, not a fallback.  Both are integer exact, so
-the route never changes the plan.  A failure on the device raises.  The
-greedy oracle (``preempt/greedy.py``) is ported; the reference's
-degraded fallback onto it waits for ROADMAP queue 1 item 13.
+the route never changes the plan.  A failure on the device raises;
+``preempt/degraded.ResilientPlanner`` degrades it onto the greedy oracle
+(``preempt/greedy.py``) for a planner on the CPU, and raises it for one
+on the card.
 """
 
 from __future__ import annotations
@@ -94,9 +95,12 @@ class PreemptionPlanner:
                 return torch.from_numpy(
                     np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
-            # a DeviceFaultError raises to the caller (the reference's numpy
-            # grid after a fault is ROADMAP queue 1 item 13); the reference
-            # notes no devtel here, the port notes the grid's shape
+            # a DeviceFaultError raises to the caller, whose Resilient*
+            # wrapper degrades a plan on the CPU loudly and raises one on
+            # the card (the reference's silent numpy grid after a fault is
+            # not carried over, ROADMAP.md);
+            # the reference notes no devtel here, the port notes the
+            # grid's shape
             get_devtel().note_dispatch(
                 "preempt-grid", (Nn, K, _R),
                 h2d_bytes=4 * int(resid0.size + freed_prefix.size

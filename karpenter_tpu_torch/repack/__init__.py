@@ -8,15 +8,18 @@
   planner's device, or numpy below ``_DEVICE_MIN_CELLS``; integer exact
   both ways) and the integral rounding;
 - :mod:`greedy` — the scalar host-loop oracle the planner must equal;
+- :mod:`degraded` — ``ResilientRepacker``: a failed or structurally
+  invalid plan of a planner on the CPU degrades to the host loop (one
+  on the card raises);
 - ``validate_repack_plan`` (``solver/validate.py``) — the independent
   feasibility check of a plan.
-
-The reference's degraded wrapper (``repack/degraded.py``) waits for
-ROADMAP queue 1 item 13.
 """
 
 from karpenter_tpu_torch.repack.encode import (
     RepackProblem, encode_repack, parked_gang_shapes,
+)
+from karpenter_tpu_torch.repack.degraded import (
+    ResilientRepacker, repack_plan_defects,
 )
 from karpenter_tpu_torch.repack.greedy import GreedyRepacker
 from karpenter_tpu_torch.repack.planner import RepackPlanner
@@ -28,5 +31,6 @@ from karpenter_tpu_torch.repack.types import (
 __all__ = [
     "GreedyRepacker", "KIND_DEFRAG", "KIND_DRAIN", "Migration", "ReopenedSlice",
     "RepackOptions", "RepackPlan", "RepackPlanner", "RepackProblem",
-    "encode_repack", "parked_gang_shapes",
+    "ResilientRepacker", "encode_repack", "parked_gang_shapes",
+    "repack_plan_defects",
 ]

@@ -5,8 +5,9 @@ repack algorithm (``repack/planner.py`` module docstring) with scalar
 host loops, no vectorized grids and no device, so the batched planner
 has an independent implementation to be bit-identical against (the
 same role ``preempt/greedy.py`` and ``gang/greedy.py`` play for their
-planes).  The reference's degraded mode (``ResilientRepacker``) also
-rides it when its batched path fails; the port has no such fallback.
+planes).  The degraded mode (``ResilientRepacker``) also rides it when
+a batched planner on the CPU fails, as the reference's; a planner on
+the card raises instead.
 """
 
 from __future__ import annotations

@@ -33,8 +33,9 @@ numpy grid is the route, a rule of size and range, not a fallback.  The
 torch grid reads the resident occupancy rows directly when the problem
 carries them (``ResidentStore.occupancy_tensors``).  Both grids are
 integer exact, so the route never changes the plan.  A failure on the
-device raises.  The greedy oracle (``repack/greedy.py``) is ported; the
-reference's degraded wrapper onto it waits for ROADMAP queue 1 item 13.
+device raises; ``repack/degraded.ResilientRepacker`` degrades it onto
+the host loop (``repack/greedy.py``) for a planner on the CPU, and
+raises it for one on the card.
 
 Chip masks are uint64, split into two int32 words (``split_mask_words``)
 for the torch grid; only ``&``, ``|``, ``~`` and ``== 0`` touch them,
@@ -198,9 +199,12 @@ class RepackPlanner:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        # a DeviceFaultError raises to the caller (the reference's numpy
-        # grid after a fault is ROADMAP queue 1 item 13); the reference
-        # notes no devtel here, the port notes the grid's shape
+        # a DeviceFaultError raises to the caller, whose Resilient*
+        # wrapper degrades a plan on the CPU loudly and raises one on
+        # the card (the reference's silent numpy grid after a fault is
+        # not carried over, ROADMAP.md);
+        # the reference notes no devtel here, the port notes the
+        # grid's shape
         get_devtel().note_dispatch(
             "repack-grid", (Np, O, Sp, Pp),
             h2d_bytes=int(m_lo.nbytes + m_hi.nbytes + v.nbytes),

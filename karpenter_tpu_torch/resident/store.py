@@ -13,9 +13,11 @@
 A state's device tensor is used only while its recorded generation
 equals the catalog's ``(generation, availability_generation)`` and the
 window's padded shape matches; anything else rebuilds from the host,
-with the reason recorded.  A failed device program invalidates the state
-and raises: the port never falls back to the classic path, which would
-hide a broken resident program behind a working one.
+with the reason recorded.  A window whose resident program fails on the
+host side invalidates the store and re-runs on the classic route, which
+launches the same hand kernel (``TorchSolver``, as the reference's
+``_dispatch_resident``); a ``DeviceFaultError`` invalidates the store
+and raises.
 
 - :meth:`ResidentStore.occupancy_tensors` / :meth:`ResidentStore.
   occupancy_rows` — one int32 row per live claim (offering, pod count,
@@ -29,8 +31,10 @@ a sampled ``obs.prof`` bracket (kernels ``resident-update`` — or the
 caller's name, ``fleet-resident`` — and ``resident``), and every window
 is noted in ``obs.devtel`` (``note_resident_window``, ``note_dispatch``,
 ``note_resident_invalidation``) as the reference notes it.  Where the
-reference catches a ``DeviceFaultError`` of the update and rebuilds from
-the host, the port invalidates and raises (ROADMAP queue 1 item 13).
+reference catches a ``DeviceFaultError`` of the standalone update and
+rebuilds from the host in silence, the port invalidates and raises, so
+the fault reaches a caller that counts it (a deliberate difference,
+listed in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -110,9 +114,8 @@ class ResidentBuffer:
                kernel: str = "resident-update"):
         """-> (device buffer of ``host``'s shape, WindowDelta).  ``host``
         must be int32.  The scatter runs under ``device_guard(kernel)``;
-        a failed scatter invalidates the buffer and raises (the
-        reference rebuilds from the host there: ROADMAP queue 1 item
-        13)."""
+        a failed scatter invalidates the buffer and raises (the reference
+        rebuilds from the host there, silently)."""
         from karpenter_tpu_torch.resident.kernels import update_resident
         from karpenter_tpu_torch.solver.torch_backend import upload
 
@@ -222,8 +225,9 @@ class ResidentStore:
                        right_size: bool):
         """Delta-apply + solve of one prepared window on the store's
         device; returns the device result buffer (the layout of
-        ``solve_packed_torch``).  The caller invalidates the store when
-        this raises."""
+        ``solve_packed_torch``).  The caller (``TorchSolver``)
+        invalidates the store when this raises, and re-runs the window on
+        the classic route unless it raised a ``DeviceFaultError``."""
         from karpenter_tpu_torch.resident.kernels import solve_resident
         from karpenter_tpu_torch.solver.torch_backend import upload
 

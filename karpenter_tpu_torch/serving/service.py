@@ -9,28 +9,38 @@ the delta and solves; the result waits in the output ring, whose copy to
 the host runs while later windows are kicked, and ``result()`` decodes
 it on the classic path's decode (``PendingSolve``).
 
-Routing, counted in ``stats()``:
+Routing, counted in ``stats()``; no window is lost or solved twice:
 
 1. the ring (rebuild / delta / hit) — eligible windows;
 2. classic dispatch on the card — ineligible windows (preferences,
    stochastic, affinity, flat, empty: ``classic_windows``) and windows
    that find the output ring full (``backpressured``), which leave the
-   mirror untouched so the next admitted delta takes up their churn.
+   mirror untouched so the next admitted delta takes up their churn;
+3. host failover — a ``DeviceFaultError`` at the kick or the fetch
+   invalidates the ring and re-solves the window through the classic
+   path of ``self.solver`` (``host_failovers``,
+   ``SERVING_WINDOWS{host_failover}``); any other failure of the kick
+   invalidates, leaves an ``ERRORS{solver, serving_fallback}`` sample and
+   re-solves the same way.  The classic re-solve runs the card's FFD
+   kernel, never a plain version; if it fails too, the window raises.
 
 Each kick runs inside ``device_guard("serving-kick")`` and each fetch
 inside ``device_guard("serving-fetch")`` (``guard.fetch`` waits for the
 copy the kick started), each in a sampled profiler bracket; the kick is
 noted in ``obs.devtel`` with the reference's signature, every admitted
-window as a resident window and every invalidation as one.  A kick or
-fetch that fails invalidates the ring and raises: the port has no host
-failover and no classic re-solve of a failed window, which would hide a
-broken serving program behind a working one (the reference's failover
-consumes ``DeviceFaultError``: ROADMAP queue 1 item 13).
+window as a resident window and every invalidation as one.  A fetch
+that fails other than with a ``DeviceFaultError`` invalidates the ring
+and raises.
 
 ``ShardedServingLoop`` does the same for the sharded service: each
 window is a kick of ``ShardedSolveService._kick_window`` (the stacked
-state advances there), and up to ``capacity`` fetches wait, so window
-t's copy to the host runs while window t + 1 is kicked.  Not ported:
+state advances there; a host-routed window comes back finished), and up
+to ``capacity`` fetches wait, so window t's copy to the host runs while
+window t + 1 is kicked.  For a service on the CPU a ``DeviceFaultError``
+at the kick or the fetch re-solves the window on the service's host
+route (``solve_window_host``, ``host_failovers``), as the reference's;
+for one on the card it raises (``device.holds_card``: the port moves no
+window off the card).  Not ported:
 ``track_generation`` and ``drain`` of the single-window loop, whose
 callers (the chaos harness, shutdown) are not ported either.
 """
@@ -40,7 +50,8 @@ from __future__ import annotations
 from collections import deque
 
 from karpenter_tpu_torch import obs
-from karpenter_tpu_torch.faulttol import device_guard
+from karpenter_tpu_torch.device import holds_card
+from karpenter_tpu_torch.faulttol import DeviceFaultError, device_guard
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.resident.delta import empty_delta, pad_delta
@@ -49,6 +60,9 @@ from karpenter_tpu_torch.serving import RING_SLOTS
 from karpenter_tpu_torch.serving.oracle import RingOracle
 from karpenter_tpu_torch.serving.ring import OutputRing, OutputSlot, Staging
 from karpenter_tpu_torch.utils import metrics
+from karpenter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("serving.service")
 
 
 class ServingPending:
@@ -88,6 +102,7 @@ class ServingLoop:
         self.kicks = 0
         self.fetched = 0
         self.overlapped = 0          # fetched after a later kick
+        self.host_failovers = 0      # a device fault -> classic re-solve
         self.last_mode = ""
         self.last_reason = ""
 
@@ -118,6 +133,7 @@ class ServingLoop:
             "fetched": self.fetched,
             "overlapped": self.overlapped,
             "overlap_fraction": self.overlap_fraction,
+            "host_failovers": self.host_failovers,
             "output_occupancy": self.output.occupancy,
             "capacity": self.capacity,
             "buffer": dict(self.buf.stats),
@@ -184,7 +200,8 @@ class ServingLoop:
 
     def _admit(self, problem, prep):
         """Delta-encode against the mirror (the resident ladder), upload
-        the pair, kick.  A failure invalidates the ring and raises."""
+        the pair, kick.  A failure invalidates the ring and re-solves the
+        window on the classic path (:meth:`_failover`)."""
         catalog = prep.catalog
         generation = (catalog.uid, catalog.generation,
                       catalog.availability_generation)
@@ -221,9 +238,24 @@ class ServingLoop:
             self.ring_windows += 1
             self.last_mode = mode
             return self._kick(problem, prep, mode, h2d, *pair)
-        except Exception:
+        except DeviceFaultError as e:
+            # the state (and anything the ring held) can no longer be
+            # trusted: fail the window over to the classic path
+            self._failover(f"device_fault:{e.kind}", "kick")
+        except Exception as e:  # noqa: BLE001 — degrade, never fail
             self.invalidate("dispatch_error")
-            raise
+            metrics.ERRORS.labels("solver", "serving_fallback").inc()
+            log.warning("serving kick failed; classic fallback engaged",
+                        error=str(e)[:300])
+        return self.solver.solve_encoded_async(problem)
+
+    def _failover(self, reason: str, phase: str) -> None:
+        """The host failover's bookkeeping: invalidate, count, log."""
+        self.invalidate(reason)
+        self.host_failovers += 1
+        metrics.SERVING_WINDOWS.labels("host_failover").inc()
+        log.warning(f"serving {phase} faulted; host failover engaged",
+                    reason=reason)
 
     def _kick(self, problem, prep, mode: str, h2d: int, didx,
               dval) -> ServingPending:
@@ -265,7 +297,8 @@ class ServingLoop:
     def _finish(self, seq: int):
         """Claim and fetch one output slot and decode it on the classic
         decode (COO growth and node escalation re-dispatch as a single
-        window would).  A failed fetch invalidates the ring and
+        window would).  A ``DeviceFaultError`` fails the window over to
+        the classic path; any other failed fetch invalidates the ring and
         raises."""
         from karpenter_tpu_torch.solver.torch_backend import PendingSolve
 
@@ -283,6 +316,9 @@ class ServingLoop:
                 with get_profiler().sampled("serving-fetch") as probe:
                     probe.dispatched(slot.dev)
                 guard.fetch(slot.host, event=slot.event)
+        except DeviceFaultError as e:
+            self._failover(f"device_fault:{e.kind}", "fetch")
+            return self.solver.solve_encoded_async(slot.problem).result()
         except Exception:
             self.invalidate("fetch_error")
             raise
@@ -296,15 +332,16 @@ class ServingLoop:
 
 class ShardedServingPending:
     """One sharded serving window in flight: ``result()`` fetches and
-    decodes it (once).  A failed fetch raises, and raises the same error
-    again on every later call."""
+    decodes it (once); ``done`` is the plan of a window that needed no
+    fetch (host-routed or failed over at the kick).  A failed fetch
+    raises, and raises the same error again on every later call."""
 
     __slots__ = ("_loop", "_kick", "_done", "_error")
 
-    def __init__(self, loop: "ShardedServingLoop", kick):
+    def __init__(self, loop: "ShardedServingLoop", kick, done=None):
         self._loop = loop
         self._kick = kick
-        self._done = None
+        self._done = done
         self._error = None
 
     def result(self):
@@ -322,8 +359,11 @@ class ShardedServingPending:
 class ShardedServingLoop:
     """Deferred fetches over one sharded service: a kick per submitted
     window, at most ``capacity`` windows kicked and not fetched (the
-    oldest is fetched first when the ring is full).  A failed kick or
-    fetch raises; the service has invalidated its state."""
+    oldest is fetched first when the ring is full).  For a service on
+    the CPU a ``DeviceFaultError`` at the kick or the fetch re-solves the
+    window on the service's host route (``host_failovers``); on the card
+    it raises, as any other failure does, the service having invalidated
+    its state."""
 
     def __init__(self, service, capacity: int = 2):
         self.service = service
@@ -333,6 +373,7 @@ class ShardedServingLoop:
         self.kicks = 0
         self.fetched = 0
         self.overlapped = 0          # fetched after a later kick
+        self.host_failovers = 0
 
     @property
     def overlap_fraction(self) -> float:
@@ -340,10 +381,23 @@ class ShardedServingLoop:
 
     def submit(self, catalog, nodepool=None, pods=None):
         """Kick one sharded window; returns its deferred handle."""
+        from karpenter_tpu_torch.sharded.types import ShardedPlan
+
         while len(self._inflight) >= self.capacity:
             self._inflight[0].result()
         self.windows += 1
-        kick = self.service._kick_window(catalog, nodepool, pods)
+        try:
+            kick = self.service._kick_window(catalog, nodepool, pods)
+        except DeviceFaultError:
+            if holds_card(self.service):
+                raise
+            self._failover("kick")
+            plan = self.service.solve_window_host(catalog, nodepool, pods)
+            return ShardedServingPending(self, None, done=plan)
+        if isinstance(kick, ShardedPlan):
+            # a host-routed (pref/sto/aff) window: already decoded
+            metrics.SERVING_WINDOWS.labels("classic").inc()
+            return ShardedServingPending(self, None, done=kick)
         self.kicks += 1
         pend = ShardedServingPending(self, (kick, self.kicks))
         self._inflight.append(pend)
@@ -354,11 +408,26 @@ class ShardedServingLoop:
         succeeds; only a fetched window counts."""
         kick, kick_seq = pend._kick
         self._inflight.remove(pend)
-        plan = self.service._fetch_window(kick)
+        try:
+            plan = self.service._fetch_window(kick)
+        except DeviceFaultError:
+            if holds_card(self.service):
+                raise
+            self._failover("fetch")
+            # the same routed and encoded window, so ownership and shard
+            # membership are identical: no window lost
+            return self.service.solve_window_host(
+                kick.catalog, kick.nodepool, window=kick.window)
         self.fetched += 1
         if self.kicks > kick_seq:
             self.overlapped += 1
         return plan
+
+    def _failover(self, phase: str) -> None:
+        self.host_failovers += 1
+        metrics.SERVING_WINDOWS.labels("host_failover").inc()
+        log.warning(f"sharded serving {phase} faulted; host failover "
+                    f"engaged")
 
     def stats(self) -> dict:
         return {
@@ -367,6 +436,7 @@ class ShardedServingLoop:
             "fetched": self.fetched,
             "overlapped": self.overlapped,
             "overlap_fraction": self.overlap_fraction,
+            "host_failovers": self.host_failovers,
             "inflight": len(self._inflight),
             "capacity": self.capacity,
         }

@@ -10,12 +10,16 @@ a periodic rebalance moves signature-group ownership from the most to
 the least loaded shard (:mod:`service`).  ``ShardedSolver`` serves it
 behind ``.solve()`` and :mod:`validate` checks it independently.
 
+Windows with soft preferences, a stochastic pool or affinity take the
+host route (the greedy oracle shard by shard), and
+:class:`ResilientShardedService` (:mod:`degraded`) re-solves a failed
+window of a service on the CPU there (one on the card raises).
+
 Opt-in through ``SolverOptions(sharded=N)`` (N > 1) or the environment
 variable ``KARPENTER_ENABLE_SHARDED`` (with ``KARPENTER_SHARDS``,
-default 2): ``make_solver`` then returns ``ShardedSolver``.  Shard
-meshes wider than one device, the health-board failover and the host
-route of preference, stochastic and affinity windows are not ported
-(ROADMAP queue 1 items 10 and 13).
+default 2): ``make_solver`` then returns ``ShardedSolver`` (wrapped in
+``ResilientSolver``).  Shard meshes wider than one device and the
+health-board failover are not ported (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -38,4 +42,21 @@ def sharded_shards(options=None) -> int:
     return 0
 
 
-__all__ = ["ENV_FLAG", "ENV_SHARDS", "sharded_shards"]
+from karpenter_tpu_torch.sharded.degraded import (  # noqa: E402
+    ResilientShardedService,
+)
+from karpenter_tpu_torch.sharded.router import (  # noqa: E402
+    ShardRouter, signature_key, stable_shard,
+)
+from karpenter_tpu_torch.sharded.service import (  # noqa: E402
+    ShardedSolveService,
+)
+from karpenter_tpu_torch.sharded.solver import ShardedSolver  # noqa: E402
+from karpenter_tpu_torch.sharded.types import (  # noqa: E402
+    RebalanceDecision, ShardedPlan,
+)
+
+__all__ = ["ENV_FLAG", "ENV_SHARDS", "ResilientShardedService",
+           "RebalanceDecision", "ShardRouter", "ShardedPlan",
+           "ShardedSolveService", "ShardedSolver", "signature_key",
+           "sharded_shards", "stable_shard"]

@@ -24,15 +24,25 @@ sharded serving loop (``serving/service.py``) defers the fetch.  All of
 a kick runs on the device's current stream, so a later kick's scatter
 into the state is ordered after every earlier solve that reads it.
 
-On one card the shard mesh is one device wide (``mesh_devices`` 1).
-Not ported: the host route of windows with soft preferences, a
-stochastic pool or armed affinity (the reference solves those with the
-greedy oracle; here they raise ``NotImplementedError``), the health-board
-failover and the degraded wrapper (ROADMAP queue 1 item 13).  The kick,
-the fetch and the rebalance run inside ``device_guard`` ("sharded-solve",
-"sharded-fetch", "rebalance"), the kick and the rebalance in a sampled
-profiler bracket, each noted in ``obs.devtel`` as the reference notes
-it.  A failed kick or fetch invalidates the resident state and raises.
+Windows with soft preferences, a stochastic pool or affinity carry
+semantics the stacked scan does not implement: they take the host route
+(:meth:`ShardedSolveService.solve_window_host`, each shard solved by the
+greedy oracle, counted as ``SHARDED_SOLVES{host}``, backend
+``sharded-host``), as in the reference; the kick returns their finished
+plan.  The same host route is the degraded contract of
+``sharded/degraded.py::ResilientShardedService`` for a service on the
+CPU.
+
+On one card the shard mesh is one device wide (``mesh_devices`` 1); the
+health-board failover onto fewer devices is not ported (ROADMAP queue 1
+item 10).  The kick, the fetch and the rebalance run inside
+``device_guard`` ("sharded-solve", "sharded-fetch", "rebalance"), the
+kick and the rebalance in a sampled profiler bracket, each noted in
+``obs.devtel`` as the reference notes it.  A failed kick or fetch
+invalidates the resident state and raises; for a service on the CPU
+the caller (``ResilientShardedService`` or the sharded serving loop)
+re-solves the window on the host route, and on the card the fault
+reaches the caller's caller.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from karpenter_tpu_torch.solver.torch_backend import (
     _pad1, _pad2, start_fetch, unpack_result, upload,
 )
 from karpenter_tpu_torch.solver.types import bucket
+from karpenter_tpu_torch.utils import metrics
 
 
 class CorruptShardResult(RuntimeError):
@@ -75,17 +86,23 @@ class CorruptShardResult(RuntimeError):
 
 class ShardKick:
     """One kicked window whose result is not fetched yet: what the fetch
-    phase needs.  ``host`` / ``event`` are the pinned copy of the device
-    result and the event that marks its end (None on the CPU)."""
+    phase needs, and what a host re-solve of the window needs
+    (``catalog``, ``nodepool``).  ``host`` / ``event`` are the pinned
+    copy of the device result and the event that marks its end (None on
+    the CPU)."""
 
-    __slots__ = ("window", "delta", "host", "event", "t0")
+    __slots__ = ("window", "delta", "host", "event", "t0", "catalog",
+                 "nodepool")
 
-    def __init__(self, window, delta, host, event, t0):
+    def __init__(self, window, delta, host, event, t0, catalog=None,
+                 nodepool=None):
         self.window = window
         self.delta = delta
         self.host = host
         self.event = event
         self.t0 = t0
+        self.catalog = catalog
+        self.nodepool = nodepool
 
 
 class ShardedSolveService:
@@ -228,12 +245,17 @@ class ShardedSolveService:
         """Route -> encode -> delta-update the stacked state -> one
         stacked solve -> per-shard decode.  ``pods`` defaults to the
         admitted backlog."""
-        return self._fetch_window(self._kick_window(catalog, nodepool, pods))
+        kick = self._kick_window(catalog, nodepool, pods)
+        if isinstance(kick, ShardedPlan):
+            return kick          # a host-routed (pref/sto/aff) window
+        return self._fetch_window(kick)
 
-    def _kick_window(self, catalog, nodepool=None, pods=None) -> ShardKick:
+    def _kick_window(self, catalog, nodepool=None, pods=None):
         """Phase 1: route, encode, delta-update, solve, and start the
         copy of the result to pinned host memory.  The stacked state
-        advances here; the kick owes its fetch and decode."""
+        advances here; the returned :class:`ShardKick` owes its fetch
+        and decode.  A host-routed window returns its finished
+        :class:`ShardedPlan` instead."""
         t0 = time.perf_counter()
         if pods is None:
             pods = self.backlog_pods()
@@ -242,12 +264,13 @@ class ShardedSolveService:
         window = encode_shards(parts, catalog, nodepool)
         if any(p.pref_rows is not None or p.group_var is not None
                or p.aff is not None for p in window.problems):
-            # the reference solves such windows shard by shard with the
-            # host greedy oracle, which the port does not carry
-            raise NotImplementedError(
-                "sharded windows with soft preferences, a stochastic pool "
-                "or affinity take the reference's host route, which waits "
-                "for ROADMAP queue 1 item 13")
+            # soft preferences, a chance-constrained pool and affinity
+            # edges are semantics the stacked scan does not carry:
+            # dropping them would void the preference ranking, the
+            # overcommit bound or the edges.  The host oracle honours all
+            # three.
+            return self.solve_window_host(catalog, nodepool, pods,
+                                          window=window)
         S = window.num_shards
         L = int(window.stacked.shape[1])
         stacked = window.stacked
@@ -303,12 +326,12 @@ class ShardedSolveService:
             host, event = start_fetch(out)
         except Exception:
             # the state took the scatter, or may have: it can no longer
-            # be trusted; the host mirror can (the reference's host
-            # re-solve of the window is ROADMAP queue 1 item 13)
+            # be trusted; the host mirror can (on the CPU the caller
+            # re-solves this window on the host route)
             self.invalidate("dispatch_error")
             raise
         return ShardKick(window=window, delta=delta, host=host, event=event,
-                         t0=t0)
+                         t0=t0, catalog=catalog, nodepool=nodepool)
 
     def _fetch_window(self, kick: ShardKick) -> ShardedPlan:
         """Phase 2: wait for the copy, check and decode every shard, and
@@ -328,7 +351,10 @@ class ShardedSolveService:
             self.last_delta = delta
             self._last_window = window
             self._last_unplaced = [len(p.unplaced_pods) for p in plan.plans]
+        metrics.SHARDED_SOLVES.labels("device").inc()
         plan.solve_seconds = time.perf_counter() - kick.t0
+        metrics.SHARDED_SOLVE_DURATION.labels("device").observe(
+            plan.solve_seconds)
         return plan
 
     def _decode(self, window: ShardedWindow, out_np: np.ndarray,
@@ -366,6 +392,42 @@ class ShardedSolveService:
                 ns.astype(np.int64), cnts.astype(np.int64), unplaced,
                 float(cost), "sharded", reason_words=words))
         return ShardedPlan(plans=plans, shard_pods=list(window.shard_pods))
+
+    # -- the host route (the degraded wrapper routes here too) -------------
+
+    def solve_window_host(self, catalog, nodepool=None, pods=None,
+                          window: ShardedWindow | None = None) -> ShardedPlan:
+        """The host route: the same routing and encode, each shard solved
+        in turn by the greedy oracle.  It serves windows with soft
+        preferences, a stochastic pool or affinity, and every window the
+        degraded wrapper (``sharded/degraded.py``) re-solves."""
+        from karpenter_tpu_torch.solver.greedy import GreedySolver
+        from karpenter_tpu_torch.solver.types import SolverOptions
+
+        t0 = time.perf_counter()
+        if window is None:
+            if pods is None:
+                pods = self.backlog_pods()
+            self.router.bind_components(pods)
+            parts = self.router.partition(pods)
+            window = encode_shards(parts, catalog, nodepool)
+        solver = GreedySolver(SolverOptions(backend="greedy"))
+        plans = [solver.solve_encoded(p) for p in window.problems]
+        # the stacked state no longer reflects the last solved window:
+        # drop it so the next device window rebuilds
+        if self._mirror is not None:
+            self.invalidate("host-routed window")
+        with self._lock:
+            self._last_window = window
+            self._last_unplaced = [len(p.unplaced_pods) for p in plans]
+            self.windows += 1
+        metrics.SHARDED_SOLVES.labels("host").inc()
+        plan = ShardedPlan(plans=plans, shard_pods=list(window.shard_pods),
+                           backend="sharded-host")
+        plan.solve_seconds = time.perf_counter() - t0
+        metrics.SHARDED_SOLVE_DURATION.labels("host").observe(
+            plan.solve_seconds)
+        return plan
 
     # -- rebalance ---------------------------------------------------------
 

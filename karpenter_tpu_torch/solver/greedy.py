@@ -1,8 +1,9 @@
 """Host greedy solver: the correctness/cost oracle and the CPU baseline.
 
 Port of ``karpenter_tpu/solver/greedy.py``; the card never reaches it
-(``make_solver`` returns it only for ``backend="greedy"``, and no solve
-path degrades to it).  Semantics replicate the reference's provisioning path (the greedy
+(``make_solver`` returns it only for ``backend="greedy"``, and only a
+primary on the CPU degrades to it: ``solver/degraded.py``).  Semantics
+replicate the reference's provisioning path (the greedy
 first-fit-decreasing over instance types that karpenter-core's
 Scheduler.Solve performs per reconcile, consuming the compatibility filter
 of cloudprovider.go:321-352 and the cost ranking of instancetype.go:88-110):

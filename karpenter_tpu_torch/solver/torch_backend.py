@@ -36,9 +36,19 @@ group), and flat-regime windows (G >= ``flat_min_groups``) through
 opt-in resident store (``resident/``) carries every preference-free
 window as a word delta against a device-resident buffer, and the
 serving loop (``serving/``, :meth:`TorchSolver.serve_stream`) streams
-such deltas through a ring.  No route catches a failure of its device
-program and runs the window down another: a failed program raises.
-The sharded option is not read here, as the reference's ``JaxSolver``
+such deltas through a ring.  The reference's degraded re-runs are
+ported: a host-side failure (not a ``DeviceFaultError``) of the
+stochastic or affinity program strips that route from the window and its
+template (``stochastic/degraded.py``, ``affinity/degraded.py``), and one
+of the resident program invalidates the store; each leaves an
+``ERRORS{solver, *_fallback}`` sample and re-runs the same base buffer
+through the FFD scan route, whose kernel is the hand kernel
+``ffd_scan`` on the card.  A ``DeviceFaultError`` is never absorbed
+here: it propagates to the caller (under ``make_solver``,
+``ResilientSolver``, which degrades it to the host only for a solver on
+the CPU).
+No plain PyTorch version ever stands in for a failed hand kernel on the
+card.  The sharded option is not read here, as the reference's ``JaxSolver``
 does not read it: ``core/provisioner.make_solver`` routes a shard count
 above 1 to the sharded service (``sharded/``).
 """
@@ -55,7 +65,7 @@ from karpenter_tpu_torch.affinity.encode import pack_affinity
 from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.faulttol import (
-    DeviceResourceExhausted, device_guard, device_id,
+    DeviceFaultError, DeviceResourceExhausted, device_guard, device_id,
 )
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
@@ -697,23 +707,66 @@ class TorchSolver:
         """Issue one window on the device; returns the device result.
         The route follows the prepared leaves (:attr:`_Prepared.route`),
         each inside ``device_guard`` and a sampled profiler bracket under
-        the route's kernel name (:data:`ROUTE_KERNEL`).  A failure of the
-        resident program invalidates the store and raises; no route
-        falls back to another (the reference's fallbacks consume typed
-        faults: ROADMAP queue 1 item 13)."""
+        the route's kernel name (:data:`ROUTE_KERNEL`).  The reference's
+        degraded re-runs (``jax_backend.py:1776-1999``): a host-side
+        failure of the stochastic or affinity program strips the route
+        from the window and its template, one of the resident program
+        invalidates the store, and the same base buffer re-runs down the
+        next route; a ``DeviceFaultError`` propagates."""
         prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
             prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
         catalog_t = self.device_offerings(prep.catalog, prep.O_pad)
-        route = prep.route
-        rs = self.options.right_size
-        if route == "resident":
+        while True:
+            route = prep.route
+            if route == "resident":
+                out = self._dispatch_resident(prep, catalog_t)
+                if out is not None:
+                    return out
+                continue
             try:
-                return self.resident.dispatch_solve(
-                    prep, prep.packed, catalog_t, rs)
-            except Exception:
-                self.resident.invalidate("dispatch_error")
+                return self._dispatch_route(prep, route, catalog_t)
+            except DeviceFaultError:
+                # a faulted device or a failed hand kernel, not a defect
+                # of the route's program: never strip the route for it
                 raise
+            except Exception as e:  # noqa: BLE001 — degrade, never fail
+                if route == "stochastic":
+                    from karpenter_tpu_torch.stochastic.degraded import (
+                        note_degraded,
+                    )
+                elif route == "affinity":
+                    from karpenter_tpu_torch.affinity.degraded import (
+                        note_degraded,
+                    )
+                else:
+                    raise
+                note_degraded(prep, e)
+
+    def _dispatch_resident(self, prep: _Prepared, catalog_t):
+        """One window through the resident store, or None after a
+        host-side failure of its program: the store is invalidated, the
+        window leaves an ``ERRORS{solver, resident_fallback}`` sample and
+        takes the classic route (``jax_backend.py:1977-1999``).  A
+        ``DeviceFaultError`` invalidates the store too, and propagates."""
+        try:
+            return self.resident.dispatch_solve(
+                prep, prep.packed, catalog_t, self.options.right_size)
+        except DeviceFaultError:
+            self.resident.invalidate("dispatch_error")
+            raise
+        except Exception as e:  # noqa: BLE001 — degrade to the classic route
+            log.warning("resident dispatch failed; host path fallback",
+                        error=str(e)[:300], G=prep.G_pad, O=prep.O_pad,
+                        N=prep.N)
+            metrics.ERRORS.labels("solver", "resident_fallback").inc()
+            self.resident.invalidate("dispatch_error")
+            prep.resident = False
+            return None
+
+    def _dispatch_route(self, prep: _Prepared, route: str, catalog_t):
+        """One guarded dispatch of ``route``'s device program."""
         off_alloc, off_price, off_rank = catalog_t
+        rs = self.options.right_size
         kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
                   right_size=rs, compact=prep.K, dense16=prep.dense16,
                   coo16=prep.coo16)
@@ -807,8 +860,9 @@ class PendingSolve:
     """One in-flight window.  ``result()`` waits for the result copy,
     re-dispatches on COO overflow or node escalation (both rare), and
     decodes; a flat window (``flat``) finishes through
-    ``solver/flat.finalize_flat``.  Nothing here falls back to another
-    route: a program that fails raises."""
+    ``solver/flat.finalize_flat``.  The fetch falls back nowhere (the
+    route strips sit at the dispatch, :meth:`TorchSolver.dispatch_packed`):
+    a program that fails here raises."""
 
     __slots__ = ("_solver", "_problem", "_prep", "_flat", "_host", "_event",
                  "_t_disp", "_t_issued", "_prepare_s", "_done", "_path",

@@ -11,13 +11,14 @@ stacked solve (port of ``karpenter_tpu/whatif``).
 - :mod:`planner` — ``build_baseline``, the planner (chunked above
   ``WHATIF_MAX_K``) and the per-scenario decode;
 - :mod:`oracle` — the numpy twin of the stacked solve;
+- :mod:`degraded` — ``ResilientPlanner``: a failed stacked solve of a
+  planner on the CPU degrades to the scenario-at-a-time host loop
+  (``plan_host``; one on the card raises);
 - :mod:`validate` — well-formedness of every perturbed state and the
   equality of each scenario's words with a fresh single-window solve.
 
 The planning service, the arrival forecaster and the command line of the
-reference wait for the host surface (ROADMAP queue 1 item 12), and its
-scenario-at-a-time fallback for item 13: here a failed stacked solve
-raises.
+reference wait for the host surface (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -39,11 +40,13 @@ from karpenter_tpu_torch.whatif.scenario import (  # noqa: E402
     ArrivalWave, CapClamp, OfferingMask, PreProvision, Scenario,
     WhatIfBaseline, lower_scenarios,
 )
+from karpenter_tpu_torch.whatif.degraded import ResilientPlanner  # noqa: E402
 from karpenter_tpu_torch.whatif.validate import validate_whatif  # noqa: E402
 
 __all__ = [
     "WHATIF_MAX_K", "WHATIF_RETRY_S", "ArrivalWave", "CapClamp",
-    "OfferingMask", "PreProvision", "Scenario", "ScenarioOutcome",
+    "OfferingMask", "PreProvision", "ResilientPlanner", "Scenario",
+    "ScenarioOutcome",
     "WhatIfBaseline", "WhatIfPlan", "WhatIfPlanner", "build_baseline",
     "lower_scenarios", "validate_whatif",
 ]

@@ -206,14 +206,24 @@ def test_over_budget_window_takes_ffd_route_and_choke(catalogs):
 
 
 def test_scan_failure_is_not_caught(catalogs, monkeypatch):
-    """The reference degrades a failed affinity scan to the
-    unconstrained one; the port raises instead."""
+    """A device fault in the affinity scan (a hand kernel's failed
+    launch) is not caught: it raises as ``DeviceFaultError`` and the
+    route stays armed.  A host-side failure strips the route, as the
+    reference's (tests/test_torch_degraded.py)."""
+    from karpenter_tpu_torch.cuda_build import KernelLaunchError
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+    from karpenter_tpu_torch.faulttol import health
+
+    # a board of the test's own: the fault it records must not count
+    # toward a quarantine of the worker's CPU device
+    monkeypatch.setattr(health, "_BOARD", None)
+
     def boom(*a, **k):
-        raise RuntimeError("injected affinity scan fault")
+        raise KernelLaunchError("cost_sum", 1, "injected affinity fault")
 
     monkeypatch.setattr(torch_backend, "solve_packed_affinity", boom)
     _, tpods, _, _ = _bench_windows(catalogs, 1)
-    with pytest.raises(RuntimeError, match="injected"):
+    with pytest.raises(DeviceFaultError, match="injected"):
         TorchSolver(device="cpu").solve(SolveRequest(tpods, catalogs[1]))
 
 

@@ -12,7 +12,10 @@ A real allocator OOM and a launch error from the FFD library's C entry
 inside ``device_guard`` are typed, and the card still computes after
 each; probation runs the torch probe; a sampled probe times the device;
 an injected OOM halves a batch; ``warmup_solver`` leaves the next window
-of its shape no first dispatch.
+of its shape no first dispatch; ``make_solver`` raises a faulted window
+on the card (no window leaves it for the greedy oracle) and the
+stochastic and affinity route strips re-run the window through
+``ffd_scan`` (the degraded modes, small windows).
 """
 
 import numpy as np
@@ -212,3 +215,90 @@ def test_warmup_solver_on_the_card(cuda_device):
     plan = solver.solve_encoded(problem)
     assert get_devtel().recompiles == rec
     assert validate_plan(plan, pods, catalog) == []
+
+
+def _view(plan):
+    return ([(n.offering_index, n.pod_names) for n in plan.nodes],
+            plan.unplaced_pods)
+
+
+@pytest.mark.cuda
+def test_make_solver_raises_a_faulted_window_on_the_card(cuda_device,
+                                                         fresh_board):
+    """(u1) at a small size: ``make_solver`` gives ``TorchSolver``'s plan;
+    a scripted error on the next dispatch raises ``DeviceFaultError`` out
+    of it with no breadcrumb, the resident store invalidated once; the
+    next window runs ``ffd_scan`` on the card again."""
+    from karpenter_tpu_torch import SolveRequest, SolverOptions, faulttol
+    from karpenter_tpu_torch import make_solver
+    from karpenter_tpu_torch.solver.degraded import breadcrumbs
+
+    pods, catalog = workload.build_workload(600, 40, seed=12)
+    request = SolveRequest(pods, catalog)
+    want = TorchSolver(device=cuda_device).solve(request)
+    solver = make_solver(SolverOptions(resident="on"), device=cuda_device)
+    plan = solver.solve(request)
+    assert _view(plan) == _view(want) and plan.backend == "torch"
+    before = breadcrumbs()
+    faulttol.install_injector(_ScriptedInjector(["error"]))
+    try:
+        with pytest.raises(faulttol.DeviceFaultError):
+            solver.solve(request)
+    finally:
+        faulttol.clear_injector()
+    assert solver.resident.invalidations == 1
+    assert breadcrumbs() == before
+    fresh_board.reset()
+    n0 = ffd_kernel.LAUNCHES["ffd_scan"]
+    plan = solver.solve(request)
+    assert ffd_kernel.LAUNCHES["ffd_scan"] > n0
+    assert _view(plan) == _view(want) and plan.backend == "torch"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stochastic", "affinity"])
+def test_route_strip_reruns_the_ffd_kernel_on_the_card(cuda_device,
+                                                       monkeypatch, route):
+    """(u2) at a small size: the route's program raises a host-side
+    error; the window re-runs through ``ffd_scan`` on the card with one
+    breadcrumb, its plan the CPU's stripped plan; the same window again
+    takes the scan with none."""
+    from karpenter_tpu_torch import SolveRequest
+    from karpenter_tpu_torch.apis.nodeclaim import NodePool
+    import importlib
+
+    from karpenter_tpu_torch.solver import torch_backend
+    from karpenter_tpu_torch.solver.degraded import breadcrumbs
+
+    encode_mod = importlib.import_module("karpenter_tpu_torch.solver.encode")
+    catalog = workload.build_catalog(40)
+    if route == "stochastic":
+        request = SolveRequest(workload.stochastic_pods(600, seed=13),
+                               catalog, NodePool(name="default",
+                                                 overcommit=0.05))
+        program = "solve_packed_stochastic"
+    else:
+        request = SolveRequest(workload.affinity_bench_pods(
+            "aff", 600, np.random.RandomState(19)), catalog)
+        program = "solve_packed_affinity"
+
+    def broken(*a, **k):
+        raise RuntimeError(f"scripted {route} program fault")
+
+    monkeypatch.setattr(torch_backend, program, broken)
+    encode_mod._ENCODE_MEMO.clear()
+    problem = encode_mod.encode(request.pods, catalog, request.nodepool)
+    before = breadcrumbs()
+    n0 = ffd_kernel.LAUNCHES["ffd_scan"]
+    solver = TorchSolver(device=cuda_device)
+    plan = solver.solve_encoded(problem)
+    assert ffd_kernel.LAUNCHES["ffd_scan"] == n0 + 1
+    key = f"errors{{solver,{route}_fallback}}"
+    assert breadcrumbs()[key] == before.get(key, 0.0) + 1
+    want = TorchSolver(device="cpu").solve_encoded(problem)
+    assert _view(plan) == _view(want)
+    mid = breadcrumbs()
+    again = solver.solve_encoded(problem)
+    assert ffd_kernel.LAUNCHES["ffd_scan"] == n0 + 2
+    assert breadcrumbs() == mid and _view(again) == _view(want)
+    encode_mod._ENCODE_MEMO.clear()

@@ -262,9 +262,15 @@ def test_card_solver_cost_at_most_greedy(tcatalog, seed):
 
 def test_make_solver_hands_out_the_oracle_only_when_asked(tcatalog,
                                                          monkeypatch):
-    solver = make_solver(TSolverOptions(), device="cpu")
+    """``make_solver`` returns the oracle itself only for
+    ``backend="greedy"``; otherwise the card's solver, wrapped in
+    ``ResilientSolver`` as the reference's.  The card's solver never
+    reaches the oracle: a failed kernel raises out of it, and only the
+    wrapper degrades the solve (counted, tagged ``degraded:``)."""
+    wrapped = make_solver(TSolverOptions(), device="cpu")
+    solver = wrapped.primary
     assert isinstance(solver, TorchSolver)
-    assert not isinstance(solver, GreedySolver)
+    assert not isinstance(wrapped, GreedySolver)
     oracle = make_solver(TSolverOptions(backend="greedy"), device="cpu")
     assert isinstance(oracle, GreedySolver)
 
@@ -281,6 +287,10 @@ def test_make_solver_hands_out_the_oracle_only_when_asked(tcatalog,
     pods = build_pods(mixed_specs(40, 3), t_pod, t_req)
     with pytest.raises(RuntimeError, match="kernel fault"):
         solver.solve(SolveRequest(pods, tcatalog))
+    monkeypatch.undo()
+    monkeypatch.setattr(TorchSolver, "dispatch_packed", broken)
+    plan = wrapped.solve(SolveRequest(pods, tcatalog))
+    assert plan.backend.startswith("degraded:greedy")
 
 
 def test_native_build_race_and_missing_toolchain(tmp_path, monkeypatch,

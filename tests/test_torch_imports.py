@@ -51,8 +51,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert res["torch"]
     # the walk really covered the package (kernel wrappers, build, carry,
     # the resident store, the serving loop, the what-if, gang and
-    # preemption planes, the sharded service, the repack plane, and the
-    # fault and profiling planes)
+    # preemption planes, the sharded service, the repack plane, the
+    # fault and profiling planes, the oracles and the degraded modes)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -114,7 +114,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.explain.validate",
               "karpenter_tpu_torch.gang.greedy",
               "karpenter_tpu_torch.preempt.greedy",
-              "karpenter_tpu_torch.repack.greedy"):
+              "karpenter_tpu_torch.repack.greedy",
+              # the degraded modes
+              "karpenter_tpu_torch.solver.degraded",
+              "karpenter_tpu_torch.stochastic.degraded",
+              "karpenter_tpu_torch.affinity.degraded",
+              "karpenter_tpu_torch.sharded.degraded",
+              "karpenter_tpu_torch.gang.degraded",
+              "karpenter_tpu_torch.preempt.degraded",
+              "karpenter_tpu_torch.repack.degraded",
+              "karpenter_tpu_torch.whatif.degraded"):
         assert m in res["modules"]
 
 

@@ -223,16 +223,28 @@ def test_track_window_and_churn():
 
 
 def test_failing_resident_program_raises_and_invalidates(monkeypatch):
+    """A device fault of the resident program (a hand kernel's failed
+    launch) invalidates the store and raises; the next window rebuilds.
+    A host-side failure re-runs on the classic route, as the reference's
+    (tests/test_torch_degraded.py)."""
+    from karpenter_tpu_torch.cuda_build import KernelLaunchError
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+    from karpenter_tpu_torch.faulttol import health
+
+    # a board of the test's own: the fault it records must not count
+    # toward a quarantine of the worker's CPU device
+    monkeypatch.setattr(health, "_BOARD", None)
+
     seqs, catalog = t_churn(48, 6, 2, 8)
     solver = TorchSolver(TSolverOptions(resident="on"), device="cpu")
     solver.solve_encoded(t_encode(seqs[0], catalog))
 
     def broken(*a, **k):
-        raise RuntimeError("resident program failed")
+        raise KernelLaunchError("ffd_scan", 1, "resident program failed")
 
     monkeypatch.setattr(t_kernels, "solve_resident", broken)
     solver.last_stats = {}
-    with pytest.raises(RuntimeError, match="resident program failed"):
+    with pytest.raises(DeviceFaultError, match="resident program failed"):
         solver.solve_encoded(t_encode(seqs[1], catalog))
     assert solver.last_stats == {}
     assert solver.resident.invalidations == 1

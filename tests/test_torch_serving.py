@@ -43,6 +43,7 @@ from karpenter_tpu_torch.solver import (
     SolverOptions as TSolverOptions, TorchSolver,
 )
 from karpenter_tpu_torch.solver import encode as t_encode
+from karpenter_tpu_torch.solver import torch_backend
 from tests.test_torch_packed import assert_words_equal
 from tests.test_torch_solver import assert_plans_equal
 
@@ -75,8 +76,6 @@ def test_output_ring_fifo_and_wrap_around():
 
 
 def test_full_push_fetches_nothing(monkeypatch):
-    from karpenter_tpu_torch.solver import torch_backend
-
     ring = OutputRing(2)
     fetches = []
     real = torch_backend.start_fetch
@@ -268,6 +267,10 @@ def test_backpressure_and_ineligible_windows_go_classic():
 
 
 def test_failing_kick_raises_and_invalidates(monkeypatch):
+    """A failed kick invalidates the ring and re-solves the window on the
+    classic path, which runs the card's FFD program, never a plain
+    stand-in: when that program fails too, the window raises.  (The
+    failovers that succeed are in tests/test_torch_degraded.py.)"""
     seqs, catalog = t_churn(48, 6, 3, 5)
     solver = _serving_solver()
     loop = solver.serving
@@ -276,9 +279,13 @@ def test_failing_kick_raises_and_invalidates(monkeypatch):
     def broken(*a, **k):
         raise RuntimeError("serving kick failed")
 
+    def scan_broken(*a, **k):
+        raise RuntimeError("classic program failed")
+
     monkeypatch.setattr(t_kernels, "serve_window", broken)
+    monkeypatch.setattr(torch_backend, "solve_packed_torch", scan_broken)
     solver.last_stats = {}
-    with pytest.raises(RuntimeError, match="serving kick failed"):
+    with pytest.raises(RuntimeError, match="classic program failed"):
         loop.submit(t_encode(seqs[1], catalog))
     assert loop.invalidations == 1 and loop.buf.dev is None
     assert loop.output.occupancy == 0 and loop.oracle.mirror is None

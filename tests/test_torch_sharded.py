@@ -20,9 +20,9 @@ exact equality:
   reference's;
 - the sharded serving loop's plans against the reference's loop.
 
-A window with soft preferences, a stochastic pool or affinity raises
-``NotImplementedError`` (the reference's host route waits for ROADMAP
-queue 1 item 13); a failing stacked solve invalidates and raises.  The
+A failing stacked solve invalidates and raises (the host route of
+windows with soft preferences, a stochastic pool or affinity, and the
+degraded wrapper, are in tests/test_torch_degraded_planes.py).  The
 headline window (10k pods x 500 types) is the ``slow`` case.
 """
 
@@ -49,7 +49,6 @@ from karpenter_tpu.solver import SolveRequest as JSolveRequest
 from karpenter_tpu.solver.jax_backend import solve_packed as j_solve_packed
 from karpenter_tpu.utils import metrics as j_metrics
 
-import karpenter_tpu_torch.apis.nodeclaim as t_nodeclaim
 import karpenter_tpu_torch.apis.pod as t_pod
 from karpenter_tpu_torch import (
     SolveRequest, SolverOptions, TorchSolver, carry, make_solver, workload,
@@ -279,31 +278,6 @@ def test_corrupt_result_raises(catalogs):
     assert svc.snapshot_state() is None
 
 
-def _host_routed_windows():
-    base = [t_pod.PodSpec(f"h{i}", requests=t_pod.ResourceRequests(
-        500, 1024, 0, 1)) for i in range(12)]
-    aff = base + [
-        t_pod.PodSpec("a", labels=(("app", "a"),)),
-        t_pod.PodSpec("b", affinity=(t_pod.PodAffinityTerm(
-            (("app", "a"),), t_pod.HOSTNAME_TOPOLOGY_KEY, anti=True),))]
-    return {"preferences": (workload.with_preferences(base), None),
-            "stochastic": (base, t_nodeclaim.NodePool(name="oc",
-                                                      overcommit=0.1)),
-            "affinity": (aff, None)}
-
-
-@pytest.mark.parametrize("route", ["preferences", "stochastic", "affinity"])
-def test_host_routed_window_raises_naming_roadmap(catalogs, route):
-    _, tcat = catalogs
-    pods, pool = _host_routed_windows()[route]
-    svc = ShardedSolveService(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        svc.solve_window(tcat, pool, pods=pods)
-    solver = ShardedSolver(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        solver.solve(SolveRequest(pods, tcat, pool))
-
-
 def test_affinity_components_co_route(catalogs):
     from karpenter_tpu.sharded.router import ShardRouter as JShardRouter
     from karpenter_tpu_torch.sharded.router import ShardRouter
@@ -397,13 +371,14 @@ def test_make_solver_routes_sharded(catalogs, monkeypatch):
     # sharded=1: the plain solver, which solves (the reference's JaxSolver
     # never reads the option)
     one = make_solver(SolverOptions(sharded=1), device="cpu")
-    assert type(one) is TorchSolver
+    assert type(one.primary) is TorchSolver
     jstream, tstream = churn(11, rounds=3)
     assert one.solve(SolveRequest(tstream[0], tcat)).placed_count == 40
     assert type(TorchSolver(SolverOptions(sharded=1), device="cpu")) \
         is TorchSolver
     two = make_solver(SolverOptions(sharded=2), device="cpu")
-    assert type(two) is ShardedSolver and two.service.num_shards == 2
+    assert type(two.primary) is ShardedSolver
+    assert two.service.num_shards == 2
     jsolver = JShardedSolver(2)
     for jpods, tpods in zip(jstream[:2], tstream[:2]):
         jplan = jsolver.solve(JSolveRequest(jpods, jcat))
@@ -416,7 +391,8 @@ def test_make_solver_routes_sharded(catalogs, monkeypatch):
     monkeypatch.setenv("KARPENTER_SHARDS", "4")
     assert sharded_shards(SolverOptions()) == 4
     env = make_solver(SolverOptions(), device="cpu")
-    assert type(env) is ShardedSolver and env.service.num_shards == 4
+    assert type(env.primary) is ShardedSolver
+    assert env.service.num_shards == 4
     monkeypatch.delenv("KARPENTER_SHARDS")
     assert sharded_shards(None) == 2
 

@@ -311,14 +311,24 @@ def test_violation_probe_matches(catalogs):
 
 
 def test_scan_failure_is_not_caught(catalogs, monkeypatch):
-    """The reference degrades a failed stochastic scan to the
-    deterministic one; the port raises instead."""
+    """A device fault in the stochastic scan (a hand kernel's failed
+    launch) is not caught: it raises as ``DeviceFaultError``.  A
+    host-side failure strips the route to the deterministic scan, as the
+    reference's (tests/test_torch_degraded.py)."""
+    from karpenter_tpu_torch.cuda_build import KernelLaunchError
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+    from karpenter_tpu_torch.faulttol import health
+
+    # a board of the test's own: the fault it records must not count
+    # toward a quarantine of the worker's CPU device
+    monkeypatch.setattr(health, "_BOARD", None)
+
     def boom(*a, **k):
-        raise RuntimeError("injected stochastic scan fault")
+        raise KernelLaunchError("cost_sum", 1, "injected stochastic fault")
 
     monkeypatch.setattr(torch_backend, "solve_packed_stochastic", boom)
     _, tcat = catalogs
-    with pytest.raises(RuntimeError, match="injected"):
+    with pytest.raises(DeviceFaultError, match="injected"):
         TorchSolver(device="cpu").solve(SolveRequest(
             workload.stochastic_pods(40, seed=1), tcat, t_pool()))
 
