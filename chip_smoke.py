@@ -197,7 +197,30 @@ no result line:
    plans) and raise a scripted fault; (u5) the headline p50 through
    ``make_solver()`` beside ``TorchSolver`` in 10 rounds of turns and
    ``plan_defects`` alone (printed, not gated; no timed window may
-   degrade).  (u0) every phase but (s) and (u) runs under a gate that
+   degrade); (v) the catalog intake, after (t) and before the fault
+   phase: (v1) the 500-type catalog listed from the port's
+   ``FakeCloud``, priced through ``PricingProvider``'s batcher and built
+   by ``InstanceTypeProvider`` under a default ``NodeClass``, equal to
+   ``workload.build_catalog(500)`` on every field, the headline pods
+   solved on it through ``make_solver()`` to phase (a)'s plan; (v2) the
+   10,000 pods through ``SolveWindow`` at the reference's defaults: one
+   window carrying them all, every future the direct plan's node, 10,000
+   ``window_enqueue`` ledger stamps linked to one trace, the wall from
+   the first add to the last future and the solve's share; (v3) the
+   offerings (v1)'s plan opened in us-south-1 blacked out on an
+   injected clock and refreshed into the catalog: one catalog upload,
+   none on a repeat, no blacked-out offering opened, ``validate_plan``
+   clean, the plan the CPU solver's and the packed result the plain CPU
+   program's word for word; the blackout expired: one upload, (v1)'s
+   plan; (v4) (v1)'s spot pairs at 3/4 interrupted, ``price_catalog``
+   bumping the risk generation once: one upload, none on a repeat, the
+   words the CPU program's, the stochastic window on the risk-priced
+   catalog on ``stochastic-cuda`` and equal to the CPU plan, the nodes
+   moved off the penalised pairs printed; (v5) the default soak SLOs
+   over the phase's ledger and recorder printed, gated only that both
+   telemetry objectives were measured from the card's windows and that
+   no resolution was degraded.  (u0) every phase but (s) and (u) runs
+   under a gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``); ``sharded_solves_total{host}``
    is printed, not gated;
@@ -295,6 +318,22 @@ from karpenter_tpu_torch.solver.degraded import breadcrumbs, plan_defects
 from karpenter_tpu_torch.solver.result_layout import unpack_reason_words
 from karpenter_tpu_torch.stochastic.greedy import solve_stochastic_host
 from karpenter_tpu_torch.utils import metrics
+from karpenter_tpu_torch import make_solver
+from karpenter_tpu_torch.apis.nodeclass import nodeclass_from_dict
+from karpenter_tpu_torch.carry import CATALOG_FIELDS
+from karpenter_tpu_torch.catalog import (
+    CatalogArrays, InstanceTypeProvider, PricingProvider,
+    UnavailableOfferings,
+)
+from karpenter_tpu_torch.cloud.fake import FakeCloud, generate_profiles
+from karpenter_tpu_torch.core.window import SolveWindow, WindowOptions
+from karpenter_tpu_torch.obs.devtel import get_devtel
+from karpenter_tpu_torch.obs.ledger import PlacementLedger
+from karpenter_tpu_torch.obs.slo import (
+    DEFAULT_SOAK_SLOS, evaluate_slos, ledger_measurements,
+    telemetry_measurements,
+)
+from karpenter_tpu_torch.stochastic.risk import SpotRiskModel
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -967,7 +1006,7 @@ def phase_main_path(dev, pods, catalog, tally: dict):
                            (meta, compat_i, off_alloc, off_rank), tally)
     say(f"kernel check ffd_scan on the main-path window G={prep.G_pad} "
         f"O={prep.O_pad} N={prep.N}: exact ({info})")
-    return solver, request, problem, launches, stats, cold_s, err
+    return solver, request, problem, plan, launches, stats, cold_s, err
 
 
 def build_fleet():
@@ -3500,6 +3539,413 @@ def phase_oracles(dev, card: str, solver, request) -> dict:
     return out
 
 
+# -- (v) the catalog intake -----------------------------------------------------
+
+# the intake's catalog (the fake cloud's 500 profiles), the blackout
+# (the zone whose offerings of phase (v1)'s plan go dark, for ttl s on
+# an injected clock) and the spot risk (interrupted / exposed per spot
+# pair of the plan)
+INTAKE = dict(types=500, zone="us-south-1", ttl=600.0, interrupted=3,
+              exposure=4, max_open=16384)
+
+
+def intake_nodeclass():
+    """The default NodeClass the provisioner lists the catalog under: a
+    region, a profile and an image, no kubelet overrides."""
+    nodeclass = nodeclass_from_dict({
+        "metadata": {"name": "default"},
+        "spec": {"region": "us-south", "instanceProfile": "bx2-4x16",
+                 "image": "img-1"}})
+    errors = nodeclass.validate()
+    if errors:
+        raise AssertionError(f"intake: the default NodeClass: {errors}")
+    return nodeclass
+
+
+def intake_catalog(nodeclass) -> tuple:
+    """(catalog, seconds): the fake cloud's profiles priced through
+    ``PricingProvider`` (its batcher closed after) and listed by
+    ``InstanceTypeProvider`` under ``nodeclass``, then built."""
+    t0 = time.perf_counter()
+    cloud = FakeCloud(profiles=generate_profiles(INTAKE["types"]))
+    pricing = PricingProvider(cloud)
+    try:
+        types = InstanceTypeProvider(cloud, pricing).list(nodeclass)
+    finally:
+        pricing.close()
+    catalog = CatalogArrays.build(types)
+    return catalog, time.perf_counter() - t0
+
+
+def node_names(plan, pods) -> list:
+    """Each pod's node, named by its place in the plan, or None."""
+    where = {}
+    for i, n in enumerate(plan.nodes):
+        for name in n.pod_names:
+            where[name] = f"{n.instance_type}/{n.zone}/{n.capacity_type}#{i}"
+    return [where.get(pod_api.pod_key(p)) for p in pods]
+
+
+def intake_window(label: str, solver, request, launches: dict,
+                  need=("ffd_scan", "cost_sum")) -> tuple:
+    """One window through ``solver`` on the card with the launch counts
+    zeroed before and read after (added to ``launches``; the kernels in
+    ``need`` must have run): (plan, catalog uploads it made, wall s)."""
+    uploads = get_devtel().catalog_uploads
+    reset_launches()
+    t0 = time.perf_counter()
+    plan = solver.solve(request)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    require_launches(got, need, label)
+    add_launches(launches, got)
+    return plan, get_devtel().catalog_uploads - uploads, wall
+
+
+def intake_words(dev, label: str, solver, request) -> tuple:
+    """The card's packed result of ``request`` against the plain CPU
+    program's, word for word (the cost word too)."""
+    problem = encode_mod.encode(request.pods, request.catalog,
+                                request.nodepool)
+    _, prep, card = packed_route_check(dev, label, solver, problem,
+                                       lambda prep: None)
+    return card.shape[0], prep
+
+
+def cpu_plan(request):
+    """The CPU solver's plan of ``request``, recorded on a throwaway
+    tracer: the phase's telemetry ring holds the card's windows only."""
+    with obs.use(obs.Tracer(obs.FlightRecorder())):
+        return TorchSolver(device="cpu").solve(request)
+
+
+def upload_ms(dev, catalog, O_pad: int, reps: int = 5) -> tuple:
+    """(median ms, bytes) of one catalog upload: ``device_offerings`` on
+    a fresh solver (an empty cache), synchronized."""
+    walls, nbytes = [], 0
+    for _ in range(reps):
+        solver = TorchSolver(device=dev)
+        before = get_devtel().catalog_upload_bytes
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        solver.device_offerings(catalog, O_pad)
+        torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        nbytes = get_devtel().catalog_upload_bytes - before
+    return float(np.median(walls)), nbytes
+
+
+def expect_uploads(label: str, got: int, want: int) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: {got} catalog uploads, want {want}")
+
+
+def intake_blackout(dev, solver, pods, catalog, base, launches: dict
+                    ) -> dict:
+    """(v3) The offerings of (v1)'s plan in INTAKE['zone'] blacked out
+    on an injected clock, refreshed into the catalog, then expired."""
+    used = sorted({(n.instance_type, n.zone, n.capacity_type)
+                   for n in base.nodes if n.zone == INTAKE["zone"]})
+    if not used:
+        raise AssertionError(f"intake (v3): (v1)'s plan opened nothing in "
+                             f"{INTAKE['zone']}")
+    clock = [0.0]
+    unavailable = UnavailableOfferings(clock=lambda: clock[0])
+    for key in used:
+        unavailable.mark_unavailable(*key, ttl=INTAKE["ttl"])
+    t0 = time.perf_counter()
+    changed = catalog.refresh_availability(unavailable)
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    if not changed:
+        raise AssertionError("intake (v3): refresh_availability returned "
+                             "False on a new blackout")
+    dark = {catalog.find_offering(*key) for key in used}
+    request = SolveRequest(pods, catalog)
+    plan, uploads, wall = intake_window("intake blackout", solver, request,
+                                        launches)
+    expect_uploads("intake (v3) blackout window", uploads, 1)
+    again, uploads_again, wall_again = intake_window(
+        "intake blackout again", solver, request, launches)
+    expect_uploads("intake (v3) repeat window", uploads_again, 0)
+    plans_equal("intake (v3) repeat", again, plan)
+    opened = {n.offering_index for n in plan.nodes} & dark
+    if opened:
+        raise AssertionError(f"intake (v3): the plan opened blacked-out "
+                             f"offerings {sorted(opened)}")
+    errors = validate_plan(plan, pods, catalog)
+    if errors:
+        raise AssertionError(f"intake (v3): validate_plan: {errors[:5]}")
+    plans_equal("intake (v3) against the CPU solver", plan,
+                cpu_plan(request))
+    words, _ = intake_words(dev, "intake (v3) blackout window", solver,
+                            request)
+    clock[0] = INTAKE["ttl"] + 1.0
+    if not catalog.refresh_availability(unavailable) or \
+            not catalog.off_avail.all():
+        raise AssertionError("intake (v3): the expired blackout did not "
+                             "restore the mask")
+    back, uploads_back, _ = intake_window("intake restored", solver,
+                                          request, launches)
+    expect_uploads("intake (v3) restored window", uploads_back, 1)
+    plans_equal("intake (v3) restored against (v1)", back, base)
+    say(f"intake (v3): {len(used)} offerings of (v1)'s plan in "
+        f"{INTAKE['zone']} blacked out (refresh_availability "
+        f"{refresh_ms:.3f} ms): one catalog upload, none on the repeat; "
+        f"{len(plan.nodes)} nodes, none blacked out, {plan.placed_count} "
+        f"placed, cost {plan.total_cost_per_hour:.4f} $/h (was "
+        f"{base.total_cost_per_hour:.4f}), validate_plan clean, plan equal "
+        f"to the CPU solver's, result buffer {words} words equal to the "
+        f"plain CPU program; the blackout expired at {clock[0]:.0f} s: one "
+        f"upload, plan equal to (v1)'s; walls {wall * 1e3:.3f} ms (the "
+        f"re-encode of the new mask and the upload), "
+        f"{wall_again * 1e3:.3f} ms (repeat)")
+    return {"offerings": len(used), "refresh_ms": refresh_ms,
+            "nodes": len(plan.nodes), "placed": plan.placed_count,
+            "cost": plan.total_cost_per_hour, "upload_wall_ms": wall * 1e3,
+            "repeat_wall_ms": wall_again * 1e3, "words": words}
+
+
+def intake_risk(dev, solver, pods, catalog, base, launches: dict) -> dict:
+    """(v4) The spot pairs of (v1)'s plan given an interruption rate,
+    the catalog risk-priced, the headline and the stochastic windows on
+    it."""
+    spot = sorted({(n.instance_type, n.zone) for n in base.nodes
+                   if n.capacity_type == "spot"})
+    if not spot:
+        raise AssertionError("intake (v4): (v1)'s plan opened no spot node")
+    model = SpotRiskModel()
+    for itype, zone in spot:
+        model.observe(itype, zone, interrupted=INTAKE["interrupted"],
+                      exposure=INTAKE["exposure"])
+    g0 = catalog.risk_generation
+    t0 = time.perf_counter()
+    model.price_catalog(catalog)
+    price_ms = (time.perf_counter() - t0) * 1e3
+    g1 = catalog.risk_generation
+    model.price_catalog(catalog)
+    if (g1, catalog.risk_generation) != (g0 + 1, g0 + 1):
+        raise AssertionError(f"intake (v4): risk generations {g0} -> {g1} "
+                             f"-> {catalog.risk_generation}, want one bump")
+    request = SolveRequest(pods, catalog)
+    plan, uploads, wall = intake_window("intake risk", solver, request,
+                                        launches)
+    expect_uploads("intake (v4) risk window", uploads, 1)
+    again, uploads_again, wall_again = intake_window(
+        "intake risk again", solver, request, launches)
+    expect_uploads("intake (v4) repeat window", uploads_again, 0)
+    plans_equal("intake (v4) repeat", again, plan)
+    clean_and_placed("intake (v4) risk window", plan, pods, catalog)
+    plans_equal("intake (v4) against the CPU solver", plan,
+                cpu_plan(request))
+    words, prep = intake_words(dev, "intake (v4) risk window", solver,
+                               request)
+    one_upload_ms, upload_bytes = upload_ms(dev, catalog, prep.O_pad)
+    penalised = set(spot)
+
+    def on_penalised(p):
+        return sum(1 for n in p.nodes if n.capacity_type == "spot"
+                   and (n.instance_type, n.zone) in penalised)
+
+    sto_pods = workload.stochastic_pods(HEADLINE["pods"],
+                                        seed=STOCHASTIC["seed"])
+    pool = NodePool(name="default", overcommit=STOCHASTIC["overcommit"])
+    sto_request = SolveRequest(sto_pods, catalog, pool)
+    sto, sto_uploads, sto_wall = intake_window(
+        "intake stochastic", solver, sto_request, launches,
+        need=("cost_sum",))
+    if solver.last_stats["path"] != f"stochastic-{dev.type}":
+        raise AssertionError(f"intake (v4) stochastic window took "
+                             f"{solver.last_stats['path']!r}")
+    clean_and_placed("intake (v4) stochastic window", sto, sto_pods,
+                     catalog, pool)
+    plans_equal("intake (v4) stochastic against the CPU solver", sto,
+                cpu_plan(sto_request))
+    moved = on_penalised(base) - on_penalised(plan)
+    say(f"intake (v4): {len(spot)} spot pairs of (v1)'s plan at "
+        f"{INTAKE['interrupted']}/{INTAKE['exposure']} interrupted; "
+        f"price_catalog {price_ms:.3f} ms, risk generation {g0} -> "
+        f"{catalog.risk_generation} (the second call with the same model "
+        f"left it); the headline window: one catalog upload, none on the "
+        f"repeat, {len(plan.nodes)} nodes, cost "
+        f"{plan.total_cost_per_hour:.4f} $/h, plan equal to the CPU "
+        f"solver's, result buffer {words} words equal to the plain CPU "
+        f"program, wall {wall * 1e3:.3f} ms with the upload, "
+        f"{wall_again * 1e3:.3f} ms the repeat; one upload alone "
+        f"({upload_bytes} B, device_offerings on a fresh solver, "
+        f"synchronized, median of 5) {one_upload_ms:.3f} ms; nodes on the "
+        f"penalised pairs "
+        f"{on_penalised(base)} -> {on_penalised(plan)} ({moved} moved off; "
+        f"reported, not gated); the stochastic window (seed "
+        f"{STOCHASTIC['seed']}, overcommit {STOCHASTIC['overcommit']}) on "
+        f"the risk-priced catalog: path {solver.last_stats['path']}, "
+        f"{sto_uploads} uploads, {len(sto.nodes)} nodes, plan equal to the "
+        f"CPU solver's, wall {sto_wall * 1e3:.3f} ms")
+    return {"pairs": len(spot), "price_ms": price_ms,
+            "nodes": len(plan.nodes), "cost": plan.total_cost_per_hour,
+            "wall_ms": wall * 1e3, "repeat_wall_ms": wall_again * 1e3,
+            "upload_ms": one_upload_ms, "upload_bytes": upload_bytes,
+            "words": words,
+            "penalised_before": on_penalised(base),
+            "penalised_after": on_penalised(plan),
+            "stochastic_wall_ms": sto_wall * 1e3,
+            "stochastic_nodes": len(sto.nodes)}
+
+
+def intake_slo(ledger) -> dict:
+    """(v5) The SLOs over the phase's ledger and recorder: the default
+    soak objectives printed; gated only that both objectives of
+    ``telemetry_measurements`` were measured from the card's windows and
+    that no resolution was degraded."""
+    t0 = time.perf_counter()
+    report = evaluate_slos(list(DEFAULT_SOAK_SLOS), ledger_measurements(
+        ledger, recorder=obs.get_recorder()))
+    tel = telemetry_measurements()
+    slo_ms = (time.perf_counter() - t0) * 1e3
+    planes = telemetry_words.summary().get("planes", {})
+    scan = planes.get("scan", {}).get("windows", 0)
+    want = {"telemetry_escalations_per_window",
+            "telemetry_min_fill_fraction"}
+    if set(tel) != want or scan < 8:
+        raise AssertionError(f"intake (v5): telemetry objectives {sorted(tel)} "
+                             f"over {scan} scan windows; want {sorted(want)} "
+                             f"over at least 8 (the fill fraction's floor)")
+    outcomes = ledger.stats()["outcomes"]
+    degraded = {k: v for k, v in outcomes.items()
+                if k in ("placed_degraded", "released", "failed")}
+    if degraded:
+        raise AssertionError(f"intake (v5): degraded resolutions {degraded}")
+    for line in report.render().splitlines():
+        say(f"intake (v5) slo: {line}")
+    say(f"intake (v5): telemetry over {scan} scan windows and "
+        f"{planes.get('stochastic', {}).get('windows', 0)} stochastic: "
+        + ", ".join(f"{k} {v.value:.6g}" for k, v in sorted(tel.items()))
+        + f"; ledger outcomes {outcomes}; SLO evaluation {slo_ms:.3f} ms "
+        f"of host time")
+    return {"report": report.to_dict(), "slo_ms": slo_ms, "scan_windows":
+            scan, "telemetry": {k: v.value for k, v in tel.items()},
+            "outcomes": outcomes}
+
+
+def phase_intake(dev, card: str, pods, catalog, main_plan) -> dict:
+    """(v) The catalog intake on the card: (v1) the 500-type catalog
+    through the port's FakeCloud -> PricingProvider ->
+    InstanceTypeProvider chain, equal to ``workload.build_catalog`` and
+    solved through ``make_solver()`` to phase (a)'s plan; (v2) the
+    headline pods through ``SolveWindow`` (one window of 10,000, every
+    future the direct plan's node, the ledger's stamps linked to its
+    trace); (v3) a blackout and its expiry; (v4) the spot risk; (v5) the
+    SLOs over the phase's ledger and recorder."""
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    saved_recorder = obs.get_tracer().recorder
+    obs.reset_recorder()
+    ledger = PlacementLedger(max_open=INTAKE["max_open"])
+    try:
+        with obs.use_ledger(ledger):
+            out = intake_phases(dev, pods, catalog, main_plan, ledger,
+                                launches)
+            out["slo"] = intake_slo(ledger)
+    finally:
+        obs.get_tracer().recorder = saved_recorder
+    out["launches"] = launches
+    out["host_s"] = time.perf_counter() - t_phase
+    say(f"intake phase: {out['host_s']:.3f} s on {card}, launches "
+        f"{launches}")
+    return out
+
+
+def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
+    nodeclass = intake_nodeclass()
+    own, build_s = intake_catalog(nodeclass)
+    for f in CATALOG_FIELDS:
+        a, b = getattr(own, f), getattr(catalog, f)
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) \
+            else list(a) == list(b)
+        if not same:
+            raise AssertionError(f"intake (v1): field {f} differs from "
+                                 f"workload.build_catalog")
+    solver = make_solver(device=dev)
+    request = SolveRequest(pods, own)
+    base, uploads, cold = intake_window("intake (v1)", solver, request,
+                                        launches)
+    expect_uploads("intake (v1) first window", uploads, 1)
+    plans_equal("intake (v1) against phase (a)", base, main_plan)
+    _, _, warm = intake_window("intake (v1) warm", solver, request, launches)
+    say(f"intake (v1): {INTAKE['types']} types listed from FakeCloud, "
+        f"priced through PricingProvider's batcher and built by "
+        f"InstanceTypeProvider under NodeClass {nodeclass.name!r} in "
+        f"{build_s * 1e3:.3f} ms ({own.num_offerings} offerings), equal to "
+        f"workload.build_catalog on every field; make_solver() on the "
+        f"card: plan equal to phase (a)'s ({len(base.nodes)} nodes, cost "
+        f"{base.total_cost_per_hour:.4f} $/h), cold {cold * 1e3:.3f} ms "
+        f"with one catalog upload, warm {warm * 1e3:.3f} ms")
+
+    # (v2): the pods through the solve window at the reference's defaults
+    fired, solve_s, linked = [], [], []
+    keys = [pod_api.pod_key(p) for p in pods]
+    for key in keys:
+        ledger.first_seen(key)
+
+    def on_window(batch):
+        recs = ledger.open_records()
+        linked.append((sum(1 for r in recs
+                           if "window_enqueue" in r.stamp_names()),
+                       {r.trace_id for r in recs}))
+        batch_keys = [pod_api.pod_key(p) for p in batch]
+        ledger.solve_start(batch_keys)
+        t0 = time.perf_counter()
+        plan = solver.solve(SolveRequest(list(batch), own))
+        solve_s.append(time.perf_counter() - t0)
+        ledger.plan_decoded(batch_keys)
+        names = node_names(plan, batch)
+        for key, name in zip(batch_keys, names):
+            if name is None:
+                ledger.unplaced(key, "capacity_exhausted")
+            else:
+                ledger.resolve(key, "placed")
+        fired.append(len(batch))
+        return names
+
+    window = SolveWindow(on_window, WindowOptions())
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        futures = window.add_all(pods)
+        got = [f.result(timeout=120) for f in futures]
+        wall = time.perf_counter() - t0
+    finally:
+        window.close()
+    window_launches = launch_counts()
+    require_launches(window_launches, ["ffd_scan", "cost_sum"],
+                     "intake (v2) window")
+    add_launches(launches, window_launches)
+    if fired != [len(pods)]:
+        raise AssertionError(f"intake (v2): windows fired {fired}, want one "
+                             f"of {len(pods)}")
+    if got != node_names(base, pods):
+        raise AssertionError("intake (v2): the window's node names differ "
+                             "from the direct plan's")
+    stamped, traces = linked[0]
+    if stamped != len(pods) or len(traces) != 1 or 0 in traces:
+        raise AssertionError(f"intake (v2): {stamped} window_enqueue stamps "
+                             f"over trace ids {sorted(traces)[:4]}")
+    opts = WindowOptions()
+    say(f"intake (v2): {len(pods)} pods through SolveWindow (idle "
+        f"{opts.idle_seconds} s, max {opts.max_seconds} s, max_pods "
+        f"{opts.max_pods}): one window of {fired[0]}, every future the "
+        f"direct plan's node, {stamped} window_enqueue stamps linked to "
+        f"trace {next(iter(traces))}; wall from the first add to the last "
+        f"future {wall * 1e3:.3f} ms, the solve {solve_s[0] * 1e3:.3f} ms "
+        f"of it ({solve_s[0] / wall:.1%})")
+    return {"build_ms": build_s * 1e3, "cold_ms": cold * 1e3,
+            "warm_ms": warm * 1e3, "window_wall_ms": wall * 1e3,
+            "window_solve_ms": solve_s[0] * 1e3,
+            "window_solve_share": solve_s[0] / wall,
+            "blackout": intake_blackout(dev, solver, pods, own, base,
+                                        launches),
+            "risk": intake_risk(dev, solver, pods, own, base, launches)}
+
+
 # -- phase 5: timings ---------------------------------------------------------
 
 
@@ -5061,8 +5507,8 @@ def main() -> int:
                                     phase_pref_kernel_checks, dev, catalog,
                                     tally)
     checks["cost_sum"] = gated("cost_sum checks", phase_cost_sum_checks, dev)
-    solver, request, problem, launches, stats, cold_s, err = gated(
-        "(a) main path", phase_main_path, dev, pods, catalog, tally)
+    solver, request, problem, main_plan, launches, stats, cold_s, err = \
+        gated("(a) main path", phase_main_path, dev, pods, catalog, tally)
     checks["ffd_scan"]["max_abs_err"] = max(
         checks["ffd_scan"]["max_abs_err"], err, design["max_abs_err"])
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -5101,8 +5547,10 @@ def main() -> int:
     repack = gated("(r) repack", phase_repack, dev, card)
     oracles = gated("(t) oracles", phase_oracles, dev, card, solver,
                     request)
+    intake = gated("(v) intake", phase_intake, dev, card, pods, catalog,
+                   main_plan)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
-        f"but (s); sharded_solves_total{{host}} "
+        f"but (s), nor in (v); sharded_solves_total{{host}} "
         f"{metrics.SHARDED_SOLVES.get('host')} (the host route, not a "
         f"fallback; not gated)")
     fault = phase_fault(dev, card, pods, catalog)
@@ -5140,6 +5588,7 @@ def main() -> int:
                      "sharded_churn": sharded_churn["launches"],
                      "sharded_serving": sharded_serving["launches"],
                      "repack": repack["launches"],
+                     "intake": intake["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -5176,7 +5625,8 @@ def main() -> int:
             "gang": gang, "preempt": preempt, "sharded": sharded,
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
-            "oracles": oracles, "fault": fault, "degraded": degraded,
+            "oracles": oracles, "intake": intake, "fault": fault,
+            "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -210,3 +210,27 @@ class CatalogArrays:
         tn, zn, cn = cached
         return (tn[offs].tolist(), zn[offs].tolist(), cn[offs].tolist(),
                 self.off_price[offs].tolist())
+
+    # -- availability refresh ---------------------------------------------
+
+    def refresh_availability(self, unavailable) -> bool:
+        """Re-derive the availability column from the blackout set; returns
+        True when the mask changed (caller re-uploads to device)."""
+        # capture the generation ONCE and derive the mask from that same
+        # frozenset — reading keys and generation separately lets a TTL
+        # expire in between, recording a generation the mask doesn't match
+        gen = unavailable.generation
+        if gen == self.availability_generation:
+            return False
+        mask = np.ones(self.num_offerings, dtype=bool)
+        for key in gen:
+            parts = key.split(":")
+            if len(parts) != 3:
+                continue
+            idx = self._offering_index.get((parts[0], parts[1], parts[2]))
+            if idx is not None:
+                mask[idx] = False
+        changed = not np.array_equal(mask, self.off_avail)
+        self.off_avail = mask
+        self.availability_generation = gen
+        return changed

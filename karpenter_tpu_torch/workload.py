@@ -1,13 +1,14 @@
 """Seeded headline workload: the synthetic catalog and pending pods.
 
-A JAX-free copy of the data the reference benchmark solves: the
-IBM-shaped profile ladder and price model of
-``karpenter_tpu/cloud/fake.py`` (``generate_profiles``,
-``profile_price``), the offering build of the instance-type provider
-(three zones, on-demand plus spot at the 60% discount, default kubelet
-overhead, every offering available), and ``bench.py``'s
-``build_workload`` pod mix (six size classes; 25% zone spread, 15% zone
-pin, 10% on-demand only, 5% tolerating a dedicated taint).
+The data the reference benchmark solves: the catalog ``bench.py``
+builds, through the port's own catalog intake (``cloud/fake.py``'s
+IBM-shaped profile ladder and price model, ``catalog/pricing.py``'s
+``PricingProvider`` and ``catalog/instancetype.py``'s
+``InstanceTypeProvider``: three zones, on-demand plus spot at the 60%
+discount, default kubelet overhead, every offering available), and
+``bench.py``'s ``build_workload`` pod mix (six size classes; 25% zone
+spread, 15% zone pin, 10% on-demand only, 5% tolerating a dedicated
+taint).
 
     pods, catalog = build_workload(10_000, 500, seed=42)
 
@@ -27,9 +28,6 @@ field.
 
 from __future__ import annotations
 
-import itertools
-from dataclasses import dataclass, replace
-
 import numpy as np
 
 from karpenter_tpu_torch.apis.pod import (
@@ -41,104 +39,12 @@ from karpenter_tpu_torch.apis.requirements import (
     LABEL_ZONE, Operator, Requirement,
 )
 from karpenter_tpu_torch.catalog.arrays import CatalogArrays
-from karpenter_tpu_torch.catalog.instancetype import (
-    DEFAULT_SPOT_DISCOUNT_PERCENT, InstanceType, Offering, compute_overhead,
-    pods_capacity, profile_family, profile_size,
-)
+from karpenter_tpu_torch.catalog.instancetype import InstanceTypeProvider
+from karpenter_tpu_torch.catalog.pricing import PricingProvider
+from karpenter_tpu_torch.cloud.fake import FakeCloud, generate_profiles
+from karpenter_tpu_torch.cloud.fake import profile_price  # noqa: F401 (re-exported)
 
 REGION = "us-south"
-ZONES = tuple(f"{REGION}-{i}" for i in (1, 2, 3))
-
-
-@dataclass(frozen=True)
-class InstanceProfile:
-    name: str                    # e.g. "bx2-4x16"
-    cpu: int                     # vCPUs
-    memory_gib: int
-    architecture: str = "amd64"
-    gpu: int = 0
-    supports_spot: bool = True
-
-
-_FAMILIES = {
-    # family -> (mem_per_cpu_gib, gpu_per_8cpu, base price per cpu-hour)
-    "bx2": (4, 0, 0.0475),
-    "cx2": (2, 0, 0.0415),
-    "mx2": (8, 0, 0.0555),
-    "ux2d": (28, 0, 0.1320),
-    "gx3": (8, 1, 0.4200),
-}
-_CPU_LADDER = (2, 4, 8, 16, 24, 32, 48, 64, 96, 128)
-
-
-def generate_profiles(count: int = 20,
-                      families: tuple[str, ...] = ("bx2", "cx2", "mx2"),
-                      arch: str = "amd64") -> list[InstanceProfile]:
-    """Deterministic IBM-shaped profile ladder of ``count`` types."""
-    out: list[InstanceProfile] = []
-    for family, cpu in itertools.product(families, _CPU_LADDER):
-        if len(out) >= count:
-            break
-        mem_ratio, gpu_per8, _ = _FAMILIES[family]
-        out.append(InstanceProfile(
-            name=f"{family}-{cpu}x{cpu * mem_ratio}", cpu=cpu,
-            memory_gib=cpu * mem_ratio, architecture=arch,
-            gpu=(cpu // 8) * gpu_per8, supports_spot=(family != "ux2d")))
-    # widen with synthetic variant suffixes past the real ladder
-    variant = 2
-    while len(out) < count:
-        for family, cpu in itertools.product(families, _CPU_LADDER):
-            if len(out) >= count:
-                break
-            mem_ratio, gpu_per8, _ = _FAMILIES[family]
-            out.append(InstanceProfile(
-                name=f"{family}v{variant}-{cpu}x{cpu * mem_ratio}", cpu=cpu,
-                memory_gib=cpu * mem_ratio, architecture=arch,
-                gpu=(cpu // 8) * gpu_per8))
-        variant += 1
-    return out[:count]
-
-
-def profile_price(profile: InstanceProfile) -> float:
-    """Deterministic on-demand $/h for a synthetic profile."""
-    fam = next((f for f in _FAMILIES if profile.name.startswith(f)), "bx2")
-    price = profile.cpu * _FAMILIES[fam][2] + profile.gpu * 0.95
-    # mild variant premium so duplicated ladders aren't price-identical
-    if "v2-" in profile.name:
-        price *= 1.07
-    elif "v3-" in profile.name:
-        price *= 1.15
-    return round(price, 4)
-
-
-def build_instance_types(profiles: list[InstanceProfile],
-                         zones: tuple[str, ...] = ZONES,
-                         spot_discount_percent: int =
-                         DEFAULT_SPOT_DISCOUNT_PERCENT
-                         ) -> list[InstanceType]:
-    """Profiles -> instance types with per-zone on-demand and spot
-    offerings (spot = on-demand x discount), default kubelet overhead."""
-    oh_cpu, oh_mem = compute_overhead(None)
-    out = []
-    for p in profiles:
-        it = InstanceType(
-            name=p.name, cpu_milli=p.cpu * 1000,
-            memory_mib=p.memory_gib * 1024, gpu=p.gpu,
-            pods=pods_capacity(p.cpu), architecture=p.architecture,
-            family=profile_family(p.name), size=profile_size(p.name),
-            overhead_cpu_milli=oh_cpu, overhead_memory_mib=oh_mem)
-        caps = [CAPACITY_TYPE_ON_DEMAND] + (
-            [CAPACITY_TYPE_SPOT] if p.supports_spot else [])
-        od_price = profile_price(p)
-        for zone in zones:
-            for cap in caps:
-                price = od_price
-                if cap == CAPACITY_TYPE_SPOT:
-                    price = od_price * spot_discount_percent / 100.0
-                it.offerings.append(Offering(zone=zone, capacity_type=cap,
-                                             price=price, available=True))
-        out.append(it)
-    return out
 
 
 # the families of ``bench.run_gang``'s accelerator catalog (gx3 types
@@ -149,8 +55,18 @@ ACCEL_FAMILIES = ("gx3", "bx2", "cx2", "mx2")
 def build_catalog(num_types: int,
                   families: tuple[str, ...] = ("bx2", "cx2", "mx2")
                   ) -> CatalogArrays:
-    return CatalogArrays.build(build_instance_types(
-        generate_profiles(num_types, families=families)))
+    """The catalog of ``num_types`` synthetic profiles, built as the
+    provisioner builds one: the fake cloud's profiles, priced through
+    ``PricingProvider`` (its batcher is closed before returning) and
+    listed by ``InstanceTypeProvider``."""
+    cloud = FakeCloud(profiles=generate_profiles(num_types,
+                                                 families=families))
+    pricing = PricingProvider(cloud)
+    try:
+        return CatalogArrays.build(InstanceTypeProvider(cloud,
+                                                        pricing).list())
+    finally:
+        pricing.close()
 
 
 def build_workload(num_pods: int, num_types: int, seed: int = 42):

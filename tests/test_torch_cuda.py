@@ -825,3 +825,77 @@ def test_repack_grid_on_card_matches_numpy(cuda_device):
     want = plain._grid_numpy(prob, prob.tables)
     for a, b in zip(got[:3], want):
         np.testing.assert_array_equal(a, b)
+
+
+def _intake_change(kind: str, catalog, base):
+    """Apply the catalog intake's change of ``kind`` to ``catalog``: the
+    blackout of the offerings ``base`` opened in us-south-1, or an
+    interruption rate of 3/4 on its spot pairs.  Returns the offering
+    indexes the change darkened (none for the risk)."""
+    from karpenter_tpu_torch.catalog import UnavailableOfferings
+    from karpenter_tpu_torch.stochastic.risk import SpotRiskModel
+
+    if kind == "blackout":
+        used = sorted({(n.instance_type, n.zone, n.capacity_type)
+                       for n in base.nodes if n.zone == "us-south-1"})
+        assert used
+        unavailable = UnavailableOfferings(clock=lambda: 0.0)
+        for key in used:
+            unavailable.mark_unavailable(*key)
+        assert catalog.refresh_availability(unavailable)
+        return {catalog.find_offering(*key) for key in used}
+    model = SpotRiskModel()
+    for itype, zone in {(n.instance_type, n.zone) for n in base.nodes
+                        if n.capacity_type == "spot"}:
+        model.observe(itype, zone, interrupted=3, exposure=4)
+    generation = catalog.risk_generation
+    model.price_catalog(catalog)
+    assert catalog.risk_generation == generation + 1
+    return set()
+
+
+def _intake_window(cuda_device, kind):
+    """(solver, request, base plan, darkened offerings) of a 2000-pod x
+    60-type window solved once on the card before the change."""
+    pods, catalog = workload.build_workload(2000, 60, seed=21)
+    solver = TorchSolver(device=cuda_device)
+    request = SolveRequest(pods, catalog)
+    base = solver.solve(request)
+    dark = _intake_change(kind, catalog, base)
+    return solver, request, base, dark
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["blackout", "risk"])
+def test_intake_change_uploads_the_catalog_once(cuda_device, kind):
+    from karpenter_tpu_torch.obs.devtel import get_devtel
+
+    solver, request, _, _ = _intake_window(cuda_device, kind)
+    before = get_devtel().catalog_uploads
+    solver.solve(request)
+    assert get_devtel().catalog_uploads == before + 1
+    solver.solve(request)
+    assert get_devtel().catalog_uploads == before + 1
+
+
+@pytest.mark.cuda
+def test_intake_blackout_plan_avoids_the_dark_offerings(cuda_device):
+    solver, request, base, dark = _intake_window(cuda_device, "blackout")
+    plan = solver.solve(request)
+    assert dark and not {n.offering_index for n in plan.nodes} & dark
+    assert validate_plan(plan, request.pods, request.catalog) == []
+    assert plan.placed_count == len(request.pods)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["blackout", "risk"])
+def test_intake_change_words_equal_the_cpu_program(cuda_device, kind):
+    solver, request, _, _ = _intake_window(cuda_device, kind)
+    problem = encode(request.pods, request.catalog)
+    card = solver.dispatch_packed(solver._prepare(problem)).cpu().numpy()
+    cpu = TorchSolver(device="cpu")
+    plain = cpu.dispatch_packed(cpu._prepare(problem)).numpy()
+    np.testing.assert_array_equal(card, plain)
+    assert [(n.offering_index, n.pod_names)
+            for n in solver.solve(request).nodes] == \
+        [(n.offering_index, n.pod_names) for n in cpu.solve(request).nodes]

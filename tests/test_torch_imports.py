@@ -52,7 +52,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # the walk really covered the package (kernel wrappers, build, carry,
     # the resident store, the serving loop, the what-if, gang and
     # preemption planes, the sharded service, the repack plane, the
-    # fault and profiling planes, the oracles and the degraded modes)
+    # fault and profiling planes, the oracles, the degraded modes and
+    # the catalog intake)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -123,7 +124,28 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.gang.degraded",
               "karpenter_tpu_torch.preempt.degraded",
               "karpenter_tpu_torch.repack.degraded",
-              "karpenter_tpu_torch.whatif.degraded"):
+              "karpenter_tpu_torch.whatif.degraded",
+              # the catalog intake: the leaf infrastructure and the
+              # catalog half of the cloud layer
+              "karpenter_tpu_torch.constants",
+              "karpenter_tpu_torch.version",
+              "karpenter_tpu_torch.utils.cache",
+              "karpenter_tpu_torch.utils.batcher",
+              "karpenter_tpu_torch.core.window",
+              "karpenter_tpu_torch.core.circuitbreaker",
+              "karpenter_tpu_torch.catalog.unavailable",
+              "karpenter_tpu_torch.catalog.pricing",
+              "karpenter_tpu_torch.catalog.instancetype",
+              "karpenter_tpu_torch.stochastic.risk",
+              "karpenter_tpu_torch.cloud",
+              "karpenter_tpu_torch.cloud.errors",
+              "karpenter_tpu_torch.cloud.retry",
+              "karpenter_tpu_torch.cloud.profile",
+              "karpenter_tpu_torch.cloud.resources",
+              "karpenter_tpu_torch.cloud.fake",
+              "karpenter_tpu_torch.apis.nodeclass",
+              "karpenter_tpu_torch.explain",
+              "karpenter_tpu_torch.obs.slo"):
         assert m in res["modules"]
 
 
