@@ -219,8 +219,31 @@ no result line:
    moved off the penalised pairs printed; (v5) the default soak SLOs
    over the phase's ledger and recorder printed, gated only that both
    telemetry objectives were measured from the card's windows and that
-   no resolution was degraded.  (u0) every phase but (s) and (u) runs
-   under a gate that
+   no resolution was degraded; (w) the provisioning loop, after (v):
+   (w1) the rig (the port's ``FakeCloud`` with the headline's 500
+   profiles, ``PricingProvider``, ``UnavailableOfferings``,
+   ``InstanceTypeProvider``, a ``ClusterState`` with a ready NodeClass
+   and the default NodePool, an ``Actuator``, ``Provisioner(device=
+   "cuda")``); (w2) the 10,000 headline pods added through
+   ``ClusterState.add_pod`` with the provisioner started: every pod
+   nominated, every future of the window a claim name, the plan and the
+   claims (by pod set) those of the CPU port's ``provision_once`` on a
+   fresh rig, the wall from the first add to the last nomination split
+   into intake, catalog resolve, solve, actuation and nomination; (w3) a
+   capacity error injected on one offering of (w2)'s plan after a claim
+   of it is deleted: the offering blacked out, the retry ticker
+   re-windowing the pods elsewhere, one availability upload, the
+   re-keyed plan the CPU solver's, the time to recovery; (w4) a pool
+   whose cpu limit trims the plan (NodePoolLimitReached on the dropped
+   pods) and a soft-tainted pool reached only in the second pass, each
+   equal to the CPU port's; (w5) ``FakeKubelet``, ``CloudProvider``
+   get / list / delete, drift on a new image, and a provisioner killed
+   at ``provision.pre_nominate`` with an ``IntentJournal``, recovered by
+   a new one and ``Reconciler.recover()`` with every pod nominated once
+   and nothing leaked; (w6), after (s): a scripted device fault in the
+   loop's solve raises ``DeviceFaultError`` out of ``provision_once``
+   and into every future of a window, with no claim and no breadcrumb.
+   (u0) every phase but (s), (u) and (w6) runs under a gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``); ``sharded_solves_total{host}``
    is printed, not gated;
@@ -249,10 +272,12 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import pstats
 import random
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import deque
@@ -334,6 +359,17 @@ from karpenter_tpu_torch.obs.slo import (
     telemetry_measurements,
 )
 from karpenter_tpu_torch.stochastic.risk import SpotRiskModel
+from karpenter_tpu_torch.apis.nodeclaim import provider_id
+from karpenter_tpu_torch.cloud.errors import CloudError, NodeClaimNotFoundError
+from karpenter_tpu_torch.core import (
+    Actuator, CircuitBreakerConfig, CircuitBreakerManager, Provisioner,
+    ProvisionerOptions,
+)
+from karpenter_tpu_torch.core.cloudprovider import CloudProvider
+from karpenter_tpu_torch.core.kubelet import FakeKubelet
+from karpenter_tpu_torch.recovery import (
+    CrashInjector, IntentJournal, Reconciler, SimulatedCrash, crashpoints,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
 # rate, and the float32 rate outside the tensor cores, used for the
@@ -3949,6 +3985,652 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
 # -- phase 5: timings ---------------------------------------------------------
 
 
+# -- (w) the provisioning loop ---------------------------------------------------
+
+PROVISION = dict(
+    # (w2): the reference's window defaults (the window fires at its
+    # count, 10,000); (w3) re-windows on a short idle and retry tick
+    window=dict(idle_seconds=1.0, max_seconds=10.0, max_pods=10_000),
+    quick=dict(idle_seconds=0.05, max_seconds=0.5, max_pods=10_000),
+    retry_s=0.3, deadline_s=60.0,
+    # (w4)-(w6): the first 2,000 headline pods
+    small=2000, cpu_limit_milli=1_000_000, soft_taint=("dedicated", "gpu"))
+
+
+def provision_nodeclass():
+    """(v)'s default NodeClass, its image resolved and Ready (the
+    status controller's work)."""
+    nodeclass = intake_nodeclass()
+    nodeclass.status.resolved_image_id = "img-1"
+    nodeclass.status.set_condition("Ready", "True", "Validated")
+    return nodeclass
+
+
+class ProvisionRig:
+    """The provisioning loop on the port's fake cloud: ``FakeCloud`` with
+    the headline's 500 profiles, ``PricingProvider``,
+    ``UnavailableOfferings``, ``InstanceTypeProvider``, a ``ClusterState``
+    with a ready NodeClass and the given pools (the default NodePool when
+    none), an ``Actuator`` and a ``Provisioner`` on ``device``.  The
+    breaker admits every create of a plan (its defaults, 2 creates a
+    minute and 5 at once, would stop a 245-node plan after two)."""
+
+    def __init__(self, device, pools=(), journal=None, window=None):
+        self.cloud = FakeCloud(profiles=generate_profiles(INTAKE["types"]))
+        self.pricing = PricingProvider(self.cloud)
+        self.unavail = UnavailableOfferings()
+        self.itp = InstanceTypeProvider(self.cloud, self.pricing,
+                                        self.unavail)
+        self.cluster = ClusterState()
+        self.nodeclass = self.cluster.add_nodeclass(provision_nodeclass())
+        for pool in pools or (NodePool(name="default",
+                                       nodeclass_name="default"),):
+            self.cluster.add_nodepool(pool)
+        self.device = device
+        self.window = window or PROVISION["window"]
+        self.restart(journal)
+
+    def restart(self, journal=None):
+        """A new actuator and provisioner on the same cloud and cluster
+        (an operator restart)."""
+        if getattr(self, "prov", None) is not None:
+            self.prov.stop()
+        self.journal = journal
+        self.actuator = Actuator(
+            self.cloud, self.cluster, unavailable=self.unavail,
+            breaker=CircuitBreakerManager(CircuitBreakerConfig(
+                failure_threshold=100_000, rate_limit_per_minute=100_000,
+                max_concurrent_instances=100_000)), journal=journal)
+        self.prov = Provisioner(
+            self.cluster, self.itp, self.actuator, ProvisionerOptions(
+                window=WindowOptions(**self.window)), journal=journal,
+            device=self.device)
+
+    def add(self, pods) -> None:
+        for p in pods:
+            self.cluster.add_pod(p)
+
+    def close(self) -> None:
+        self.prov.stop()
+        self.pricing.close()
+
+
+class CycleClock:
+    """Host timers around one provisioner's stages: the window handler,
+    the catalog resolve, the solve, the actuation and the nominations;
+    the solves' requests and plans in order."""
+
+    def __init__(self, prov):
+        self.s: dict = {}
+        self.solves: list = []
+        self.fired: list = []
+        self.last_nominate = 0.0
+        for owner, attr, name in ((prov, "_catalog_for", "catalog"),
+                                  (prov.actuator, "execute_plan",
+                                   "actuation"),
+                                  (prov, "_nominate", "nomination"),
+                                  (prov, "_on_window", "window")):
+            self._wrap(owner, attr, name)
+        solve = prov.solver.solve
+
+        def timed_solve(request):
+            t0 = time.perf_counter()
+            plan = solve(request)
+            self.s["solve"] = self.s.get("solve", 0.0) + \
+                time.perf_counter() - t0
+            self.solves.append((request, plan))
+            return plan
+
+        prov.solver.solve = timed_solve
+
+    def _wrap(self, owner, attr, name):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            if name == "window":
+                self.fired.append((t0, len(args[0])))
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                t1 = time.perf_counter()
+                self.s[name] = self.s.get(name, 0.0) + t1 - t0
+                if name == "nomination":
+                    self.last_nominate = t1
+
+        setattr(owner, attr, timed)
+
+
+def provision_claims(cluster) -> dict:
+    """{the pod keys nominated onto a live claim: its offering and
+    pool}: claims compared by their pod sets, not their random names."""
+    pods: dict = {}
+    for p in cluster.list("pods"):
+        if p.nominated_node:
+            pods.setdefault(p.nominated_node, []).append(
+                pod_api.pod_key(p.spec))
+    return {frozenset(pods.get(c.name, ())): (
+        c.instance_type, c.zone, c.capacity_type, c.nodepool_name)
+        for c in cluster.nodeclaims() if not c.deleted}
+
+
+def provision_cpu(pods, pools=()) -> tuple:
+    """The CPU port's ``provision_once`` on a fresh rig with ``pods``:
+    (rig, plans)."""
+    rig = ProvisionRig("cpu", pools=pools)
+    rig.add(pods)
+    return rig, rig.prov.provision_once()
+
+
+def no_leaks(label: str, cloud, cluster) -> dict:
+    """Every VNI and volume attached to an instance, one instance per
+    live claim."""
+    insts = cloud.list_instances()
+    vnis = {i.vni_id for i in insts}
+    vols = {v for i in insts for v in i.volume_ids}
+    live = {c.provider_id for c in cluster.nodeclaims() if not c.deleted}
+    if set(cloud.vnis) != vnis or set(cloud.volumes) != vols or \
+            {provider_id(cloud.region, i.id) for i in insts} != live:
+        raise AssertionError(
+            f"{label}: leaked resources: {len(cloud.vnis)} VNIs for "
+            f"{len(vnis)} attached, {len(cloud.volumes)} volumes for "
+            f"{len(vols)}, {len(insts)} instances for {len(live)} claims")
+    return {"instances": len(insts), "vnis": len(vnis), "volumes": len(vols)}
+
+
+def phase_provision(dev, card: str, pods) -> dict:
+    """(w) The provisioning loop on the card (see the module docstring):
+    (w1) the rig, (w2) 10,000 headline pods through the watch path,
+    (w3) a failed create, (w4) pool limits and soft taints, (w5) the
+    kubelet, the cloud provider, drift and a crash with its recovery."""
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    ledger = PlacementLedger(max_open=INTAKE["max_open"])
+    rigs: list = []
+    try:
+        with obs.use_ledger(ledger):
+            rig = ProvisionRig(dev)
+            rigs.append(rig)
+            out = {"cycle": provision_cycle(dev, card, rig, pods, rigs,
+                                            launches)}
+            out["failed_create"] = provision_failed_create(
+                dev, card, rig, out["cycle"].pop("plan"), launches)
+            out["limits"] = provision_limits(dev, card, pods, rigs,
+                                             launches)
+            out["after"] = provision_after(dev, card, rig, pods, rigs,
+                                           launches)
+    finally:
+        for r in rigs:
+            r.close()
+    out["launches"] = launches
+    out["host_s"] = time.perf_counter() - t_phase
+    say(f"provision (w): {out['host_s']:.3f} s on {card}; launches "
+        f"{launches} (ffd_scan {launches.get('ffd_scan', 0)}, cost_sum "
+        f"{launches.get('cost_sum', 0)})")
+    return out
+
+
+def provision_cycle(dev, card, rig, pods, rigs, launches) -> dict:
+    """(w2) The headline pods added through ``ClusterState.add_pod`` with
+    the provisioner started: every pod nominated, every future of the
+    window a claim name, the claims those of the CPU port's
+    ``provision_once`` by pod set."""
+    clock = CycleClock(rig.prov)
+    rig.prov.start()
+    futures: list = []
+    add = rig.prov._window.add
+
+    def add_kept(pod):
+        fut = add(pod)
+        futures.append(fut)
+        return fut
+
+    rig.prov._window.add = add_kept
+    reset_launches()
+    t0 = time.perf_counter()
+    rig.add(pods)
+    t_added = time.perf_counter()
+    got = [f.result(timeout=PROVISION["deadline_s"]) for f in futures]
+    t_done = time.perf_counter()
+    cycle_launches = launch_counts()
+    require_launches(cycle_launches, ["ffd_scan", "cost_sum"],
+                     "provision (w2) cycle")
+    add_launches(launches, cycle_launches)
+    claims = {c.name: c for c in rig.cluster.nodeclaims()}
+    if len(got) != len(pods) or any(g not in claims for g in got):
+        bad = sum(1 for g in got if g not in claims)
+        raise AssertionError(f"provision (w2): {len(got)} futures for "
+                             f"{len(pods)} pods, {bad} without a claim")
+    pending = rig.cluster.pending_pods()
+    if len(pending) != len(pods) or not all(p.nominated_node
+                                            for p in pending):
+        raise AssertionError("provision (w2): a pod was not nominated")
+    wall = clock.last_nominate - t0
+    s = clock.s
+    split = {"intake": clock.fired[0][0] - t0, "catalog": s["catalog"],
+             "solve": s["solve"], "actuation": s["actuation"],
+             "nomination": s["nomination"]}
+    split["rest_of_window"] = s["window"] - sum(
+        split[k] for k in ("catalog", "solve", "actuation", "nomination"))
+    plan = clock.solves[0][1]
+    clean_and_placed("provision (w2) plan", plan, pods, clock.solves[0][0]
+                     .catalog, clock.solves[0][0].nodepool)
+    t1 = time.perf_counter()
+    cpu, cpu_plans = provision_cpu(pods)
+    rigs.append(cpu)
+    cpu_s = time.perf_counter() - t1
+    if len(cpu_plans) != 1:
+        raise AssertionError(f"provision (w2): the CPU port made "
+                             f"{len(cpu_plans)} plans")
+    plans_equal("provision (w2) plan against the CPU port's", plan,
+                cpu_plans[0])
+    if provision_claims(rig.cluster) != provision_claims(cpu.cluster):
+        raise AssertionError("provision (w2): the claims differ from the "
+                             "CPU port's by pod set")
+    fired = [n for _, n in clock.fired]
+    say(f"provision (w2) [{card}]: {len(pods)} headline pods through "
+        f"ClusterState.add_pod with the Provisioner started (window idle "
+        f"{rig.window['idle_seconds']} s, max {rig.window['max_seconds']} "
+        f"s, max_pods {rig.window['max_pods']}): windows of {fired}; wall "
+        f"from the first add to the last nomination {wall * 1e3:.3f} ms "
+        f"(adds {(t_added - t0) * 1e3:.3f} ms, last future "
+        f"{(t_done - t0) * 1e3:.3f} ms); split: intake "
+        f"{split['intake'] * 1e3:.3f} ms, catalog resolve "
+        f"{split['catalog'] * 1e3:.3f} ms, solve {split['solve'] * 1e3:.3f}"
+        f" ms, actuation {split['actuation'] * 1e3:.3f} ms "
+        f"({len(plan.nodes)} staged creates), nomination "
+        f"{split['nomination'] * 1e3:.3f} ms, rest of the window "
+        f"{split['rest_of_window'] * 1e3:.3f} ms; {len(claims)} claims, "
+        f"{rig.cloud.instance_count()} instances in the fake cloud; every "
+        f"pod nominated and every future a claim name; plan and claims "
+        f"equal to the CPU port's provision_once by pod set ({cpu_s:.3f} s"
+        f" on the host); launches {cycle_launches}")
+    return {"wall_ms": wall * 1e3, "adds_ms": (t_added - t0) * 1e3,
+            "futures_ms": (t_done - t0) * 1e3,
+            "split_ms": {k: v * 1e3 for k, v in split.items()},
+            "windows": fired, "claims": len(claims),
+            "instances": rig.cloud.instance_count(), "nodes": len(plan.nodes),
+            "cost": plan.total_cost_per_hour, "cpu_s": cpu_s,
+            "launches": cycle_launches, "plan": (clock, plan)}
+
+
+def provision_failed_create(dev, card, rig, clock_plan, launches) -> dict:
+    """(w3) A capacity error injected on one offering of (w2)'s plan: a
+    claim of (w2) is deleted (its instance first), its pods re-window,
+    the create of that offering fails and blacks it out, the pods stay
+    pending; the retry ticker re-windows them onto another offering.
+    One availability upload of the catalog; the re-keyed plan is the CPU
+    solver's."""
+    clock, plan = clock_plan
+    used = {(n.instance_type, n.zone, n.capacity_type) for n in plan.nodes}
+    request = clock.solves[0][0]
+    by_claim: dict = {}
+    for p in rig.cluster.list("pods"):
+        by_claim.setdefault(p.nominated_node, []).append(p.spec)
+    victim = target = None
+    for claim in rig.cluster.nodeclaims():
+        orphans = by_claim.get(claim.name, [])
+        probe = cpu_plan(SolveRequest(orphans, request.catalog,
+                                      request.nodepool))
+        first = probe.nodes[0]
+        offering = (first.instance_type, first.zone, first.capacity_type)
+        if offering in used:
+            victim, target = claim, offering
+            break
+    if victim is None:
+        raise AssertionError("provision (w3): no claim re-plans onto an "
+                             "offering of (w2)'s plan")
+    orphans = [pod_api.pod_key(p) for p in by_claim[victim.name]]
+    failed: list = []
+    create = rig.cloud.create_instance
+
+    def create_or_fail(**kw):
+        if (kw.get("profile"), kw.get("zone"),
+                kw.get("capacity_type")) == target:
+            failed.append(time.perf_counter())
+            raise CloudError(f"insufficient capacity for {target}", 503,
+                             code="insufficient_capacity", retryable=False)
+        return create(**kw)
+
+    rig.prov.stop()
+    rig.prov.options.window = WindowOptions(**PROVISION["quick"])
+    rig.prov.options.retry_interval = PROVISION["retry_s"]
+    rig.prov.start()
+    rig.cloud.create_instance = create_or_fail
+    dt = get_devtel()
+    uploads, nbytes = dt.catalog_uploads, dt.catalog_upload_bytes
+    n_solves = len(clock.solves)
+    reset_launches()
+    try:
+        rig.actuator.delete_node(victim)
+    except NodeClaimNotFoundError:
+        pass
+    else:
+        raise AssertionError("provision (w3): the claim's delete did not "
+                             "verify the instance gone")
+    t_delete = time.perf_counter()
+    rig.cluster.delete("nodeclaims", victim.name)
+
+    def recovered():
+        return failed and all(
+            rig.cluster.get("pods", k).nominated_node for k in orphans)
+
+    deadline = time.perf_counter() + PROVISION["deadline_s"]
+    while not recovered() and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    t_done = time.perf_counter()
+    rig.prov.stop()
+    rig.cloud.create_instance = create
+    got = launch_counts()
+    add_launches(launches, got)
+    if not failed:
+        raise AssertionError(f"provision (w3): no create of {target} was "
+                             f"tried after the re-window")
+    if not recovered():
+        raise AssertionError("provision (w3): the orphaned pods were not "
+                             "re-nominated within the deadline")
+    if not rig.unavail.is_unavailable(*target):
+        raise AssertionError(f"provision (w3): {target} is not blacked out")
+    claims = {c.name: c for c in rig.cluster.nodeclaims()}
+    landed = set()
+    for k in orphans:
+        c = claims[rig.cluster.get("pods", k).nominated_node]
+        landed.add((c.instance_type, c.zone, c.capacity_type))
+    if target in landed:
+        raise AssertionError(f"provision (w3): a pod landed on the "
+                             f"blacked-out {target}")
+    up = dt.catalog_uploads - uploads
+    up_bytes = dt.catalog_upload_bytes - nbytes
+    if up != 1:
+        raise AssertionError(f"provision (w3): {up} catalog uploads, want "
+                             f"one (the availability re-key)")
+    catalog = rig.prov._catalog_for(rig.nodeclass)
+    if catalog is not request.catalog:
+        raise AssertionError("provision (w3): the blackout rebuilt the "
+                             "catalog instead of re-keying its mask")
+    rekeyed = [(req, p) for req, p in clock.solves[n_solves:]
+               if not any(target == (n.instance_type, n.zone,
+                                     n.capacity_type) for n in p.nodes)]
+    if not rekeyed:
+        raise AssertionError("provision (w3): no re-keyed plan")
+    req, rplan = rekeyed[-1]
+    plans_equal("provision (w3) re-keyed plan against the CPU solver's",
+                rplan, cpu_plan(SolveRequest(list(req.pods), req.catalog,
+                                             req.nodepool)))
+    recovery = t_done - failed[0]
+    say(f"provision (w3) [{card}]: claim {victim.name} deleted "
+        f"({len(orphans)} pods re-windowed); {len(failed)} create(s) of "
+        f"{'/'.join(target)} failed on an injected capacity error and "
+        f"blacked it out; the retry ticker ({PROVISION['retry_s']} s, "
+        f"window idle {PROVISION['quick']['idle_seconds']} s) re-windowed "
+        f"the pods onto {sorted('/'.join(x) for x in landed)}; time to "
+        f"recovery from the failed create {recovery * 1e3:.3f} ms (from "
+        f"the claim's delete {(t_done - t_delete) * 1e3:.3f} ms); "
+        f"{len(clock.solves) - n_solves} solves; availability uploads "
+        f"{up} of {up_bytes} B; the re-keyed plan ({len(rplan.nodes)} "
+        f"nodes: {[n.instance_type + '/' + n.zone + '/' + n.capacity_type for n in rplan.nodes]}) "
+        f"equal to the CPU solver's; launches {got}")
+    return {"recovery_ms": recovery * 1e3,
+            "from_delete_ms": (t_done - t_delete) * 1e3,
+            "failed_creates": len(failed), "orphans": len(orphans),
+            "target": list(target), "landed": sorted(landed),
+            "uploads": up, "upload_bytes": up_bytes,
+            "solves": len(clock.solves) - n_solves, "launches": got}
+
+
+def provision_limits(dev, card, pods, rigs, launches) -> dict:
+    """(w4) On the first 2,000 headline pods: a pool whose cpu limit
+    trims the card's plan (the dropped pods carry NodePoolLimitReached),
+    and a soft-tainted heavy pool beside a capped general pool, which the
+    pods it does not tolerate reach only in the second pass; each equal
+    to the CPU port's."""
+    small = pods[:PROVISION["small"]]
+    key, value = PROVISION["soft_taint"]
+    limit = PROVISION["cpu_limit_milli"]
+    cases = {
+        "limit": lambda: (NodePool(name="capped", nodeclass_name="default",
+                                   cpu_limit_milli=limit),),
+        "soft": lambda: (
+            NodePool(name="gpu-pool", nodeclass_name="default", weight=100,
+                     taints=(pod_api.Taint(key, value,
+                                           "PreferNoSchedule"),)),
+            NodePool(name="general", nodeclass_name="default", weight=10,
+                     cpu_limit_milli=limit))}
+    out = {}
+    for name, pools in cases.items():
+        rig = ProvisionRig(dev, pools=pools())
+        rigs.append(rig)
+        clock = CycleClock(rig.prov)
+        rig.add(small)
+        reset_launches()
+        t0 = time.perf_counter()
+        plans = rig.prov.provision_once()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        require_launches(got, ["ffd_scan", "cost_sum"],
+                         f"provision (w4) {name}")
+        add_launches(launches, got)
+        cpu, cpu_plans = provision_cpu(small, pools=pools())
+        rigs.append(cpu)
+        if len(plans) != len(cpu_plans):
+            raise AssertionError(f"provision (w4) {name}: {len(plans)} "
+                                 f"plans, the CPU port {len(cpu_plans)}")
+        for a, b in zip(plans, cpu_plans):
+            plans_equal(f"provision (w4) {name}", a, b)
+        if provision_claims(rig.cluster) != provision_claims(cpu.cluster):
+            raise AssertionError(f"provision (w4) {name}: the claims differ "
+                                 f"from the CPU port's")
+        limited = sorted(e.name for e in rig.cluster.events
+                         if e.reason == "NodePoolLimitReached")
+        if limited != sorted(e.name for e in cpu.cluster.events
+                             if e.reason == "NodePoolLimitReached"):
+            raise AssertionError(f"provision (w4) {name}: the limit events "
+                                 f"differ from the CPU port's")
+        used = {}
+        for c in rig.cluster.nodeclaims():
+            ti = clock.solves[0][0].catalog.type_names.index(c.instance_type)
+            used[c.nodepool_name] = used.get(c.nodepool_name, 0) + int(
+                clock.solves[0][0].catalog.type_alloc[ti, 0])
+        pools_seq = [req.nodepool.name for req, _ in clock.solves]
+        nominated = sum(1 for p in rig.cluster.pending_pods()
+                        if p.nominated_node)
+        if name == "limit":
+            if used.get("capped", 0) > limit or not limited:
+                raise AssertionError(f"provision (w4) limit: {used} of "
+                                     f"{limit} m, {len(limited)} limited "
+                                     f"pods")
+            say(f"provision (w4) limit [{card}]: pool 'capped' at "
+                f"cpu_limit_milli {limit}: {used.get('capped', 0)} m "
+                f"provisioned, {nominated} of {len(small)} pods nominated, "
+                f"{len(limited)} pods with NodePoolLimitReached; plans, "
+                f"claims and events equal to the CPU port's; "
+                f"{wall * 1e3:.3f} ms; launches {got}")
+        else:
+            first, second = clock.solves[0][0], clock.solves[-1][0]
+            pools_of = {pod_api.pod_key(p.spec): rig.cluster.get(
+                "nodeclaims", p.nominated_node).nodepool_name
+                for p in rig.cluster.pending_pods() if p.nominated_node}
+            taint = (pod_api.Taint(key, value, "PreferNoSchedule"),)
+            intolerant_heavy = [k for k, pool in pools_of.items()
+                                if pool == "gpu-pool" and not
+                                pod_api.tolerates_soft(
+                                    rig.cluster.get("pods", k).spec
+                                    .tolerations, taint)]
+            second_keys = {pod_api.pod_key(p) for p in second.pods}
+            if pools_seq != ["gpu-pool", "general", "gpu-pool"] or \
+                    not all(pod_api.tolerates_soft(p.tolerations, taint)
+                            for p in first.pods) or not intolerant_heavy \
+                    or not set(intolerant_heavy) <= second_keys:
+                raise AssertionError(
+                    f"provision (w4) soft: solves {pools_seq}, "
+                    f"{len(intolerant_heavy)} intolerant pods on the "
+                    f"tainted pool")
+            say(f"provision (w4) soft [{card}]: pools gpu-pool (weight 100,"
+                f" {key}={value}:PreferNoSchedule) and general (weight 10, "
+                f"cpu_limit_milli {limit}): solves {pools_seq} "
+                f"({len(first.pods)} tolerant pods in pass 0, "
+                f"{len(second.pods)} pods re-offered in pass 1); "
+                f"{len(intolerant_heavy)} intolerant pods on gpu-pool, all "
+                f"from pass 1; {nominated} of {len(small)} nominated; "
+                f"plans, claims and events equal to the CPU port's; "
+                f"{wall * 1e3:.3f} ms; launches {got}")
+        out[name] = {"wall_ms": wall * 1e3, "solves": pools_seq,
+                     "nominated": nominated, "limited": len(limited),
+                     "cpu_used_milli": used, "launches": got}
+    return out
+
+
+def provision_after(dev, card, rig, pods, rigs, launches) -> dict:
+    """(w5) After (w2)-(w3)'s plans: the kubelet joins every claim and the
+    nominated pods bind; ``CloudProvider`` lists, gets and deletes; a new
+    NodeClass image drifts every claim; then a provisioner with an
+    ``IntentJournal`` dies at ``provision.pre_nominate`` and a new one
+    recovers through ``Reconciler.recover()``: every pod nominated once,
+    nothing leaked."""
+    kubelet = FakeKubelet(rig.cluster, rig.cloud)
+    joined = kubelet.join_pending(ready=True)
+    bound = sum(1 for p in rig.cluster.list("pods") if p.bound_node)
+    if bound != len(pods):
+        raise AssertionError(f"provision (w5): {bound} of {len(pods)} pods "
+                             f"bound after the join")
+    cp = CloudProvider(rig.cluster, rig.actuator, rig.itp)
+    listed = cp.list()
+    live = [c for c in rig.cluster.nodeclaims() if not c.deleted]
+    if len(listed) != len(live) or len(joined) != len(live):
+        raise AssertionError(f"provision (w5): {len(listed)} listed, "
+                             f"{len(joined)} joined, {len(live)} claims")
+    for c in listed[:8]:
+        if cp.get(c.provider_id) is not c:
+            raise AssertionError(f"provision (w5): get({c.provider_id})")
+    gone = listed[-1]
+    try:
+        cp.delete(gone)
+    except NodeClaimNotFoundError:
+        pass
+    else:
+        raise AssertionError("provision (w5): delete did not verify gone")
+    try:
+        cp.get(gone.provider_id)
+    except NodeClaimNotFoundError:
+        pass
+    else:
+        raise AssertionError("provision (w5): a deleted claim resolves")
+    rig.cluster.delete("nodeclaims", gone.name)
+    clean = sum(1 for c in cp.list() if cp.is_drifted(c))
+    rig.nodeclass.status.resolved_image_id = "img-2"
+    drifted = {cp.is_drifted(c) for c in cp.list()}
+    rig.nodeclass.status.resolved_image_id = "img-1"
+    if clean or drifted != {"ImageDrifted"}:
+        raise AssertionError(f"provision (w5): drift {clean} before, "
+                             f"{drifted} after the image change")
+    leaks = no_leaks("provision (w5) after the plan", rig.cloud, rig.cluster)
+    say(f"provision (w5) [{card}]: FakeKubelet joined {len(joined)} nodes "
+        f"and bound {bound} pods; CloudProvider listed {len(listed)} "
+        f"claims, got 8 by provider id, deleted one (verified gone); a new "
+        f"NodeClass image drifted all {len(cp.list())} (ImageDrifted), none "
+        f"before; no leak: {leaks}")
+    return {"joined": len(joined), "bound": bound, "listed": len(listed),
+            "drifted": len(cp.list()), "leaks": leaks,
+            "recovery": provision_crash(dev, card, pods, rigs, launches)}
+
+
+def provision_crash(dev, card, pods, rigs, launches) -> dict:
+    small = pods[:PROVISION["small"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "journal.jsonl")
+        rig = ProvisionRig(dev, journal=IntentJournal(path, owner="smoke"))
+        rigs.append(rig)
+        rig.add(small)
+        inj = CrashInjector("provision.pre_nominate", seed=1,
+                            first_hit_range=(1, 1), max_crashes=1)
+        reset_launches()
+        with crashpoints.installed(inj):
+            try:
+                rig.prov.provision_once()
+            except SimulatedCrash:
+                pass
+            else:
+                raise AssertionError("provision (w5): no crash at "
+                                     "provision.pre_nominate")
+        add_launches(launches, launch_counts())
+        at_crash = sum(1 for p in rig.cluster.pending_pods()
+                       if p.nominated_node)
+        claims_at_crash = len(rig.cluster.nodeclaims())
+        rig.journal.close()
+        rig.restart(IntentJournal(path, owner="smoke"))
+        t0 = time.perf_counter()
+        report = Reconciler(rig.journal, rig.cloud, rig.cluster).recover()
+        recover_s = time.perf_counter() - t0
+        reset_launches()
+        again = rig.prov.provision_once()
+        add_launches(launches, launch_counts())
+        live = {c.name for c in rig.cluster.nodeclaims() if not c.deleted}
+        pending = rig.cluster.pending_pods()
+        if again or at_crash or len(pending) != len(small) or not all(
+                p.nominated_node in live for p in pending) or \
+                report.nominations_restored != len(small):
+            raise AssertionError(
+                f"provision (w5) recovery: {at_crash} nominated at the "
+                f"crash, {report.nominations_restored} restored, "
+                f"{len(again)} plans after it")
+        leaks = no_leaks("provision (w5) recovery", rig.cloud, rig.cluster)
+        rig.journal.close()
+    rep = report.to_dict()
+    say(f"provision (w5) crash [{card}]: {len(small)} pods, the "
+        f"provisioner killed at provision.pre_nominate with "
+        f"{claims_at_crash} claims registered and {at_crash} pods "
+        f"nominated; a new Provisioner and Reconciler.recover() "
+        f"({recover_s * 1e3:.3f} ms): RecoveryReport {rep}; every pod "
+        f"nominated once onto a live claim, no plan left to make, no "
+        f"leak: {leaks}")
+    return {"report": rep, "claims": claims_at_crash,
+            "recover_ms": recover_s * 1e3, "leaks": leaks}
+
+
+def phase_provision_fault(dev, card: str, pods) -> dict:
+    """(w6) A scripted device fault during the provisioning loop's solve
+    on the card (phase (s)'s injection): ``DeviceFaultError`` out of
+    ``provision_once`` and into every future of a window on the watch
+    path; no claim, no instance, no breadcrumb (no greedy plan)."""
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+
+    small = pods[:PROVISION["small"]]
+    rig = ProvisionRig(dev, window=PROVISION["quick"])
+    try:
+        rig.add(small)
+        with injected():
+            ms = expect_fault("provision (w6) provision_once",
+                              rig.prov.provision_once)
+        before = degradation_marks()
+        rig.prov.options.retry_interval = PROVISION["deadline_s"]
+        with injected():
+            rig.prov.start()
+            futures = rig.prov._window.add_all(
+                [p.spec for p in rig.cluster.pending_pods()])
+            errors = 0
+            for f in futures:
+                try:
+                    f.result(timeout=PROVISION["deadline_s"])
+                except DeviceFaultError:
+                    errors += 1
+            rig.prov.stop()
+        expect_marks("provision (w6) window", before, {})
+        if errors != len(small) or rig.cluster.nodeclaims() or \
+                rig.cloud.instance_count() or any(
+                    p.nominated_node for p in rig.cluster.pending_pods()):
+            raise AssertionError(
+                f"provision (w6): {errors} of {len(small)} futures raised, "
+                f"{len(rig.cluster.nodeclaims())} claims, "
+                f"{rig.cloud.instance_count()} instances")
+    finally:
+        rig.close()
+    say(f"provision (w6) [{card}]: a scripted device fault in the loop's "
+        f"solve raised DeviceFaultError out of provision_once "
+        f"({ms:.3f} ms) and into all {errors} futures of a window; no "
+        f"claim, no instance, no nomination, no breadcrumb")
+    return {"provision_once_ms": ms, "window_errors": errors}
+
+
 # -- (s) the fault and profiling planes ----------------------------------------
 
 FAULT = dict(windows=300, capture_s=1.5, batch=16, warm=20,
@@ -5549,11 +6231,14 @@ def main() -> int:
                     request)
     intake = gated("(v) intake", phase_intake, dev, card, pods, catalog,
                    main_plan)
+    provision = gated("(w) provisioning loop", phase_provision, dev, card,
+                      pods)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
-        f"but (s), nor in (v); sharded_solves_total{{host}} "
+        f"but (s), nor in (v) or (w1)-(w5); sharded_solves_total{{host}} "
         f"{metrics.SHARDED_SOLVES.get('host')} (the host route, not a "
         f"fallback; not gated)")
     fault = phase_fault(dev, card, pods, catalog)
+    provision_fault = phase_provision_fault(dev, card, pods)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -5589,6 +6274,7 @@ def main() -> int:
                      "sharded_serving": sharded_serving["launches"],
                      "repack": repack["launches"],
                      "intake": intake["launches"],
+                     "provision": provision["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -5625,7 +6311,8 @@ def main() -> int:
             "gang": gang, "preempt": preempt, "sharded": sharded,
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
-            "oracles": oracles, "intake": intake, "fault": fault,
+            "oracles": oracles, "intake": intake, "provision": provision,
+            "provision_fault": provision_fault, "fault": fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

@@ -209,6 +209,21 @@ def tolerates_all(tolerations: tuple[Toleration, ...], taints: tuple[Taint, ...]
     return True
 
 
+def tolerates_soft(tolerations: tuple[Toleration, ...],
+                   taints: tuple[Taint, ...]) -> bool:
+    """PreferNoSchedule counterpart of :func:`tolerates_all`: True when
+    every SOFT taint is tolerated.  Used for pool-preference ordering
+    (the provisioner tries soft-tainted pools last for intolerant pods),
+    never for feasibility — kube semantics: 'prefer not to schedule,
+    but allow'."""
+    for t in taints:
+        if t.effect != "PreferNoSchedule":
+            continue
+        if not any(tol.tolerates(t) for tol in tolerations):
+            return False
+    return True
+
+
 # The two topology domains the solver models (node = offering slot,
 # zone = catalog zone).  Any other key is a hard reject: a typo'd
 # topology_key must not silently degrade to "no constraint".
@@ -468,3 +483,19 @@ def fingerprint_token(pod: "PodSpec") -> tuple[str, int]:
         tok = (pod_key(pod), pod.signature_id())
         object.__setattr__(pod, "_fpt", tok)
     return tok
+
+
+def intern_signatures(pods) -> None:
+    """Eagerly intern constraint signatures (and the encode fingerprint
+    token) for a batch of pods.  The per-pod signature construction is
+    the dominant cold-encode cost at 10k pods (~90 ms); production pods
+    arrive through the watch stream, so the provisioner interns at
+    ingestion time and the solve window's encode finds every token
+    cached — the restart-window budget never pays it all at once."""
+    for p in pods:
+        fingerprint_token(p)
+
+
+def make_pods(count: int, name_prefix: str = "pod", **kwargs) -> list[PodSpec]:
+    """Convenience fan-out for tests/benchmarks."""
+    return [PodSpec(name=f"{name_prefix}-{i}", **kwargs) for i in range(count)]

@@ -899,3 +899,98 @@ def test_intake_change_words_equal_the_cpu_program(cuda_device, kind):
     assert [(n.offering_index, n.pod_names)
             for n in solver.solve(request).nodes] == \
         [(n.offering_index, n.pod_names) for n in cpu.solve(request).nodes]
+
+
+def _provision_rig(device):
+    """The provisioning loop on the fake cloud with 60 profiles: a ready
+    NodeClass, the default NodePool, an actuator whose breaker admits a
+    whole plan, and a ``Provisioner`` on ``device``."""
+    from karpenter_tpu_torch.apis.nodeclaim import NodePool
+    from karpenter_tpu_torch.apis.nodeclass import NodeClass, NodeClassSpec
+    from karpenter_tpu_torch.catalog import (
+        InstanceTypeProvider, PricingProvider, UnavailableOfferings,
+    )
+    from karpenter_tpu_torch.cloud.fake import FakeCloud, generate_profiles
+    from karpenter_tpu_torch.core import (
+        Actuator, CircuitBreakerConfig, CircuitBreakerManager, ClusterState,
+        Provisioner,
+    )
+
+    cloud = FakeCloud(profiles=generate_profiles(60))
+    pricing = PricingProvider(cloud)
+    unavail = UnavailableOfferings()
+    itp = InstanceTypeProvider(cloud, pricing, unavail)
+    cluster = ClusterState()
+    nc = NodeClass(name="default", spec=NodeClassSpec(
+        region="us-south", instance_profile="bx2-4x16", image="img-1"))
+    nc.status.resolved_image_id = "img-1"
+    nc.status.set_condition("Ready", "True", "Validated")
+    cluster.add_nodeclass(nc)
+    cluster.add_nodepool(NodePool(name="default", nodeclass_name="default"))
+    actuator = Actuator(cloud, cluster, unavailable=unavail,
+                        breaker=CircuitBreakerManager(CircuitBreakerConfig(
+                            failure_threshold=100_000,
+                            rate_limit_per_minute=100_000,
+                            max_concurrent_instances=100_000)))
+    prov = Provisioner(cluster, itp, actuator, device=device)
+    return prov, pricing, unavail
+
+
+def _claims_by_pods(cluster):
+    pods = {}
+    for p in cluster.list("pods"):
+        if p.nominated_node:
+            pods.setdefault(p.nominated_node, []).append(p.spec.name)
+    return {frozenset(pods.get(c.name, ())): (
+        c.instance_type, c.zone, c.capacity_type)
+        for c in cluster.nodeclaims()}
+
+
+@pytest.mark.cuda
+def test_provision_once_on_card_matches_cpu(cuda_device):
+    """A 2,000-pod ``provision_once`` on the card makes the CPU port's
+    claims (by pod set); a blackout of an offering it used re-keys the
+    card's catalog with one upload and the next window avoids it."""
+    from karpenter_tpu_torch.obs.devtel import get_devtel
+
+    pods, _ = workload.build_workload(2000, 60, seed=21)
+    rigs = [_provision_rig(d) for d in (cuda_device, "cpu")]
+    try:
+        out = []
+        for prov, _, unavail in rigs:
+            for p in pods:
+                prov.cluster.add_pod(p)
+            plans = prov.provision_once()
+            assert len(plans) == 1
+            assert all(p.nominated_node for p in prov.cluster.pending_pods())
+            out.append((_claims_by_pods(prov.cluster),
+                        [(n.offering_index, n.pod_names)
+                         for n in plans[0].nodes]))
+        assert out[0] == out[1]
+        prov, _, unavail = rigs[0]
+        node = plans[0].nodes[0]
+        dark = (node.instance_type, node.zone, node.capacity_type)
+        nodeclass = prov.cluster.get_nodeclass("default")
+        catalog = prov._catalog_for(nodeclass)
+        unavail.mark_unavailable(*dark)
+        for i in range(40):
+            prov.cluster.add_pod(pod_spec_like(pods[i], f"x{i}"))
+        before = get_devtel().catalog_uploads
+        again = prov.provision_once()
+        assert get_devtel().catalog_uploads == before + 1
+        assert prov._catalog_for(nodeclass) is catalog
+        assert again and dark not in {(n.instance_type, n.zone,
+                                       n.capacity_type)
+                                      for n in again[0].nodes}
+        assert all(p.nominated_node for p in prov.cluster.pending_pods())
+    finally:
+        for prov, pricing, _ in rigs:
+            prov.stop()
+            pricing.close()
+
+
+def pod_spec_like(pod, name):
+    """``pod`` under another name (its constraints and requests kept)."""
+    import dataclasses
+
+    return dataclasses.replace(pod, name=name)

@@ -52,8 +52,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # the walk really covered the package (kernel wrappers, build, carry,
     # the resident store, the serving loop, the what-if, gang and
     # preemption planes, the sharded service, the repack plane, the
-    # fault and profiling planes, the oracles, the degraded modes and
-    # the catalog intake)
+    # fault and profiling planes, the oracles, the degraded modes, the
+    # catalog intake and the provisioning loop)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -145,7 +145,26 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.cloud.fake",
               "karpenter_tpu_torch.apis.nodeclass",
               "karpenter_tpu_torch.explain",
-              "karpenter_tpu_torch.obs.slo"):
+              "karpenter_tpu_torch.obs.slo",
+              # the provisioning loop with the two cloud providers it
+              # needs and the crash-recovery plane
+              "karpenter_tpu_torch.apis.nodeclaim",
+              "karpenter_tpu_torch.apis.pod",
+              "karpenter_tpu_torch.core",
+              "karpenter_tpu_torch.core.cluster",
+              "karpenter_tpu_torch.cloud.image",
+              "karpenter_tpu_torch.cloud.subnet",
+              "karpenter_tpu_torch.core.cloudinit",
+              "karpenter_tpu_torch.core.bootstrap",
+              "karpenter_tpu_torch.core.actuator",
+              "karpenter_tpu_torch.core.kubelet",
+              "karpenter_tpu_torch.core.drift",
+              "karpenter_tpu_torch.core.cloudprovider",
+              "karpenter_tpu_torch.core.provisioner",
+              "karpenter_tpu_torch.recovery",
+              "karpenter_tpu_torch.recovery.crashpoints",
+              "karpenter_tpu_torch.recovery.journal",
+              "karpenter_tpu_torch.recovery.reconciler"):
         assert m in res["modules"]
 
 
