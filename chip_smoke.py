@@ -242,11 +242,33 @@ no result line:
    a new one and ``Reconciler.recover()`` with every pod nominated once
    and nothing leaked; (w6), after (s): a scripted device fault in the
    loop's solve raises ``DeviceFaultError`` out of ``provision_once``
-   and into every future of a window, with no claim and no breadcrumb.
-   (u0) every phase but (s), (u) and (w6) runs under a gate that
+   and into every future of a window, with no claim and no breadcrumb;
+   (x) the controllers, after (w): (x1) a ``ControllerManager``
+   (``AlwaysLeader``) carrying every ported controller in the reference
+   operator's order over a rig like (w1)'s, driven by ``sync``; (x2) the
+   10,000 headline pods provisioned through the started watch path in
+   one window that fires at its count, joined and registered, half of them deleted, three ticks 31 s apart
+   (empty and underutilized consolidation, the migration repack on the
+   card's grid, the blue/green proposal solved on the card), once with
+   the resident occupancy view off and once on; (x3) ``run_gang``'s 64
+   gangs x 16 parked out of a window by ``provisioner.admission``, then
+   admitted and the slice gangs placed on the card's grid; (x4) 2,000
+   full claims and 10,000 pending pods, one preemption reconcile on the
+   card's fit grid within the pool's budget; (x5) a spot preemption
+   blacking its offering out, the next window re-keying the catalog
+   with one upload and avoiding it; each step's claims, bindings,
+   nominations, events, fake-cloud calls and logs equal to the same
+   script's on a CPU rig of the port (names from counters); (x6), after
+   (w6): one scripted device fault in each planning controller raises
+   out of its planner and is counted once by the manager
+   (``ERRORS{controller.<name>, reconcile}``), with no claim, eviction,
+   migration or breadcrumb, and the next sync plans on the card.
+   (u0) every phase but (s), (u), (w6) and (x6) runs under a gate that
    fails the run if it moves a degradation breadcrumb
-   (``solver/degraded.breadcrumbs()``); ``sharded_solves_total{host}``
-   is printed, not gated;
+   (``solver/degraded.breadcrumbs()``), an
+   ``ERRORS{controller.*, reconcile}`` sample or an
+   ``ERRORS{gang|preempt|repack, invalid_plan}`` sample;
+   ``sharded_solves_total{host}`` is printed, not gated;
 5. timings (taken after path (d) and before paths (e)-(g) run): p50
    wall of 20 warm windows, the device phases of one
    window, launches and device busy share of warm windows from a
@@ -275,10 +297,13 @@ import json
 import os
 import pstats
 import random
+import re
+import secrets
 import subprocess
 import sys
 import tempfile
 import time
+import uuid
 import warnings
 from collections import deque
 from pathlib import Path
@@ -366,6 +391,25 @@ from karpenter_tpu_torch.core import (
     ProvisionerOptions,
 )
 from karpenter_tpu_torch.core.cloudprovider import CloudProvider
+from karpenter_tpu_torch.controllers import ControllerManager
+from karpenter_tpu_torch.controllers.bootstrap import BootstrapTokenController
+from karpenter_tpu_torch.controllers.disruption import DisruptionController
+from karpenter_tpu_torch.controllers.faults import (
+    InstanceTypeRefreshController, InterruptionController,
+    OrphanCleanupController, PricingRefreshController,
+    SpotPreemptionController,
+)
+from karpenter_tpu_torch.controllers.gang import GangAdmissionController
+from karpenter_tpu_torch.controllers.nodeclaim import (
+    GarbageCollectionController, NodeClaimTerminationController,
+    RegistrationController, StartupTaintController, TaggingController,
+)
+from karpenter_tpu_torch.controllers.nodeclass import (
+    AutoplacementController, NodeClassHashController,
+    NodeClassStatusController, NodeClassTerminationController,
+)
+from karpenter_tpu_torch.controllers.preemption import PreemptionController
+from karpenter_tpu_torch.core.leaderelection import AlwaysLeader
 from karpenter_tpu_torch.core.kubelet import FakeKubelet
 from karpenter_tpu_torch.recovery import (
     CrashInjector, IntentJournal, Reconciler, SimulatedCrash, crashpoints,
@@ -2593,15 +2637,20 @@ def preempt_cluster(cfg: dict):
                     int(alloc[t, 0] * 0.32), int(alloc[t, 1] * 0.32), 0, 1),
                 priority=int(rng.choice([0, 0, 0, 100]))))
             cluster.bind_pod(f"default/{name}", f"node-pc{i}")
+    return catalog, cluster, preempt_pending(rng, cfg["pending"])
+
+
+def preempt_pending(rng, count: int) -> list:
+    """``bench.run_preempt``'s pending pods: mixed sizes and priorities."""
     sizes = [(500, 1024), (1000, 2048), (2000, 4096)]
     prios = [0, 0, 100, 100, 100, 1000]
     pending = []
-    for k in range(cfg["pending"]):
+    for k in range(count):
         cpu, mem = sizes[rng.randint(len(sizes))]
         pending.append(pod_api.PodSpec(
             f"p{k}", requests=pod_api.ResourceRequests(cpu, mem, 0, 1),
             priority=prios[rng.randint(len(prios))]))
-    return catalog, cluster, pending
+    return pending
 
 
 def preempt_fingerprint(plan):
@@ -4015,8 +4064,10 @@ class ProvisionRig:
     breaker admits every create of a plan (its defaults, 2 creates a
     minute and 5 at once, would stop a 245-node plan after two)."""
 
-    def __init__(self, device, pools=(), journal=None, window=None):
-        self.cloud = FakeCloud(profiles=generate_profiles(INTAKE["types"]))
+    def __init__(self, device, pools=(), journal=None, window=None,
+                 families=None, solver=None):
+        self.cloud = FakeCloud(profiles=generate_profiles(
+            INTAKE["types"], **({"families": families} if families else {})))
         self.pricing = PricingProvider(self.cloud)
         self.unavail = UnavailableOfferings()
         self.itp = InstanceTypeProvider(self.cloud, self.pricing,
@@ -4028,6 +4079,7 @@ class ProvisionRig:
             self.cluster.add_nodepool(pool)
         self.device = device
         self.window = window or PROVISION["window"]
+        self.solver = solver or SolverOptions()
         self.restart(journal)
 
     def restart(self, journal=None):
@@ -4043,8 +4095,8 @@ class ProvisionRig:
                 max_concurrent_instances=100_000)), journal=journal)
         self.prov = Provisioner(
             self.cluster, self.itp, self.actuator, ProvisionerOptions(
-                window=WindowOptions(**self.window)), journal=journal,
-            device=self.device)
+                solver=self.solver, window=WindowOptions(**self.window)),
+            journal=journal, device=self.device)
 
     def add(self, pods) -> None:
         for p in pods:
@@ -4629,6 +4681,716 @@ def phase_provision_fault(dev, card: str, pods) -> dict:
         f"({ms:.3f} ms) and into all {errors} futures of a window; no "
         f"claim, no instance, no nomination, no breadcrumb")
     return {"provision_once_ms": ms, "window_errors": errors}
+
+
+# -- (x) the controllers ---------------------------------------------------------
+
+CONTROLLERS = dict(
+    # (x2): the disruption ticks after half the pods go, the fake clock
+    # past the pool's 30 s consolidateAfter between them
+    ticks=3, tick_s=31.0,
+    # (x2)'s started window fires at its count only: idle and max past the
+    # deadline, so a stall of the host between two adds (a collection of
+    # the process's heap) cannot split the headline pods into two windows
+    # that the CPU port's one provision_once does not see
+    window=dict(idle_seconds=PROVISION["deadline_s"],
+                max_seconds=PROVISION["deadline_s"], max_pods=10_000),
+    # (x6): the small rigs of the faulted controllers
+    fault_pods=600, fault_claims=8)
+_TRACE = re.compile(r"trace=\d+")
+
+
+class FixedIds:
+    """Counters in place of ``uuid.uuid4`` and ``secrets.token_hex`` while
+    a side of (x) runs: claim names and bootstrap tokens then follow the
+    order of the creates, so the card's run and the CPU's name the same
+    claims alike."""
+
+    def __init__(self):
+        self.n = self.t = 0
+
+    def uuid4(self):
+        self.n += 1
+        return uuid.UUID(int=self.n << 96)
+
+    def token_hex(self, nbytes=None):
+        self.t += 1
+        return f"{self.t:0{2 * (nbytes or 32)}x}"
+
+
+@contextlib.contextmanager
+def side_state():
+    """One side's run on its own process state: fixed names, a fresh
+    explain registry (its stamps dedupe the controllers' Unplaced events
+    per pod key, and both sides use the same keys), a fresh placement
+    ledger and a fresh spot risk model (the spot preemption controller
+    stamps every live spot instance into the ledger each round and
+    rebuilds the process's risk model from it, which prices the next
+    catalog the provisioner resolves)."""
+    from karpenter_tpu_torch import explain
+    from karpenter_tpu_torch.stochastic import risk
+
+    ids = FixedIds()
+    saved = uuid.uuid4, secrets.token_hex, explain._REGISTRY, risk._MODEL
+    uuid.uuid4, secrets.token_hex = ids.uuid4, ids.token_hex
+    explain._REGISTRY = explain.ExplainRegistry()
+    risk._MODEL = SpotRiskModel()
+    try:
+        with obs.use_ledger(PlacementLedger(max_open=INTAKE["max_open"])):
+            yield ids
+    finally:
+        (uuid.uuid4, secrets.token_hex, explain._REGISTRY,
+         risk._MODEL) = saved
+
+
+@contextlib.contextmanager
+def timed_methods(spans: dict, targets):
+    """Host time in ``spans[label]`` of each (owner, attribute, label)
+    while the block runs."""
+    saved = []
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                spans[_label] = spans.get(_label, 0.0) + \
+                    time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+    try:
+        yield spans
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def controller_set(rig, clock, resident=False, gang_options=None,
+                   preempt_options=None, repack_options=None):
+    """The reference operator's registration list
+    (``karpenter_tpu/operator/operator.py:189-255``) without the IKS,
+    load-balancer and what-if entries, interruption, preemption and gang
+    admission enabled and orphan cleanup off (its default); the repack
+    enabled with no cooldown; the planning controllers on the rig's
+    device and the time-gated ones on ``clock``."""
+    cluster, cloud, actuator = rig.cluster, rig.cloud, rig.actuator
+    cp = CloudProvider(cluster, actuator, rig.itp)
+    return [
+        NodeClassHashController(cluster),
+        NodeClassStatusController(cluster, cloud,
+                                  subnet_provider=actuator.subnets,
+                                  image_resolver=actuator.images),
+        AutoplacementController(cluster, rig.itp, actuator.subnets),
+        NodeClassTerminationController(cluster),
+        RegistrationController(cluster),
+        StartupTaintController(cluster),
+        NodeClaimTerminationController(cluster, actuator),
+        GarbageCollectionController(cluster, cloud),
+        TaggingController(cluster, cloud),
+        SpotPreemptionController(cluster, cloud, rig.unavail),
+        InstanceTypeRefreshController(rig.itp, rig.unavail),
+        PricingRefreshController(rig.pricing),
+        InterruptionController(cluster, rig.unavail, cloud=cloud),
+        BootstrapTokenController(cluster, actuator.bootstrap.tokens),
+        DisruptionController(cluster, cp, provisioner=rig.prov, clock=clock,
+                             repack_enabled=True, repack_cooldown=0.0,
+                             resident_occupancy=resident,
+                             repack_options=repack_options,
+                             device=rig.device),
+        PreemptionController(cluster, rig.prov, clock=clock,
+                             options=preempt_options, min_pending_age=0.0,
+                             device=rig.device),
+        GangAdmissionController(cluster, rig.prov, clock=clock,
+                                options=gang_options, device=rig.device),
+        OrphanCleanupController(cluster, cloud, enabled=False),
+    ]
+
+
+class ControllerRig(ProvisionRig):
+    """(x1) A ``ProvisionRig`` with a ``ControllerManager`` (``AlwaysLeader``)
+    carrying ``controller_set``; a fake clock for the time-gated
+    controllers and a ``FakeKubelet``."""
+
+    def __init__(self, device, resident=False, families=None, pools=(),
+                 window=None, **ctrl_kw):
+        super().__init__(device, pools=pools, families=families,
+                         window=window, solver=SolverOptions(
+                             resident="on" if resident else "off"))
+        self.clock = ManualClock()
+        self.kubelet = FakeKubelet(self.cluster, self.cloud)
+        self.manager = ControllerManager(self.cluster,
+                                         leader=AlwaysLeader().is_leader)
+        self.ctrls = {}
+        for c in controller_set(self, self.clock, resident=resident,
+                                **ctrl_kw):
+            self.manager.register(c)
+            self.ctrls[c.name] = c
+
+
+class ManualClock:
+    """The time-gated controllers' clock: advanced by hand."""
+
+    def __init__(self, t: float = 1_000_000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def controller_world(rig) -> dict:
+    """What the controllers changed: claims (by name, the names fixed),
+    bindings and nominations, events, the fake cloud's calls and
+    instances, the repack, eviction and placement logs."""
+    ctrls = getattr(rig, "ctrls", {})
+    out = {
+        "claims": {c.name: (c.instance_type, c.zone, c.capacity_type,
+                            c.nodepool_name, c.node_name, c.registered,
+                            c.initialized, c.deleted)
+                   for c in rig.cluster.nodeclaims()},
+        "pods": {k: (p.bound_node, p.nominated_node,
+                     p.spec.gang is None)
+                 for k, p in sorted(rig.cluster._collections["pods"]
+                                    .items())},
+        "events": [(e.kind, e.name, e.type, e.reason,
+                    _TRACE.sub("trace=*", e.message))
+                   for e in rig.cluster.events],
+        "calls": {k: len(v) for k, v in rig.cloud.recorder.calls.items()
+                  if v},
+        "instances": sorted((i.id, i.name, i.profile, i.zone,
+                             i.capacity_type, i.status)
+                            for i in rig.cloud.list_instances()),
+        "unavailable": sorted(rig.unavail.unavailable_keys())}
+    if "disruption" in ctrls:
+        d = ctrls["disruption"]
+        out["repack_log"] = [(r.migrations, r.drained, r.reopened,
+                              r.savings_fraction) for r in d.repack_log]
+        out["repack_violations"] = list(d.repack_violations)
+    if "preemption" in ctrls:
+        out["eviction_log"] = [
+            (e.pod_key, e.victim_priority, e.beneficiary_priority,
+             e.beneficiary, e.claim_name)
+            for e in ctrls["preemption"].eviction_log]
+    if "gang" in ctrls:
+        g = ctrls["gang"]
+        out["placement_log"] = [(r.gang, r.claim_name, r.members)
+                                for r in g.placement_log]
+        out["admitted"] = sorted(g.admitted)
+        out["released"] = list(g.released)
+    return out
+
+
+def worlds_equal(label: str, card: dict, cpu: dict) -> None:
+    for key in card:
+        if card[key] != cpu.get(key):
+            a, b = card[key], cpu.get(key)
+            where = key
+            if isinstance(a, dict) and isinstance(b, dict):
+                bad = sorted(k for k in set(a) | set(b)
+                             if a.get(k) != b.get(k))[:3]
+                where = f"{key} {[(k, a.get(k), b.get(k)) for k in bad]}"
+            elif isinstance(a, list) and isinstance(b, list):
+                i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                where = (f"{key}[{i}] of {len(a)} / {len(b)}: "
+                         f"{a[i] if i < len(a) else None} / "
+                         f"{b[i] if i < len(b) else None}")
+            raise AssertionError(f"{label}: the card's run differs from "
+                                 f"the CPU port's at {where}")
+
+
+def x2_script(rig, pods, started: bool) -> dict:
+    """(x2) on one rig: the pods provisioned (through the started watch
+    path in one window, or ``provision_once`` on the CPU rig), joined and
+    registered; half of them deleted; ``ticks`` disruption ticks ``tick_s``
+    apart (the kubelet joins whatever a tick created); the blue/green
+    proposal."""
+    steps = {}
+    t0 = time.perf_counter()
+    if started:
+        fired: list = []
+        on_window = rig.prov._on_window
+
+        def counted(batch):
+            fired.append(len(batch))
+            return on_window(batch)
+
+        # the window binds its handler at start
+        rig.prov._on_window = counted
+        rig.prov.start()
+        futures: list = []
+        add = rig.prov._window.add
+
+        def add_kept(pod):
+            fut = add(pod)
+            futures.append(fut)
+            return fut
+
+        rig.prov._window.add = add_kept
+        rig.add(pods)
+        got = [f.result(timeout=PROVISION["deadline_s"]) for f in futures]
+        rig.prov.stop()
+        del rig.prov._on_window
+        if fired != [len(pods)]:
+            raise AssertionError(f"controllers (x2): the started window "
+                                 f"fired {fired}, want one of {len(pods)}")
+        if len(got) != len(pods) or not all(got):
+            raise AssertionError("controllers (x2): a pod of the started "
+                                 "watch path was not nominated")
+    else:
+        rig.add(pods)
+        rig.prov.provision_once()
+    steps["provision_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rig.kubelet.join_pending(ready=True)
+    rig.manager.sync(rounds=1)
+    steps["join_s"] = time.perf_counter() - t0
+    before = controller_world(rig)
+    t0 = time.perf_counter()
+    for i, p in enumerate(pods):
+        if i % 2 == 0:
+            rig.cluster.delete("pods", pod_api.pod_key(p))
+    for _ in range(CONTROLLERS["ticks"]):
+        rig.kubelet.join_pending(ready=True)
+        rig.manager.sync(rounds=1)
+        rig.clock.t += CONTROLLERS["tick_s"]
+    steps["ticks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proposal = rig.ctrls["disruption"].propose_repack()
+    steps["proposal_s"] = time.perf_counter() - t0
+    return {"steps": steps, "before": before, "world": controller_world(rig),
+            "proposal": None if proposal is None else (
+                proposal.current_cost, proposal.proposed_cost,
+                plan_view(proposal.plan))}
+
+
+def phase_controllers(dev, card: str, pods) -> dict:
+    """(x) The controllers on the card (see the module docstring):
+    (x1) the rig, (x2) consolidation and the repack with the resident
+    occupancy view on and off, (x3) gang admission, (x4) preemption, (x5)
+    a spot preemption; each against the same script on a CPU rig."""
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    rigs: list = []
+    out: dict = {}
+    try:
+        out["x2"] = controllers_x2(dev, card, pods, rigs, launches)
+        out["x5"] = controllers_spot(dev, card, out["x2"].pop("rigs"),
+                                     launches)
+        out["x3"] = controllers_gang(dev, card, rigs, launches)
+        out["x4"] = controllers_preempt(dev, card, rigs, launches)
+    finally:
+        for r in rigs:
+            r.close()
+    out["launches"] = launches
+    out["host_s"] = time.perf_counter() - t_phase
+    say(f"controllers (x): {out['host_s']:.3f} s on {card}; launches "
+        f"{launches} (ffd_scan {launches.get('ffd_scan', 0)}, cost_sum "
+        f"{launches.get('cost_sum', 0)})")
+    return out
+
+
+def controllers_x2(dev, card, pods, rigs, launches) -> dict:
+    """(x2) on the card with the resident occupancy view off and on, and
+    on the CPU: one outcome; the card's share of the run by stage."""
+    from karpenter_tpu_torch.repack.planner import RepackPlanner as RP
+    from karpenter_tpu_torch.resident.store import (
+        OccupancySnapshot, ResidentStore,
+    )
+
+    runs, walls, shares = {}, {}, {}
+    for side, device, resident in (("card", dev, False),
+                                   ("card-resident", dev, True),
+                                   ("cpu", "cpu", False)):
+        with side_state():
+            rig = ControllerRig(device, resident=resident,
+                                window=dict(CONTROLLERS["window"],
+                                            max_pods=len(pods)))
+        rigs.append(rig)
+        spans: dict = {}
+        targets = [(rig.prov.solver, "solve", "solve"),
+                   (RP, "_score_grid", "repack grid"),
+                   (OccupancySnapshot, "__init__", "occupancy"),
+                   (ResidentStore, "occupancy_tensors", "occupancy")]
+        reset_launches()
+        t0 = time.perf_counter()
+        with side_state(), timed_methods(spans, targets):
+            runs[side] = x2_script(rig, pods, started=side != "cpu")
+        walls[side] = time.perf_counter() - t0
+        got = launch_counts()
+        if side != "cpu":
+            require_launches(got, ["ffd_scan", "cost_sum"],
+                             f"controllers (x2) {side}")
+            add_launches(launches, got)
+            steps = rig.ctrls["disruption"]._repacker.primary.device_steps
+            if steps < 1:
+                raise AssertionError(f"controllers (x2) {side}: the repack "
+                                     f"grid never ran on the card")
+        shares[side] = dict(spans, launches=got)
+    cpu = runs["cpu"]
+    for side in ("card", "card-resident"):
+        worlds_equal(f"controllers (x2) {side} before the ticks",
+                     runs[side]["before"], cpu["before"])
+        worlds_equal(f"controllers (x2) {side}", runs[side]["world"],
+                     cpu["world"])
+        if runs[side]["proposal"] != cpu["proposal"]:
+            raise AssertionError(f"controllers (x2) {side}: the blue/green "
+                                 f"proposal differs from the CPU port's")
+    w, b = cpu["world"], cpu["before"]
+    live = {n: c for n, c in w["claims"].items() if not c[7]}
+    # deleted claims are finalized and leave the store
+    gone = sum(1 for n in b["claims"] if n not in live)
+    moved = sum(1 for k, v in w["pods"].items()
+                if k in b["pods"] and b["pods"][k][0] and v[0]
+                and v[0] != b["pods"][k][0])
+    migrations = sum(len(r[0]) for r in w["repack_log"])
+    if not gone or not w["repack_log"] and not moved:
+        raise AssertionError(f"controllers (x2): the ticks retired {gone} "
+                             f"claims and moved {moved} pods")
+    prop = cpu["proposal"]
+    for side in ("card", "card-resident"):
+        sp, st = shares[side], runs[side]["steps"]
+        total = walls[side]
+        say(f"controllers (x2) {side} [{card}]: {len(pods)} headline pods "
+            f"provisioned through the started watch path (one window at its "
+            f"count) in "
+            f"{st['provision_s'] * 1e3:.3f} ms, joined and registered in "
+            f"{st['join_s'] * 1e3:.3f} ms; half deleted, "
+            f"{CONTROLLERS['ticks']} ticks {CONTROLLERS['tick_s']} s apart "
+            f"in {st['ticks_s'] * 1e3:.3f} ms, the blue/green proposal in "
+            f"{st['proposal_s'] * 1e3:.3f} ms; run wall {total:.3f} s, of "
+            f"it solve {sp.get('solve', 0.0) * 1e3:.3f} ms "
+            f"({sp.get('solve', 0.0) / total:.4f}), repack grid "
+            f"{sp.get('repack grid', 0.0) * 1e3:.3f} ms "
+            f"({sp.get('repack grid', 0.0) / total:.4f}), occupancy "
+            f"{sp.get('occupancy', 0.0) * 1e3:.3f} ms "
+            f"({sp.get('occupancy', 0.0) / total:.4f}); launches "
+            f"{sp['launches']}")
+    say(f"controllers (x2) [{card}]: {len(b['claims'])} claims after the "
+        f"join, {gone} retired by the ticks, {len(live)} live; {moved} "
+        f"pods rebound by consolidation and the repack ({migrations} "
+        f"repack migrations in {len(w['repack_log'])} plans, "
+        f"{sum(len(r[1]) for r in w['repack_log'])} drained); proposal "
+        f"{prop[0] if prop else None} -> {prop[1] if prop else None} $/h; "
+        f"claims, bindings, nominations, events, cloud calls and logs "
+        f"equal on the card with the occupancy view off and on and on the "
+        f"CPU port ({walls['cpu']:.3f} s)")
+    return {"walls_s": walls, "steps": {k: v["steps"] for k, v in
+                                         runs.items()},
+            "shares_s": {k: {a: b for a, b in v.items() if a != "launches"}
+                         for k, v in shares.items()},
+            "claims": len(b["claims"]), "retired": gone, "moved": moved,
+            "migrations": migrations, "proposal": prop[:2] if prop else None,
+            "rigs": {"card": rigs[0], "cpu": rigs[2]}}
+
+
+def controllers_spot(dev, card, pair: dict, launches) -> dict:
+    """(x5) On (x2)'s card rig and CPU rig: the fake cloud preempts the
+    first live spot claim's instance; ``SpotPreemptionController`` blacks
+    its offering out and deletes the claim, whose termination re-pends
+    its pods; the next window re-keys the catalog's availability with one
+    upload and its plan avoids the dark offering."""
+    out = {}
+    worlds = {}
+    for side in ("card", "cpu"):
+        rig = pair[side]
+        spot = next((c for c in rig.cluster.nodeclaims()
+                     if not c.deleted and c.capacity_type == "spot"), None)
+        if spot is None:
+            raise AssertionError("controllers (x5): no live spot claim")
+        offering = (spot.instance_type, spot.zone, spot.capacity_type)
+        dt = get_devtel()
+        uploads, nbytes = dt.catalog_uploads, dt.catalog_upload_bytes
+        reset_launches()
+        t0 = time.perf_counter()
+        with side_state() as ids:
+            ids.n = 10 ** 6      # past every name the side minted
+            rig.cloud.preempt_spot_instance(spot.provider_id.rsplit("/", 1)[1])
+            rig.ctrls["spot.preemption"].reconcile()
+            rig.ctrls["nodeclaim.termination"].reconcile(spot.name)
+            repended = sum(1 for p in rig.cluster.pending_pods()
+                           if not p.bound_node and not p.nominated_node)
+            plans = rig.prov.provision_once()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        up = dt.catalog_uploads - uploads
+        if not rig.unavail.is_unavailable(*offering):
+            raise AssertionError(f"controllers (x5) {side}: {offering} is "
+                                 f"not blacked out")
+        if not plans or any((n.instance_type, n.zone, n.capacity_type)
+                            == offering for p in plans for n in p.nodes):
+            raise AssertionError(f"controllers (x5) {side}: the next window "
+                                 f"planned nothing or the dark offering")
+        if side == "card":
+            require_launches(got, ["ffd_scan", "cost_sum"],
+                             "controllers (x5)")
+            add_launches(launches, got)
+            if up != 1:
+                raise AssertionError(f"controllers (x5): {up} catalog "
+                                     f"uploads, want one")
+            out = {"wall_ms": wall * 1e3, "uploads": up,
+                   "upload_bytes": dt.catalog_upload_bytes - nbytes,
+                   "offering": list(offering),
+                   "nodes": sum(len(p.nodes) for p in plans),
+                   "repended": repended,
+                   "launches": got}
+        worlds[side] = (controller_world(rig), [plan_view(p) for p in plans])
+    worlds_equal("controllers (x5)", worlds["card"][0], worlds["cpu"][0])
+    if worlds["card"][1] != worlds["cpu"][1]:
+        raise AssertionError("controllers (x5): the re-keyed plan differs "
+                             "from the CPU port's")
+    say(f"controllers (x5) [{card}]: the fake cloud preempted a "
+        f"{'/'.join(out['offering'])} instance; SpotPreemptionController "
+        f"blacked the offering out and the termination re-pended its "
+        f"{out['repended']} pods; the next window ({out['wall_ms']:.3f} ms "
+        f"with the two reconciles) "
+        f"uploaded the catalog's availability {out['uploads']} time "
+        f"({out['upload_bytes']} B) and planned {out['nodes']} nodes, "
+        f"none on the dark offering; equal to the CPU port's; launches "
+        f"{out['launches']}")
+    return out
+
+
+def controllers_gang(dev, card, rigs, launches) -> dict:
+    """(x3) ``run_gang``'s 64 gangs x 16 members on a rig of 500
+    accelerator profiles: parked out of a window by
+    ``provisioner.admission``, then one sync admits them, places the
+    slice gangs through the card's gang planner and re-windows the
+    plain gangs, which the next window places atomically.  The grid is
+    forced onto the device as in (m): the planner's size rule
+    (``use_device="auto"``) takes numpy below 2048 cells, and a
+    controller's grid steps (open nodes x placements) stay below it at
+    this shape."""
+    pods = gang_pods(GANG)
+    runs = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        with side_state():
+            rig = ControllerRig(device, families=workload.ACCEL_FAMILIES,
+                                gang_options=GangOptions(use_device="on"))
+        rigs.append(rig)
+        reset_launches()
+        t0 = time.perf_counter()
+        with side_state():
+            rig.add(pods)
+            parked = rig.prov.provision_once()
+            rig.manager.sync(rounds=1)
+            admitted = len(rig.ctrls["gang"].admitted)
+            plans = rig.prov.provision_once()
+            rig.kubelet.join_pending(ready=True)
+            rig.manager.sync(rounds=1)
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        planner = rig.ctrls["gang"].planner.primary
+        if parked:
+            raise AssertionError(f"controllers (x3) {side}: a window solved "
+                                 f"parked gang members")
+        if side == "card":
+            if planner.device_steps < 1:
+                raise AssertionError("controllers (x3): the gang grid never "
+                                     "ran on the card")
+            if plans:
+                require_launches(got, ["ffd_scan", "cost_sum"],
+                                 "controllers (x3) plain gangs")
+            add_launches(launches, got)
+        runs[side] = (controller_world(rig), [plan_view(p) for p in plans],
+                      wall, planner.device_steps, got, admitted)
+    worlds_equal("controllers (x3)", runs["card"][0], runs["cpu"][0])
+    if runs["card"][1] != runs["cpu"][1]:
+        raise AssertionError("controllers (x3): the plain gangs' plans "
+                             "differ from the CPU port's")
+    w = runs["card"][0]
+    slice_placed = len(w["placement_log"])
+    nominated = sum(1 for v in w["pods"].values() if v[1] or v[0])
+    partial = 0
+    for r in w["placement_log"]:
+        if len(r[2]) != GANG["members"]:
+            partial += 1
+    if partial or not slice_placed:
+        raise AssertionError(f"controllers (x3): {slice_placed} slice gangs "
+                             f"placed, {partial} partial")
+    say(f"controllers (x3) [{card}]: {GANG['gangs']} gangs x "
+        f"{GANG['members']} members parked out of the first window; one "
+        f"sync admitted {runs['card'][5]}, placed {slice_placed} slice "
+        f"gangs whole ({runs['card'][3]} torch grid steps on the card) and "
+        f"re-windowed the rest, which {len(runs['card'][1])} plan(s) placed; "
+        f"{nominated} of {len(pods)} pods nominated or bound; "
+        f"{runs['card'][2] * 1e3:.3f} ms; equal to the CPU port's; "
+        f"launches {runs['card'][4]}")
+    return {"wall_ms": runs["card"][2] * 1e3, "admitted": runs["card"][5],
+            "slice_placed": slice_placed, "nominated": nominated,
+            "device_steps": runs["card"][3], "launches": runs["card"][4]}
+
+
+def fill_claims(rig, count: int, seed: int) -> None:
+    """``bench.run_preempt``'s full claims on the rig's catalog: ``count``
+    claims of the default pool, each ~96% full with three victims of
+    priority 0 (3 in 4) or 100, bound through the cluster."""
+    catalog = rig.prov._catalog_for(rig.nodeclass)
+    rng = np.random.RandomState(seed)
+    alloc = catalog.type_alloc
+    hostable = [t for t in range(catalog.num_types)
+                if alloc[t, 0] >= 2000 and alloc[t, 1] >= 4096]
+    for i in range(count):
+        t = hostable[rng.randint(len(hostable))]
+        rig.cluster.add_nodeclaim(NodeClaim(
+            name=f"pc{i}", nodeclass_name="default", nodepool_name="default",
+            instance_type=catalog.type_names[t],
+            zone=catalog.zones[rng.randint(len(catalog.zones))],
+            node_name=f"node-pc{i}", launched=True))
+        for j in range(3):
+            name = f"v{i}-{j}"
+            rig.cluster.add_pod(pod_api.PodSpec(
+                name, requests=pod_api.ResourceRequests(
+                    int(alloc[t, 0] * 0.32), int(alloc[t, 1] * 0.32), 0, 1),
+                priority=int(rng.choice([0, 0, 0, 100]))))
+            rig.cluster.bind_pod(f"default/{name}", f"node-pc{i}")
+
+
+def controllers_preempt(dev, card, rigs, launches) -> dict:
+    """(x4) 2,000 full claims and the pending pods of ``run_preempt``'s
+    mix of sizes and priorities: one sync of the preemption controller
+    plans on the card's fit grid and evicts within the pool's
+    ``preemption_budget``."""
+    runs = {}
+    pending = preempt_pending(np.random.RandomState(PREEMPT["seed"]),
+                              PREEMPT["pending"])
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        with side_state():
+            rig = ControllerRig(device)
+        rigs.append(rig)
+        fill_claims(rig, PREEMPT["claims"], PREEMPT["seed"])
+        rig.add(pending)
+        ctrl = rig.ctrls["preemption"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with side_state():
+            ctrl.reconcile()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        if side == "card":
+            require_no_launches(got, "controllers (x4)")
+            if ctrl.planner.primary.device_steps < 1:
+                raise AssertionError("controllers (x4): the fit grid never "
+                                     "ran on the card")
+        runs[side] = (controller_world(rig), wall,
+                      ctrl.planner.primary.device_steps)
+    worlds_equal("controllers (x4)", runs["card"][0], runs["cpu"][0])
+    w = runs["card"][0]
+    budget = NodePool(name="default").preemption_budget
+    evicted = len(w["eviction_log"])
+    if not evicted or evicted > budget:
+        raise AssertionError(f"controllers (x4): {evicted} evictions, the "
+                             f"budget {budget}")
+    placed = sum(1 for k, v in w["pods"].items() if v[1])
+    say(f"controllers (x4) [{card}]: {PREEMPT['claims']} full "
+        f"claims, {len(pending)} pending pods: one reconcile "
+        f"{runs['card'][1] * 1e3:.3f} ms, {evicted} evictions (budget "
+        f"{budget}), {placed} beneficiaries nominated; "
+        f"{runs['card'][2]} torch grid steps on the card; equal to the CPU "
+        f"port's ({runs['cpu'][1] * 1e3:.3f} ms)")
+    return {"wall_ms": runs["card"][1] * 1e3, "evictions": evicted,
+            "budget": budget, "placed": placed,
+            "device_steps": runs["card"][2]}
+
+
+def phase_controllers_fault(dev, card: str, pods) -> dict:
+    """(x6) One scripted device fault per planning controller (repack,
+    gang, preemption) on a small rig with its grid forced onto the card:
+    ``DeviceFaultError`` out of the wrapper, one
+    ``ERRORS{controller.<name>, reconcile}`` from the manager, no claim,
+    eviction or migration and no breadcrumb; the next sync after the
+    fault plans on the card."""
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+
+    out = {}
+    small = pods[:CONTROLLERS["fault_pods"]]
+    never = (NodePool(name="default", nodeclass_name="default",
+                      consolidation_policy="Never"),)
+    cases = {
+        "disruption": ("repack-grid", dict(pools=never, repack_options=
+                                           RepackOptions(use_device="on"))),
+        "gang": ("gang-grid", dict(families=workload.ACCEL_FAMILIES,
+                                   gang_options=GangOptions(
+                                       use_device="on"))),
+        "preemption": ("preempt-grid", dict(preempt_options=PlannerOptions(
+            use_device="on")))}
+    for name, (site, kw) in cases.items():
+        rig = ControllerRig(dev, **kw)
+        try:
+            ctrl = rig.ctrls[name]
+            if name == "disruption":
+                rig.add(small)
+                rig.prov.provision_once()
+                rig.kubelet.join_pending(ready=True)
+                for claim in rig.cluster.nodeclaims():
+                    rig.ctrls["nodeclaim.registration"].reconcile(claim.name)
+                for i, p in enumerate(small):
+                    if i % 2 == 0:
+                        rig.cluster.delete("pods", pod_api.pod_key(p))
+                ctrl.repack_rebuild = False
+            elif name == "gang":
+                rig.add([p for p in gang_pods(GANG)
+                         if p.gang.slice_shape][:4 * GANG["members"]])
+            else:
+                fill_claims(rig, CONTROLLERS["fault_claims"],
+                            PREEMPT["seed"])
+                rig.add(preempt_pending(
+                    np.random.RandomState(PREEMPT["seed"]), 64))
+            mgr = ControllerManager(rig.cluster)
+            mgr.register(ctrl)
+            planner = (ctrl._repacker.primary if name == "disruption"
+                       and ctrl._repacker is not None else None)
+            before = {k: v for k, v in controller_world(rig).items()
+                      if k in ("claims", "pods", "instances")}
+            marks = degradation_marks()
+            errors = metrics.ERRORS.samples()
+            with injected(site) as inj:
+                try:
+                    ctrl.reconcile()
+                except DeviceFaultError:
+                    pass
+                else:
+                    raise AssertionError(f"controllers (x6) {name}: the "
+                                         f"fault did not raise")
+                inj.injected = 0
+                mgr.sync(rounds=1)
+            moved = {k: v - errors.get(k, 0.0)
+                     for k, v in metrics.ERRORS.samples().items()
+                     if v != errors.get(k, 0.0)}
+            counted = moved.get((f"controller.{name}", "reconcile"), 0.0)
+            after = {k: v for k, v in controller_world(rig).items()
+                     if k in ("claims", "pods", "instances")}
+            expect_marks(f"controllers (x6) {name}", marks, {})
+            if counted != 1.0 or after != before:
+                raise AssertionError(
+                    f"controllers (x6) {name}: {counted} reconcile errors "
+                    f"counted, the world {'moved' if after != before else 'stood'}")
+            planner = ctrl._repacker.primary if name == "disruption" \
+                else ctrl.planner.primary
+            steps = planner.device_steps
+            t0 = time.perf_counter()
+            mgr.sync(rounds=1)
+            wall = time.perf_counter() - t0
+            if planner.device_steps <= steps:
+                raise AssertionError(f"controllers (x6) {name}: the sync "
+                                     f"after the fault did not plan on the "
+                                     f"card")
+            out[name] = {"site": site, "counted": counted,
+                         "next_sync_ms": wall * 1e3,
+                         "grid_steps": planner.device_steps - steps}
+        finally:
+            rig.close()
+    syncs = ", ".join(f"{k} {v['next_sync_ms']:.3f} ms"
+                      for k, v in out.items())
+    say(f"controllers (x6) [{card}]: a scripted device fault at each of "
+        f"{[v['site'] for v in out.values()]} raised DeviceFaultError out "
+        f"of its controller's planner; the manager counted one "
+        f"ERRORS{{controller.<name>, reconcile}} each; no claim, eviction or "
+        f"migration, no breadcrumb; the next syncs planned on the card "
+        f"({syncs})")
+    return out
 
 
 # -- (s) the fault and profiling planes ----------------------------------------
@@ -5250,16 +6012,30 @@ def marks_moved(before: dict, after: dict) -> dict:
             if after[k] != before.get(k, 0.0)}
 
 
+def gate_marks() -> dict:
+    """The gate's marks: every degradation breadcrumb, every
+    ``ERRORS{controller.*, reconcile}`` sample (a controller whose
+    reconcile raised) and every ``ERRORS{gang|preempt|repack,
+    invalid_plan}`` sample (a plan the controllers' validator refused)."""
+    marks = degradation_marks()
+    for (component, kind), v in metrics.ERRORS.samples().items():
+        if (component.startswith("controller.") and kind == "reconcile") \
+                or (component in ("gang", "preempt", "repack")
+                    and kind == "invalid_plan"):
+            marks[f"errors{{{component},{kind}}}"] = v
+    return marks
+
+
 def gated(label: str, fn, *args, **kwargs):
-    """(u0) Run one phase; any degradation breadcrumb it moves fails the
-    run (the degraded modes never fire on a path that must not
-    degrade)."""
-    before = degradation_marks()
+    """(u0) Run one phase; any degradation breadcrumb, failed reconcile or
+    refused plan it moves fails the run (the degraded modes never fire
+    on a path that must not degrade)."""
+    before = gate_marks()
     out = fn(*args, **kwargs)
-    moved = marks_moved(before, degradation_marks())
+    moved = marks_moved(before, gate_marks())
     if moved:
-        raise AssertionError(f"phase {label}: a degraded mode fired: "
-                             f"{moved}")
+        raise AssertionError(f"phase {label}: a degraded mode fired or a "
+                             f"controller failed: {moved}")
     return out
 
 
@@ -6233,12 +7009,17 @@ def main() -> int:
                    main_plan)
     provision = gated("(w) provisioning loop", phase_provision, dev, card,
                       pods)
+    controllers = gated("(x) controllers", phase_controllers, dev, card,
+                        pods)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
-        f"but (s), nor in (v) or (w1)-(w5); sharded_solves_total{{host}} "
+        f"but (s), nor in (v), (w1)-(w5) or (x1)-(x5), no controller's "
+        f"reconcile failed and no plan was refused; "
+        f"sharded_solves_total{{host}} "
         f"{metrics.SHARDED_SOLVES.get('host')} (the host route, not a "
         f"fallback; not gated)")
     fault = phase_fault(dev, card, pods, catalog)
     provision_fault = phase_provision_fault(dev, card, pods)
+    controllers_fault = phase_controllers_fault(dev, card, pods)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -6275,6 +7056,7 @@ def main() -> int:
                      "repack": repack["launches"],
                      "intake": intake["launches"],
                      "provision": provision["launches"],
+                     "controllers": controllers["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -6312,7 +7094,9 @@ def main() -> int:
             "sharded_churn": sharded_churn,
             "sharded_serving": sharded_serving, "repack": repack,
             "oracles": oracles, "intake": intake, "provision": provision,
-            "provision_fault": provision_fault, "fault": fault,
+            "provision_fault": provision_fault,
+            "controllers": controllers,
+            "controllers_fault": controllers_fault, "fault": fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

@@ -75,3 +75,33 @@ class GangPlan:
     @property
     def placed_count(self) -> int:
         return len(self.placements)
+
+    @property
+    def empty(self) -> bool:
+        return not self.nodes
+
+    def to_plan(self, backend: str | None = None):
+        """Lower to a solver :class:`Plan` so the execution path reuses
+        the actuator contract and the independent plan validator."""
+        from karpenter_tpu_torch.solver.types import Plan, PlannedNode
+
+        nodes = [PlannedNode(instance_type=n.instance_type, zone=n.zone,
+                             capacity_type=n.capacity_type, price=n.price,
+                             pod_names=list(n.pod_names),
+                             offering_index=n.offering_index)
+                 for n in self.nodes]
+        return Plan(nodes=nodes, unplaced_pods=list(self.unplaced),
+                    total_cost_per_hour=self.total_cost_per_hour,
+                    backend=backend or self.backend,
+                    solve_seconds=self.plan_seconds)
+
+    def summary(self) -> dict[str, object]:
+        return {
+            "nodes": len(self.nodes),
+            "gangs_placed": len(self.placed_gangs),
+            "gangs_unplaced": len(self.unplaced_gangs),
+            "pods_placed": self.placed_count,
+            "cost_per_hour": round(self.total_cost_per_hour, 4),
+            "backend": self.backend,
+            "plan_seconds": round(self.plan_seconds, 6),
+        }

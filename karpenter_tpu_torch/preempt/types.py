@@ -61,3 +61,18 @@ class PreemptionPlan:
     @property
     def placed_count(self) -> int:
         return len(self.placements)
+
+    @property
+    def empty(self) -> bool:
+        return not self.evictions and not self.placements
+
+    def summary(self) -> dict[str, object]:
+        return {
+            "evictions": self.eviction_count,
+            "placed": self.placed_count,
+            "unplaced": len(self.unplaced),
+            "candidates": self.candidate_count,
+            "weight": self.eviction_weight,
+            "backend": self.backend,
+            "plan_seconds": round(self.plan_seconds, 6),
+        }

@@ -397,27 +397,71 @@ def resident_store_of(solver):
 
 
 class OccupancySnapshot:
-    """One shared occupancy view per repack tick.
+    """One shared occupancy view per disruption tick.
 
-    Gives the pods whose ``bound_node`` or ``nominated_node`` equals a
-    queried name, in pod collection order (what a scan of the pod
-    collection per claim gives), from one pass over the collection.  The
-    reference's in-tick ``rebind`` / ``unbind`` (for the disruption
-    controller's moves) wait for that controller."""
+    Reproduces ``DisruptionController._bound_pods`` EXACTLY — pods whose
+    ``bound_node`` or ``nominated_node`` equals the queried name, in pod
+    collection order — from ONE pass over the pod collection instead of
+    one full scan per claim (the O(claims x pods) host rebuild the
+    resident store removes from the repack tick).  In-pass mutations
+    (consolidation rebinds, evictions) go through :meth:`rebind` /
+    :meth:`unbind`, which preserve each pod's original collection order
+    so results stay bit-identical to the per-call rescan path (pinned
+    by the tests of both packages).
+    """
 
     def __init__(self, cluster):
         from karpenter_tpu_torch.apis.pod import pod_key
 
-        # name -> occupant keys, inserted in collection order
+        self._order: dict[str, int] = {}
         self._by_name: dict[str, dict[str, None]] = {}
-        for p in cluster.list("pods"):
+        self._homes: dict[str, tuple[str, ...]] = {}
+        for i, p in enumerate(cluster.list("pods")):
             key = pod_key(p.spec)
-            for n in (p.bound_node, p.nominated_node):
-                if n:
-                    self._by_name.setdefault(n, {})[key] = None
+            self._order[key] = i
+            names = []
+            if p.bound_node:
+                names.append(p.bound_node)
+            if p.nominated_node and p.nominated_node != p.bound_node:
+                names.append(p.nominated_node)
+            for n in names:
+                self._by_name.setdefault(n, {})[key] = None
+            self._homes[key] = tuple(names)
 
     def pods_on(self, name: str) -> list[str]:
-        return list(self._by_name.get(name, ())) if name else []
+        if not name:
+            return []
+        keys = self._by_name.get(name)
+        if not keys:
+            return []
+        return sorted(keys, key=self._order.__getitem__)
+
+    def _drop(self, key: str) -> None:
+        for n in self._homes.get(key, ()):
+            bucket = self._by_name.get(n)
+            if bucket is not None:
+                bucket.pop(key, None)
+        self._homes[key] = ()
+
+    def rebind(self, key: str, bound_node: str,
+               nominated_node: str = "") -> None:
+        """A consolidation move changed ``key``'s binding: re-home it
+        under its CURRENT (bound, nominated) pair — the same pair the
+        per-call rescan would see — at its original collection order."""
+        self._drop(key)
+        names = []
+        if bound_node:
+            names.append(bound_node)
+        if nominated_node and nominated_node != bound_node:
+            names.append(nominated_node)
+        for n in names:
+            self._by_name.setdefault(n, {})[key] = None
+        self._homes[key] = tuple(names)
+        self._order.setdefault(key, len(self._order))
+
+    def unbind(self, key: str) -> None:
+        """An eviction returned ``key`` to pending (no node)."""
+        self._drop(key)
 
 
 __all__ = ["DELTA_BUCKETS", "OccupancySnapshot", "ResidentBuffer",

@@ -994,3 +994,77 @@ def pod_spec_like(pod, name):
     import dataclasses
 
     return dataclasses.replace(pod, name=name)
+
+
+@pytest.mark.cuda
+def test_consolidation_and_repack_on_card_match_cpu(cuda_device, monkeypatch):
+    """(x2) at a small size: 1,000 pods provisioned, joined and
+    registered; half deleted; three disruption ticks 31 s apart with the
+    repack's grid forced onto the device, with the resident occupancy
+    view off and on: the claims, bindings, deletions and events of the
+    card's runs equal the CPU port's, and the card's runs took the grid
+    on the card."""
+    import secrets
+    import uuid
+
+    from karpenter_tpu_torch.controllers import ControllerManager
+    from karpenter_tpu_torch.controllers.disruption import (
+        DisruptionController,
+    )
+    from karpenter_tpu_torch.controllers.nodeclaim import (
+        NodeClaimTerminationController, RegistrationController,
+    )
+    from karpenter_tpu_torch.core.cloudprovider import CloudProvider
+    from karpenter_tpu_torch.core.kubelet import FakeKubelet
+    from karpenter_tpu_torch.repack import RepackOptions
+
+    pods, _ = workload.build_workload(1000, 60, seed=23)
+
+    def run(device, resident):
+        n = iter(range(1, 1 << 30))
+        monkeypatch.setattr(uuid, "uuid4",
+                            lambda: uuid.UUID(int=next(n) << 96))
+        monkeypatch.setattr(secrets, "token_hex",
+                            lambda nbytes=None: f"{next(n):064x}")
+        prov, pricing, _ = _provision_rig(device)
+        try:
+            cluster = prov.cluster
+            t = [1000.0]
+            ctrl = DisruptionController(
+                cluster, CloudProvider(cluster, prov.actuator,
+                                       prov.catalog_provider),
+                provisioner=prov, clock=lambda: t[0], repack_enabled=True,
+                repack_cooldown=0.0, resident_occupancy=resident,
+                repack_options=RepackOptions(use_device="on"),
+                device=device)
+            mgr = ControllerManager(cluster)
+            for c in (RegistrationController(cluster),
+                      NodeClaimTerminationController(cluster,
+                                                     prov.actuator), ctrl):
+                mgr.register(c)
+            for p in pods:
+                cluster.add_pod(p)
+            prov.provision_once()
+            FakeKubelet(cluster, prov.actuator.cloud).join_pending(ready=True)
+            mgr.sync(rounds=1)
+            for p in pods[::2]:
+                cluster.delete("pods", f"{p.namespace}/{p.name}")
+            for _ in range(3):
+                mgr.sync(rounds=1)
+                t[0] += 31.0
+            return ({c.name: (c.instance_type, c.zone, c.capacity_type,
+                              c.deleted) for c in cluster.nodeclaims()},
+                    {k: (p.bound_node, p.nominated_node)
+                     for k, p in sorted(cluster._collections["pods"]
+                                        .items())},
+                    [(e.kind, e.name, e.reason) for e in cluster.events],
+                    ctrl._repacker.primary.device_steps)
+        finally:
+            prov.stop()
+            pricing.close()
+
+    cpu = run("cpu", False)
+    for resident in (False, True):
+        card = run(cuda_device, resident)
+        assert card[:3] == cpu[:3]
+        assert card[3] >= 1

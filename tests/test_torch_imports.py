@@ -53,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # the resident store, the serving loop, the what-if, gang and
     # preemption planes, the sharded service, the repack plane, the
     # fault and profiling planes, the oracles, the degraded modes, the
-    # catalog intake and the provisioning loop)
+    # catalog intake, the provisioning loop and the controllers)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -164,7 +164,19 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.recovery",
               "karpenter_tpu_torch.recovery.crashpoints",
               "karpenter_tpu_torch.recovery.journal",
-              "karpenter_tpu_torch.recovery.reconciler"):
+              "karpenter_tpu_torch.recovery.reconciler",
+              # the controller runtime, its controllers and leader
+              # election
+              "karpenter_tpu_torch.controllers",
+              "karpenter_tpu_torch.controllers.runtime",
+              "karpenter_tpu_torch.controllers.nodeclaim",
+              "karpenter_tpu_torch.controllers.nodeclass",
+              "karpenter_tpu_torch.controllers.bootstrap",
+              "karpenter_tpu_torch.controllers.faults",
+              "karpenter_tpu_torch.controllers.disruption",
+              "karpenter_tpu_torch.controllers.preemption",
+              "karpenter_tpu_torch.controllers.gang",
+              "karpenter_tpu_torch.core.leaderelection"):
         assert m in res["modules"]
 
 
