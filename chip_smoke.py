@@ -203,10 +203,13 @@ no result line:
    by ``InstanceTypeProvider`` under a default ``NodeClass``, equal to
    ``workload.build_catalog(500)`` on every field, the headline pods
    solved on it through ``make_solver()`` to phase (a)'s plan; (v2) the
-   10,000 pods through ``SolveWindow`` at the reference's defaults: one
+   10,000 pods through ``SolveWindow`` at the reference's max_pods,
+   idle and max 60 s (no stall of the host fires it early): one
    window carrying them all, every future the direct plan's node, 10,000
    ``window_enqueue`` ledger stamps linked to one trace, the wall from
-   the first add to the last future and the solve's share; (v3) the
+   the first add to the last future and the solve's share; then the
+   same pods at ``WindowOptions()`` (idle 1 s, max 10 s): every pod
+   delivered once over however many windows the timers fire; (v3) the
    offerings (v1)'s plan opened in us-south-1 blacked out on an
    injected clock and refreshed into the catalog: one catalog upload,
    none on a repeat, no blacked-out offering opened, ``validate_plan``
@@ -262,8 +265,31 @@ no result line:
    (w6): one scripted device fault in each planning controller raises
    out of its planner and is counted once by the manager
    (``ERRORS{controller.<name>, reconcile}``), with no claim, eviction,
-   migration or breadcrumb, and the next sync plans on the card.
-   (u0) every phase but (s), (u), (w6) and (x6) runs under a gate that
+   migration or breadcrumb, and the next sync plans on the card;
+   (y) the gRPC solver sidecar, after (x): whether ``grpc`` imports on
+   this machine (printed; the phase fails without it);
+   ``SolverServer(device="cuda")`` on 127.0.0.1 with ``RemoteSolver``
+   over the socket; the headline,
+   the flat seed-7 window, the pref window and the zone-candidate window
+   (``SolveBatch``), each plan equal to ``TorchSolver(device="cuda")``'s,
+   each reply's arrays equal to the plain CPU handlers' on the same
+   request bytes, ``ffd_scan``, ``ffd_scan_pref``, ``ffd_scan_fleet``,
+   ``segment_sum``, ``presence_sum`` and ``cost_sum`` launched;
+   ``compute_handle``'s words equal to the headline dispatch's, its
+   CUDA-event time per solve at k = 1 and 10 beside the remote and
+   local p50 walls (not gated); (y6), after (x6): a scripted device
+   fault in the sidecar's solve raises to ``make_solver(backend=
+   "remote")``'s caller, counted once, no breadcrumb; (z) the chaos
+   harness with its device planes on the card, after (y): ``calm``,
+   ``shard-skew`` and ``affinity`` at seed 1 and ``serving-storm`` with
+   its device faults taken out (a changed profile), each with zero
+   violations and the digest of the same call on the CPU, the planes'
+   devices printed, ``ffd_scan_fleet`` (sharded) and ``ffd_scan``
+   (serving) launched; (z6), after (y6): ``device-fault`` at seed 1
+   raises ``DeviceFaultError`` out of ``run_scenario``, counted once, no
+   breadcrumb, no window on the host route.
+   (u0) every phase but (s), (u), (w6), (x6), (y6) and (z6) runs under a
+   gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``), an
    ``ERRORS{controller.*, reconcile}`` sample or an
@@ -288,6 +314,7 @@ measured also lands in the JSON file PATH.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import cProfile
 import dataclasses
@@ -3631,7 +3658,13 @@ def phase_oracles(dev, card: str, solver, request) -> dict:
 # an injected clock) and the spot risk (interrupted / exposed per spot
 # pair of the plan)
 INTAKE = dict(types=500, zone="us-south-1", ttl=600.0, interrupted=3,
-              exposure=4, max_open=16384)
+              exposure=4, max_open=16384,
+              # (v2): the reference's max_pods (the window fires at its
+              # count, 10,000), idle and max past any stall: a collection
+              # of the process's heap between two of the 10,000 adds must
+              # not fire the window early (as (x2)'s, CONTROLLERS)
+              window=dict(idle_seconds=60.0, max_seconds=60.0,
+                          max_pods=10_000))
 
 
 def intake_nodeclass():
@@ -3965,7 +3998,7 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
         f"{base.total_cost_per_hour:.4f} $/h), cold {cold * 1e3:.3f} ms "
         f"with one catalog upload, warm {warm * 1e3:.3f} ms")
 
-    # (v2): the pods through the solve window at the reference's defaults
+    # (v2): the pods through the solve window, fired at its count
     fired, solve_s, linked = [], [], []
     keys = [pod_api.pod_key(p) for p in pods]
     for key in keys:
@@ -3991,7 +4024,8 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
         fired.append(len(batch))
         return names
 
-    window = SolveWindow(on_window, WindowOptions())
+    opts = WindowOptions(**INTAKE["window"])
+    window = SolveWindow(on_window, opts)
     reset_launches()
     try:
         t0 = time.perf_counter()
@@ -4014,7 +4048,6 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
     if stamped != len(pods) or len(traces) != 1 or 0 in traces:
         raise AssertionError(f"intake (v2): {stamped} window_enqueue stamps "
                              f"over trace ids {sorted(traces)[:4]}")
-    opts = WindowOptions()
     say(f"intake (v2): {len(pods)} pods through SolveWindow (idle "
         f"{opts.idle_seconds} s, max {opts.max_seconds} s, max_pods "
         f"{opts.max_pods}): one window of {fired[0]}, every future the "
@@ -4026,9 +4059,55 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
             "warm_ms": warm * 1e3, "window_wall_ms": wall * 1e3,
             "window_solve_ms": solve_s[0] * 1e3,
             "window_solve_share": solve_s[0] / wall,
+            "default_windows": intake_default_window(solver, pods, own, got,
+                                                     launches),
             "blackout": intake_blackout(dev, solver, pods, own, base,
                                         launches),
             "risk": intake_risk(dev, solver, pods, own, base, launches)}
+
+
+def intake_default_window(solver, pods, own, got, launches) -> list:
+    """(v2) again at the window's defaults (``WindowOptions()``: idle
+    1 s, max 10 s, max_pods 10,000): however many windows the idle and
+    max timers fire, every pod is delivered exactly once and every
+    future resolves; one window gives (v2)'s node names."""
+    batches = []
+
+    def on_window(batch):
+        batches.append([pod_api.pod_key(p) for p in batch])
+        plan = solver.solve(SolveRequest(list(batch), own))
+        return node_names(plan, batch)
+
+    opts = WindowOptions()
+    window = SolveWindow(on_window, opts)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        futures = window.add_all(pods)
+        names = [f.result(timeout=120) for f in futures]
+        wall = time.perf_counter() - t0
+    finally:
+        window.close()
+    window_launches = launch_counts()
+    require_launches(window_launches, ["ffd_scan", "cost_sum"],
+                     "intake (v2) default window")
+    add_launches(launches, window_launches)
+    delivered = collections.Counter(k for b in batches for k in b)
+    keys = [pod_api.pod_key(p) for p in pods]
+    if sorted(delivered) != sorted(keys) or \
+            any(n != 1 for n in delivered.values()):
+        raise AssertionError(f"intake (v2) default window: {len(delivered)} "
+                             f"pods delivered over {len(batches)} windows, "
+                             f"want each of {len(keys)} once")
+    if len(batches) == 1 and names != got:
+        raise AssertionError("intake (v2) default window: one window, node "
+                             "names differ from (v2)'s")
+    sizes = [len(b) for b in batches]
+    say(f"intake (v2) at WindowOptions() (idle {opts.idle_seconds} s, max "
+        f"{opts.max_seconds} s, max_pods {opts.max_pods}): windows of "
+        f"{sizes}, each of the {len(keys)} pods delivered once, every future "
+        f"resolved; wall {wall * 1e3:.3f} ms")
+    return sizes
 
 
 # -- phase 5: timings ---------------------------------------------------------
@@ -4037,9 +4116,10 @@ def intake_phases(dev, pods, catalog, main_plan, ledger, launches) -> dict:
 # -- (w) the provisioning loop ---------------------------------------------------
 
 PROVISION = dict(
-    # (w2): the reference's window defaults (the window fires at its
-    # count, 10,000); (w3) re-windows on a short idle and retry tick
-    window=dict(idle_seconds=1.0, max_seconds=10.0, max_pods=10_000),
+    # (w2): the reference's max_pods (the window fires at its count,
+    # 10,000), idle and max past any stall of the host between two adds
+    # (as (v2) and (x2)); (w3) re-windows on a short idle and retry tick
+    window=dict(idle_seconds=60.0, max_seconds=60.0, max_pods=10_000),
     quick=dict(idle_seconds=0.05, max_seconds=0.5, max_pods=10_000),
     retry_s=0.3, deadline_s=60.0,
     # (w4)-(w6): the first 2,000 headline pods
@@ -5391,6 +5471,348 @@ def phase_controllers_fault(dev, card: str, pods) -> dict:
         f"migration, no breadcrumb; the next syncs planned on the card "
         f"({syncs})")
     return out
+
+
+# -- (y) the gRPC solver sidecar on the card -----------------------------------
+
+SIDECAR = dict(walls=10, handle_k=(1, 10), handle_reps=20)
+
+
+class WireLog:
+    """Records every request and reply a client's three byte methods
+    carry, so that the same request bytes can be replayed elsewhere."""
+
+    def __init__(self, client):
+        self.calls: list[tuple[str, bytes, bytes]] = []
+        for method in ("_upload", "_solve", "_solve_batch"):
+            setattr(client, method, self._wrap(method,
+                                               getattr(client, method)))
+
+    def _wrap(self, method: str, fn):
+        def call(request: bytes) -> bytes:
+            reply = fn(request)
+            self.calls.append((method, request, reply))
+            return reply
+
+        return call
+
+
+def sidecar_windows(pods, catalog) -> dict:
+    """(y)'s windows: the headline, the flat seed-7 window, the pref
+    window and the zone-candidate window, each (request, route need)."""
+    flat_pods, flat_cat = workload.build_hetero_workload(
+        HEADLINE["pods"], HEADLINE["types"], **FLAT_WINDOWS[0])
+    return {
+        "headline": (SolveRequest(pods, catalog), ("ffd_scan", "cost_sum")),
+        "flat seed 7": (SolveRequest(flat_pods, flat_cat),
+                        ("segment_sum", "cost_sum")),
+        "pref": (SolveRequest(workload.with_preferences(pods), catalog),
+                 ("ffd_scan_pref", "presence_sum", "cost_sum")),
+        "zone batch": (SolveRequest(zone_window(pods), catalog),
+                       ("ffd_scan", "ffd_scan_fleet", "cost_sum"))}
+
+
+def replay_words(label: str, log: WireLog, plain) -> int:
+    """Every logged request replayed into ``plain`` (the byte handlers on
+    the CPU): each reply's arrays must equal the card's, word for word.
+    Returns the number of compared replies."""
+    from karpenter_tpu_torch.service import _unpack
+
+    compared = 0
+    for method, request, reply in log.calls:
+        want = getattr(plain, method)(request)
+        if method == "_upload":
+            continue
+        got, ref = _unpack(reply), _unpack(want)
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"sidecar {label}: reply arrays "
+                                 f"{sorted(got)} vs {sorted(ref)}")
+        for k in ref:
+            if got[k].dtype != ref[k].dtype or \
+                    not np.array_equal(got[k], ref[k]):
+                raise AssertionError(f"sidecar {label}: reply {k!r} "
+                                     f"differs from the plain CPU "
+                                     f"handlers'")
+        compared += 1
+    return compared
+
+
+def phase_sidecar(dev, card: str, pods, catalog) -> dict:
+    """(y) The sidecar on the card (under the gate): whether this machine
+    imports ``grpc`` (it must); ``SolverServer(device="cuda")`` on
+    127.0.0.1 and ``RemoteSolver`` over the socket; the headline, flat
+    seed-7, pref and
+    zone-candidate windows, each plan equal to ``TorchSolver(device=
+    "cuda")``'s, each reply's arrays equal to the plain CPU handlers' on
+    the same request bytes, the route's kernels launched;
+    ``compute_handle``'s words equal to the headline dispatch's, its
+    device time per call at k = 1 and 10 beside the remote and local p50
+    walls (not gated)."""
+    import importlib.util
+
+    from karpenter_tpu_torch import service as sidecar
+
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    say(f"sidecar (y) [{card}]: importlib.util.find_spec('grpc') is "
+        f"{'found' if has_grpc else 'None'} on this machine")
+    if not has_grpc:
+        raise RuntimeError("sidecar (y): grpc is not installed on this "
+                           "machine; the sidecar cannot serve")
+    server = sidecar.SolverServer(device=dev).start()
+    client = sidecar.RemoteSolver(f"127.0.0.1:{server.port}")
+    transport = f"gRPC socket 127.0.0.1:{server.port}"
+    plain = sidecar.SolverHandlers(device="cpu")
+    out = {"grpc": has_grpc, "transport": transport, "windows": {}}
+    launches_all: dict = {}
+    try:
+        for label, (request, need) in sidecar_windows(pods,
+                                                      catalog).items():
+            log = WireLog(client)
+            reset_launches()
+            t0 = time.perf_counter()
+            plan = client.solve(request)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            require_launches(launches, need, f"sidecar {label}")
+            add_launches(launches_all, launches)
+            local = TorchSolver(device=dev).solve(request)
+            plans_equal(f"sidecar {label}", plan, local)
+            if plan.backend != "remote":
+                raise AssertionError(f"sidecar {label}: backend "
+                                     f"{plan.backend!r}")
+            replies = replay_words(label, log, plain)
+            methods = sorted({m for m, _, _ in log.calls})
+            out["windows"][label] = {
+                "wall_ms": wall * 1e3, "launches": launches,
+                "replies": replies, "methods": methods,
+                "nodes": len(plan.nodes),
+                "cost": plan.total_cost_per_hour}
+            say(f"sidecar (y) {label}: {len(request.pods)} pods, "
+                f"{len(plan.nodes)} nodes, cost "
+                f"{plan.total_cost_per_hour:.4f} $/h, plan equal to "
+                f"TorchSolver(cuda)'s, {replies} reply(s) equal word for "
+                f"word to the plain CPU handlers', methods {methods}, "
+                f"first call {wall * 1e3:.3f} ms, launches {launches}")
+        if "_solve_batch" not in out["windows"]["zone batch"]["methods"]:
+            raise AssertionError("sidecar zone batch: no SolveBatch call")
+        head = SolveRequest(pods, catalog)
+        solver = TorchSolver(device=dev)
+        remote_walls, local_walls = [], []
+        for _ in range(SIDECAR["walls"]):
+            t0 = time.perf_counter()
+            client.solve(head)
+            remote_walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            solver.solve(head)
+            local_walls.append(time.perf_counter() - t0)
+        problem = encode_mod.encode(pods, catalog)
+        words = solver.dispatch_packed(solver._prepare(problem)).cpu()
+        reset_launches()
+        run = solver.compute_handle(problem)
+        got = run(1).cpu()
+        if not torch.equal(got, words):
+            raise AssertionError("compute_handle: words differ from the "
+                                 "headline dispatch's")
+        require_launches(launch_counts(), ("ffd_scan", "cost_sum"),
+                         "compute_handle")
+        handle_ms = {}
+        for k in SIDECAR["handle_k"]:
+            handle_ms[k] = cuda_ms(lambda k=k: run(k),
+                                   SIDECAR["handle_reps"]) / k
+        out.update(remote_p50_ms=p50_ms(remote_walls),
+                   local_p50_ms=p50_ms(local_walls),
+                   compute_handle_ms=handle_ms,
+                   launches=launches_all)
+        say(f"sidecar (y) [{card}] over the {transport}: headline p50 "
+            f"{p50_ms(remote_walls):.3f} ms remote beside "
+            f"{p50_ms(local_walls):.3f} ms TorchSolver.solve "
+            f"({SIDECAR['walls']} each, in turns); compute_handle words "
+            f"equal the headline dispatch's, device time per call "
+            f"{handle_ms[1]:.4f} ms at k = 1, {handle_ms[10]:.4f} ms at "
+            f"k = 10 (not gated)")
+    finally:
+        client.close()
+        server.stop()
+    return out
+
+
+def phase_sidecar_fault(dev, card: str, pods, catalog) -> dict:
+    """(y6) One scripted device fault in the sidecar's solve, through
+    ``make_solver(SolverOptions(backend="remote"))``: it raises to the
+    client (the server's error status over gRPC), the guard counts it
+    once, and no breadcrumb moves."""
+    import grpc
+
+    from karpenter_tpu_torch import service as sidecar
+
+    request = SolveRequest(pods, catalog)
+    server = sidecar.SolverServer(device=dev).start()
+    solver = make_solver(SolverOptions(
+        backend="remote", address=f"127.0.0.1:{server.port}"))
+    try:
+        solver.solve(request)                # learns the server's device
+        if solver.primary.device is None or \
+                solver.primary.device.type != dev.type:
+            raise AssertionError(f"sidecar (y6): the server named "
+                                 f"{solver.primary.device}")
+        marks = degradation_marks()
+        errors = metrics.ERRORS.samples()
+        t0 = time.perf_counter()
+        with injected("scan"):
+            try:
+                solver.solve(request)
+            except grpc.RpcError as e:
+                what = f"{type(e).__name__}: {e.details()[:120]}"
+            else:
+                raise AssertionError("sidecar (y6): the fault did not "
+                                     "raise to the client")
+        wall = time.perf_counter() - t0
+        expect_marks("sidecar (y6)", marks, {})
+        moved = {k: v - errors.get(k, 0.0)
+                 for k, v in metrics.ERRORS.samples().items()
+                 if v != errors.get(k, 0.0)}
+        counted = sum(v for (c, _), v in moved.items() if c == "device")
+        if counted != 1.0:
+            raise AssertionError(f"sidecar (y6): the fault was counted "
+                                 f"{counted} times: {moved}")
+        after = solver.solve(request)
+    finally:
+        solver.close()
+        server.stop()
+    say(f"sidecar (y6) [{card}]: a scripted device fault in the sidecar's "
+        f"solve raised to make_solver(remote)'s caller ({what}), counted "
+        f"once by the guard, no breadcrumb, {wall * 1e3:.3f} ms; the next "
+        f"window planned {len(after.nodes)} nodes")
+    return {"raised": what, "counted": counted, "wall_ms": wall * 1e3}
+
+
+# -- (z) the chaos harness on the card -------------------------------------------
+
+CHAOS = dict(profiles=("calm", "shard-skew", "affinity"), seed=1, rounds=10,
+             serving="serving-storm")
+
+
+def chaos_planes(harness) -> dict:
+    """The device each of a harness's device planes ran on."""
+    out = {"resident": str(harness.resident.device)}
+    if harness.sharded is not None:
+        out["sharded"] = str(harness.sharded.device)
+    if harness.serving is not None:
+        out["serving"] = str(harness.serving.solver.device)
+    return out
+
+
+def chaos_pair(dev, label: str, profile) -> dict:
+    """One scenario on the card and on the CPU in this process: zero
+    violations on the card, the same digest on both."""
+    from karpenter_tpu_torch.chaos.runner import run_scenario
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(profile, CHAOS["seed"], rounds=CHAOS["rounds"],
+                       device=dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    cpu = run_scenario(profile, CHAOS["seed"], rounds=CHAOS["rounds"],
+                       device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    if not res.ok:
+        raise AssertionError(f"chaos {label} on the card: "
+                             f"{res.render_failure()}")
+    if res.digest != cpu.digest:
+        raise AssertionError(f"chaos {label}: the card's digest "
+                             f"{res.digest[:12]} != the CPU's "
+                             f"{cpu.digest[:12]}")
+    planes = chaos_planes(res.harness)
+    if any(not d.startswith(dev.type) for d in planes.values()):
+        raise AssertionError(f"chaos {label}: a plane ran off {dev}: "
+                             f"{planes}")
+    say(f"chaos (z) {label}: seed {CHAOS['seed']}, {CHAOS['rounds']} "
+        f"rounds, {len(res.trace)} events, 0 violations, digest "
+        f"{res.digest[:12]} equal to the CPU harness's; planes {planes}; "
+        f"wall {wall:.3f} s on the card, {cpu_wall:.3f} s on the CPU; "
+        f"launches {launches}")
+    return {"wall_s": wall, "cpu_wall_s": cpu_wall, "launches": launches,
+            "events": len(res.trace), "digest": res.digest,
+            "planes": planes}
+
+
+def phase_chaos(dev, card: str) -> dict:
+    """(z) The chaos harness with its device planes on the card (under
+    the gate): ``calm``, ``shard-skew`` and ``affinity`` at seed 1, and
+    ``serving-storm`` with its device faults taken out (a changed
+    profile), each with zero violations and the CPU harness's digest;
+    ``ffd_scan_fleet`` launched by the sharded plane, ``ffd_scan`` by
+    the serving ring."""
+    from karpenter_tpu_torch.chaos.profile import get_profile
+
+    out, total = {}, {}
+    for name in CHAOS["profiles"]:
+        out[name] = chaos_pair(dev, name, name)
+        add_launches(total, out[name]["launches"])
+    require_launches(out["shard-skew"]["launches"],
+                     ("ffd_scan_fleet", "cost_sum"), "chaos shard-skew")
+    quiet = dataclasses.replace(get_profile(CHAOS["serving"]),
+                                device_fault_rates={})
+    say(f"chaos (z): {CHAOS['serving']} runs as a changed profile, its "
+        f"device_fault_rates set to {{}} (dataclasses.replace), so the "
+        f"serving ring runs on the card with no fault")
+    label = f"{CHAOS['serving']} without device faults"
+    out[label] = chaos_pair(dev, label, quiet)
+    add_launches(total, out[label]["launches"])
+    require_launches(out[label]["launches"], ("ffd_scan", "cost_sum"),
+                     f"chaos {label}")
+    walls = ", ".join(f"{k} {v['wall_s']:.3f} s" for k, v in out.items())
+    say(f"chaos (z) [{card}]: ffd_scan {total.get('ffd_scan', 0)} and "
+        f"ffd_scan_fleet {total.get('ffd_scan_fleet', 0)} launches over "
+        f"the phase; walls {walls}")
+    return {"scenarios": out, "launches": total}
+
+
+def phase_chaos_fault(dev, card: str) -> dict:
+    """(z6) ``device-fault`` at seed 1 with its planes on the card: the
+    first injected fault raises ``DeviceFaultError`` out of
+    ``run_scenario``, the guard counts it once, no breadcrumb moves and
+    no window went to the host route."""
+    from karpenter_tpu_torch import faulttol
+    from karpenter_tpu_torch.chaos.runner import run_scenario
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+    from karpenter_tpu_torch.faulttol import health as health_mod
+
+    marks = degradation_marks()
+    errors = metrics.ERRORS.samples()
+    host = metrics.SHARDED_SOLVES.get("host")
+    t0 = time.perf_counter()
+    try:
+        run_scenario("device-fault", CHAOS["seed"], rounds=CHAOS["rounds"],
+                     device=dev)
+    except DeviceFaultError as e:
+        what = f"{e.kind} at {e.kernel!r}"
+    else:
+        raise AssertionError("chaos (z6): device-fault ran to its end on "
+                             "the card; an injected fault must raise")
+    finally:
+        # the scenario raised before its quiesce disarmed the profile's
+        # injector: take it out, and the health board it wrote, so that
+        # no later phase draws a fault
+        faulttol.clear_injector()
+        health_mod._BOARD = None
+    wall = time.perf_counter() - t0
+    expect_marks("chaos (z6)", marks, {})
+    moved = {k: v - errors.get(k, 0.0)
+             for k, v in metrics.ERRORS.samples().items()
+             if v != errors.get(k, 0.0)}
+    counted = sum(v for (c, _), v in moved.items() if c == "device")
+    if counted != 1.0 or metrics.SHARDED_SOLVES.get("host") != host:
+        raise AssertionError(f"chaos (z6): counted {counted} faults "
+                             f"({moved}), host-route windows "
+                             f"{metrics.SHARDED_SOLVES.get('host') - host}")
+    say(f"chaos (z6) [{card}]: device-fault at seed {CHAOS['seed']} "
+        f"raised DeviceFaultError ({what}) out of run_scenario after "
+        f"{wall:.3f} s, counted once by the guard, no breadcrumb, no "
+        f"window on the host route")
+    return {"raised": what, "counted": counted, "wall_s": wall}
 
 
 # -- (s) the fault and profiling planes ----------------------------------------
@@ -7011,8 +7433,12 @@ def main() -> int:
                       pods)
     controllers = gated("(x) controllers", phase_controllers, dev, card,
                         pods)
+    sidecar_run = gated("(y) sidecar", phase_sidecar, dev, card, pods,
+                        catalog)
+    chaos_run = gated("(z) chaos", phase_chaos, dev, card)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
-        f"but (s), nor in (v), (w1)-(w5) or (x1)-(x5), no controller's "
+        f"but (s), nor in (v), (w1)-(w5), (x1)-(x5), (y) or (z), no "
+        f"controller's "
         f"reconcile failed and no plan was refused; "
         f"sharded_solves_total{{host}} "
         f"{metrics.SHARDED_SOLVES.get('host')} (the host route, not a "
@@ -7020,6 +7446,8 @@ def main() -> int:
     fault = phase_fault(dev, card, pods, catalog)
     provision_fault = phase_provision_fault(dev, card, pods)
     controllers_fault = phase_controllers_fault(dev, card, pods)
+    sidecar_fault = phase_sidecar_fault(dev, card, pods, catalog)
+    chaos_fault = phase_chaos_fault(dev, card)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -7057,6 +7485,8 @@ def main() -> int:
                      "intake": intake["launches"],
                      "provision": provision["launches"],
                      "controllers": controllers["launches"],
+                     "sidecar": sidecar_run["launches"],
+                     "chaos": chaos_run["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -7096,7 +7526,9 @@ def main() -> int:
             "oracles": oracles, "intake": intake, "provision": provision,
             "provision_fault": provision_fault,
             "controllers": controllers,
-            "controllers_fault": controllers_fault, "fault": fault,
+            "controllers_fault": controllers_fault,
+            "sidecar": sidecar_run, "sidecar_fault": sidecar_fault,
+            "chaos": chaos_run, "chaos_fault": chaos_fault, "fault": fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

@@ -28,6 +28,10 @@ from karpenter_tpu_torch.affinity import AFF_BIG, C_PAD, MAX_SELECTOR_CLASSES
 from karpenter_tpu_torch.apis.pod import (
     HOSTNAME_TOPOLOGY_KEY, ZONE_TOPOLOGY_KEY, PodSpec,
 )
+from karpenter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("affinity.encode")
+
 # required-edge depth ranks are resolved by fixed-point iteration; real
 # dependency chains are shallow (a service and its cache), so the cap
 # only guards against adversarial/cyclic windows
@@ -265,6 +269,9 @@ def build_affinity_index(reps: list[PodSpec]) -> AffinityIndex | None:
                      or host_bound[c] < AFF_BIG)]
     device_armed = len(host_cls) <= MAX_SELECTOR_CLASSES
     if not device_armed:
+        log.warning("affinity device lane disarmed: selector classes "
+                    "exceed budget (choke-point enforcement only)",
+                    classes=len(host_cls), budget=MAX_SELECTOR_CLASSES)
         host_cls = []
     bit_of = {c: i for i, c in enumerate(host_cls)}
     g_sel = np.zeros(G, dtype=np.int32)

@@ -44,6 +44,7 @@ import numpy as np
 
 from karpenter_tpu_torch.affinity import AFF_BIG
 from karpenter_tpu_torch.apis.pod import HOSTNAME_TOPOLOGY_KEY
+from karpenter_tpu_torch.utils import metrics
 
 # fixpoint guard: each productive pass removes >= 1 pod, so this only
 # bounds adversarial plans
@@ -91,6 +92,7 @@ def enforce_affinity(problem, node_off: np.ndarray, gis: np.ndarray,
     alive = [True] * E
     drop_g: list[int] = []
     drop_c: list[int] = []
+    spread_clamped = 0
 
     def _zone_of(n: int) -> int:
         return int(off_zone[int(node_off[n])])
@@ -108,6 +110,7 @@ def enforce_affinity(problem, node_off: np.ndarray, gis: np.ndarray,
         return dict(sorted(doms.items()))
 
     def _drop(e: int, pods: int) -> None:
+        nonlocal spread_clamped
         drop_g.append(g_l[e])
         drop_c.append(pods)
         c_l[e] -= pods
@@ -143,6 +146,7 @@ def enforce_affinity(problem, node_off: np.ndarray, gis: np.ndarray,
                                     and c_l[e] > room[c]:
                                 over = c_l[e] - max(room[c], 0)
                                 _drop(e, over)
+                                spread_clamped += over
                                 changed = True
                             if member[c, g_l[e]]:
                                 room[c] -= c_l[e]
@@ -172,6 +176,8 @@ def enforce_affinity(problem, node_off: np.ndarray, gis: np.ndarray,
 
     if not drop_g:
         return node_off, gis, ns, cnts, None, cost
+    if spread_clamped:
+        metrics.AFFINITY_SPREAD_AVOIDED.inc(spread_clamped)
     keep = np.array(alive, dtype=bool)
     new_cnts = np.array(c_l, dtype=cnts.dtype)
     dropped = (np.array(drop_g, dtype=np.int64),

@@ -60,7 +60,9 @@ class ProvisionerOptions:
 
 def make_solver(options: SolverOptions | None = None, device="cuda"):
     """The solver for ``options`` on ``device``: the host greedy oracle
-    (``GreedySolver``, no device) for ``backend="greedy"``; the sharded
+    (``GreedySolver``, no device) for ``backend="greedy"``; a sidecar's
+    client (``service.RemoteSolver`` at ``options.address``, whose
+    device is the sidecar's) for ``backend="remote"``; the sharded
     service (``ShardedSolver``) when ``sharded_shards(options)`` resolves
     more than one shard, as the reference routes it; ``TorchSolver``
     otherwise.
@@ -80,6 +82,12 @@ def make_solver(options: SolverOptions | None = None, device="cuda"):
         return GreedySolver(options)
     from karpenter_tpu_torch.solver.degraded import ResilientSolver
 
+    if options.backend == "remote":
+        from karpenter_tpu_torch.service import RemoteSolver
+
+        return ResilientSolver(
+            RemoteSolver(options.address or "127.0.0.1:50051", options),
+            options)
     shards = sharded_shards(options)
     if shards > 1:
         # two degradation layers on the CPU: the sharded plane's own

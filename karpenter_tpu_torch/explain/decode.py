@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.explain import BIT, fold_reason, word_for
 from karpenter_tpu_torch.explain.greedy import (
     label_rows_for, nearest_miss, nearest_miss_index, reason_words,
@@ -138,6 +139,7 @@ def attach(problem, plan, reason_words_arr=None,
         plan.unplaced_reasons = {}
         plan.unplaced_words = {}
         return
+    t0 = obs.now()
     G = problem.num_groups
     if miss is None:
         miss = group_miss_counts(problem, plan)
@@ -197,3 +199,5 @@ def attach(problem, plan, reason_words_arr=None,
     plan.unplaced_reasons = reasons
     plan.unplaced_words = raw
     plan.unplaced_nearest = nearest
+    obs.record("explain.fold", t0, obs.now(),
+               unplaced=len(plan.unplaced_pods), groups=int(len(holes)))

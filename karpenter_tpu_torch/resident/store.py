@@ -30,11 +30,11 @@ Every device update and solve runs inside ``faulttol.device_guard`` and
 a sampled ``obs.prof`` bracket (kernels ``resident-update`` — or the
 caller's name, ``fleet-resident`` — and ``resident``), and every window
 is noted in ``obs.devtel`` (``note_resident_window``, ``note_dispatch``,
-``note_resident_invalidation``) as the reference notes it.  Where the
-reference catches a ``DeviceFaultError`` of the standalone update and
-rebuilds from the host in silence, the port invalidates and raises, so
-the fault reaches a caller that counts it (a deliberate difference,
-listed in ROADMAP.md).
+``note_resident_invalidation``) as the reference notes it.  A
+``DeviceFaultError`` of the standalone update invalidates the buffer;
+on the CPU the buffer is then rebuilt from the host, as the
+reference's is, and on the card the fault raises, so it reaches a caller
+that counts it (a deliberate difference, listed in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,7 +45,9 @@ import numpy as np
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.device import resolve_device
-from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.faulttol import (
+    DeviceFaultError, device_guard, device_id,
+)
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.resident.delta import (
@@ -114,8 +116,10 @@ class ResidentBuffer:
                kernel: str = "resident-update"):
         """-> (device buffer of ``host``'s shape, WindowDelta).  ``host``
         must be int32.  The scatter runs under ``device_guard(kernel)``;
-        a failed scatter invalidates the buffer and raises (the reference
-        rebuilds from the host there, silently)."""
+        a failed scatter invalidates the buffer.  On the CPU a
+        ``DeviceFaultError`` then rebuilds the buffer from the host, as
+        the reference's does; on the card, and for any other failure, it
+        raises."""
         from karpenter_tpu_torch.resident.kernels import update_resident
         from karpenter_tpu_torch.solver.torch_backend import upload
 
@@ -124,14 +128,11 @@ class ResidentBuffer:
         if self.dev is not None and self.dev.device != dev:
             self.invalidate("device")
         reason, idx = plan_update(self, flat, generation)
-        if reason:
-            self.rebuild(flat, dev, generation)
-            delta = WindowDelta(mode="rebuild", words=int(flat.size),
-                                h2d_bytes=int(host.nbytes), reason=reason)
-        elif idx.size == 0:
+        delta = None
+        if not reason and idx.size == 0:
             self.stats["hit"] += 1
             delta = WindowDelta(mode="hit", words=0, h2d_bytes=0)
-        else:
+        elif not reason:
             didx, dval = pad_delta(idx, flat[idx], flat.size)
             try:
                 with device_guard(kernel, devices=[device_id(dev)]):
@@ -142,13 +143,26 @@ class ResidentBuffer:
                         # fetching all of it would measure a transfer
                         # production never makes
                         probe.dispatched(self.dev, fetch=False)
+            except DeviceFaultError as e:
+                # the scatter faulted mid-flight: the device state can
+                # no longer be trusted
+                self.invalidate(f"device_fault:{e.kind}")
+                if dev.type == "cuda":
+                    raise
+                reason = self.pending_reason
             except Exception:
                 self.invalidate("update_error")
                 raise
-            self.mirror[idx] = flat[idx]
-            self.stats["delta"] += 1
-            delta = WindowDelta(mode="delta", words=int(idx.size),
-                                h2d_bytes=int(didx.nbytes + dval.nbytes))
+            else:
+                self.mirror[idx] = flat[idx]
+                self.stats["delta"] += 1
+                delta = WindowDelta(
+                    mode="delta", words=int(idx.size),
+                    h2d_bytes=int(didx.nbytes + dval.nbytes))
+        if delta is None:
+            self.rebuild(flat, dev, generation)
+            delta = WindowDelta(mode="rebuild", words=int(flat.size),
+                                h2d_bytes=int(host.nbytes), reason=reason)
         self._note(kernel, host, delta, generation)
         return self.dev[:-1].view(host.shape), delta
 

@@ -147,5 +147,14 @@ class OutputRing:
                 break
         return slot
 
+    def pending(self) -> list[OutputSlot]:
+        """Unfetched slots oldest-first (the drain path)."""
+        out = []
+        for s in range(self.head, self.tail):
+            slot = self._slots[s % self.capacity]
+            if slot is not None and not slot.done:
+                out.append(slot)
+        return out
+
 
 __all__ = ["RING_SLOTS", "OutputRing", "OutputSlot", "Staging"]

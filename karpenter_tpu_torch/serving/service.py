@@ -27,8 +27,9 @@ Routing, counted in ``stats()``; no window is lost or solved twice:
 Each kick runs inside ``device_guard("serving-kick")`` and each fetch
 inside ``device_guard("serving-fetch")`` (``guard.fetch`` waits for the
 copy the kick started), each in a sampled profiler bracket; the kick is
-noted in ``obs.devtel`` with the reference's signature, every admitted
-window as a resident window and every invalidation as one.  A fetch
+noted in ``obs.devtel`` with the reference's signature (the ring's
+windows and invalidations are not resident-store windows, and are not
+noted as such, as in the reference).  A fetch
 that fails other than with a ``DeviceFaultError`` invalidates the ring
 and raises.
 
@@ -40,14 +41,17 @@ window t + 1 is kicked.  For a service on the CPU a ``DeviceFaultError``
 at the kick or the fetch re-solves the window on the service's host
 route (``solve_window_host``, ``host_failovers``), as the reference's;
 for one on the card it raises (``device.holds_card``: the port moves no
-window off the card).  Not ported:
-``track_generation`` and ``drain`` of the single-window loop, whose
-callers (the chaos harness, shutdown) are not ported either.
+window off the card).  ``ServingLoop.track_generation`` invalidates the
+ring when the catalog's generation moves, and both loops' ``drain``
+fetches every window still in flight (shutdown, the chaos harness).
 """
 
 from __future__ import annotations
 
 from collections import deque
+
+import numpy as np
+import torch
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.device import holds_card
@@ -115,7 +119,17 @@ class ServingLoop:
         self.oracle.reset()
         self.invalidations += 1
         self.last_reason = reason
-        get_devtel().note_resident_invalidation(reason)
+
+    def track_generation(self, catalog) -> None:
+        """A warm ring whose generation stamp no longer matches the
+        catalog dies now, not at the next admit: the ring either serves
+        from current state or holds none at all."""
+        if self.buf.dev is None or self.buf.generation is None:
+            return
+        gen = (catalog.uid, catalog.generation,
+               catalog.availability_generation)
+        if self.buf.generation != gen:
+            self.invalidate("generation")
 
     @property
     def overlap_fraction(self) -> float:
@@ -167,7 +181,10 @@ class ServingLoop:
         if prep.route not in ("ffd", "resident"):
             return self._classic(problem, "classic")
         if self.output.full:
+            # the window falls back to classic dispatch untouched (the
+            # mirror unchanged: the next admitted delta takes its churn)
             self.backpressured += 1
+            metrics.SERVING_BACKPRESSURE.inc()
             return self._classic(problem, "backpressure")
         return self._admit(problem, prep)
 
@@ -181,6 +198,12 @@ class ServingLoop:
                 yield pending.popleft().result()
         while pending:
             yield pending.popleft().result()
+
+    def drain(self) -> dict:
+        """Fetch every kicked output slot (shutdown, the fault ladder).
+        Returns {seq: Plan}."""
+        return {slot.seq: self._finish(slot.seq)
+                for slot in self.output.pending()}
 
     # -- internals -----------------------------------------------------------
 
@@ -224,10 +247,6 @@ class ServingLoop:
                 h2d = int(didx.nbytes + dval.nbytes)
                 self.buf.mirror[idx] = flat[idx]
                 self.buf.stats["delta"] += 1
-            get_devtel().note_resident_window(
-                mode, h2d_bytes=h2d, words=words,
-                reason=reason if mode == "rebuild" else "",
-                resident_bytes=int(flat.nbytes), generation=generation)
             metrics.SERVING_WINDOWS.labels(mode).inc()
             pair = self.staging.upload(didx, dval)
             seq = self.ring_windows
@@ -237,7 +256,7 @@ class ServingLoop:
                 self.oracle.apply(seq, didx, dval)
             self.ring_windows += 1
             self.last_mode = mode
-            return self._kick(problem, prep, mode, h2d, *pair)
+            return self._kick(problem, prep, seq, mode, words, h2d, *pair)
         except DeviceFaultError as e:
             # the state (and anything the ring held) can no longer be
             # trusted: fail the window over to the classic path
@@ -257,8 +276,8 @@ class ServingLoop:
         log.warning(f"serving {phase} faulted; host failover engaged",
                     reason=reason)
 
-    def _kick(self, problem, prep, mode: str, h2d: int, didx,
-              dval) -> ServingPending:
+    def _kick(self, problem, prep, seq: int, mode: str, words: int,
+              h2d: int, didx, dval) -> ServingPending:
         """Run one loop iteration on the uploaded pair and park the result
         in the output ring."""
         from karpenter_tpu_torch.serving.kernels import serve_window
@@ -292,6 +311,8 @@ class ServingLoop:
             t_disp=t0, t_issued=obs.now(), kick_seq=self.kicks))
         self.kicks += 1
         metrics.SERVING_RING_OCCUPANCY.set(float(self.output.occupancy))
+        obs.instant("serving.kick", seq=seq, mode=mode, words=words,
+                    h2d_bytes=h2d)
         return ServingPending(self, oseq)
 
     def _finish(self, seq: int):
@@ -310,12 +331,15 @@ class ServingLoop:
         if self.kicks > slot.kick_seq + 1:
             self.overlapped += 1
         metrics.SERVING_OVERLAP.set(self.overlap_fraction)
+        t0 = obs.now()
         try:
             with device_guard("serving-fetch",
                               devices=self.solver.device_ids) as guard:
                 with get_profiler().sampled("serving-fetch") as probe:
                     probe.dispatched(slot.dev)
-                guard.fetch(slot.host, event=slot.event)
+                # the words the guard hands back are the ones decoded
+                # (an injected corruption lands in them)
+                out_np = guard.fetch(slot.host, event=slot.event)
         except DeviceFaultError as e:
             self._failover(f"device_fault:{e.kind}", "fetch")
             return self.solver.solve_encoded_async(slot.problem).result()
@@ -323,8 +347,11 @@ class ServingLoop:
             self.invalidate("fetch_error")
             raise
         metrics.SERVING_RING_OCCUPANCY.set(float(self.output.occupancy))
+        obs.record("serving.fetch", t0, obs.now(), seq=slot.seq,
+                   mode=slot.mode)
         pend = PendingSolve(
-            self.solver, slot.problem, prep=slot.prep, host=slot.host,
+            self.solver, slot.problem, prep=slot.prep,
+            host=torch.from_numpy(np.ascontiguousarray(out_np)),
             t_disp=slot.t_disp, t_issued=slot.t_issued,
             path=f"serving-{self.solver.device.type}")
         return pend.result()
@@ -401,7 +428,16 @@ class ShardedServingLoop:
         self.kicks += 1
         pend = ShardedServingPending(self, (kick, self.kicks))
         self._inflight.append(pend)
+        metrics.SERVING_WINDOWS.labels(kick.delta.mode).inc()
+        metrics.SERVING_RING_OCCUPANCY.set(float(len(self._inflight)))
         return pend
+
+    def drain(self) -> list:
+        """Fetch every window still in flight (shutdown, end of stream)."""
+        out = []
+        while self._inflight:
+            out.append(self._inflight[0].result())
+        return out
 
     def _finish(self, pend: ShardedServingPending):
         """Fetch one window.  It leaves the ring whether or not the fetch
@@ -416,11 +452,15 @@ class ShardedServingLoop:
             self._failover("fetch")
             # the same routed and encoded window, so ownership and shard
             # membership are identical: no window lost
-            return self.service.solve_window_host(
+            plan = self.service.solve_window_host(
                 kick.catalog, kick.nodepool, window=kick.window)
+            metrics.SERVING_RING_OCCUPANCY.set(float(len(self._inflight)))
+            return plan
         self.fetched += 1
         if self.kicks > kick_seq:
             self.overlapped += 1
+        metrics.SERVING_OVERLAP.set(self.overlap_fraction)
+        metrics.SERVING_RING_OCCUPANCY.set(float(len(self._inflight)))
         return plan
 
     def _failover(self, phase: str) -> None:

@@ -76,8 +76,9 @@ def ring_state_violations(loop, catalog=None) -> list[str]:
         out.append(f"serving host mirror diverged from device state "
                    f"({diff} words differ)")
     if snap["oracle"] is None:
-        out.append("serving oracle replay is cold while the ring is warm: "
-                   "an admitted slot bypassed the replay")
+        # the reference's words: the chaos harness's verdicts carry them
+        out.append("serving oracle replay is cold while the ring is warm "
+                   "— an admitted slot bypassed the replay")
     else:
         d = loop.oracle.diverges(device)
         if d:

@@ -54,6 +54,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.apis.pod import pod_key
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.faulttol import device_guard, device_id
@@ -92,10 +93,11 @@ class ShardKick:
     the CPU)."""
 
     __slots__ = ("window", "delta", "host", "event", "t0", "catalog",
-                 "nodepool")
+                 "nodepool", "pods_count")
 
     def __init__(self, window, delta, host, event, t0, catalog=None,
-                 nodepool=None):
+                 nodepool=None, pods_count=0):
+        self.pods_count = pods_count
         self.window = window
         self.delta = delta
         self.host = host
@@ -139,6 +141,9 @@ class ShardedSolveService:
         self.migrations = 0
         self.last_delta: WindowDelta | None = None
         self.last_decision: RebalanceDecision | None = None
+        # the shard_backlog_pods labels this service has published: a
+        # smaller shard set retires the rows it leaves behind
+        self._backlog_labels: set[str] = set()
 
     # -- catalog -----------------------------------------------------------
 
@@ -331,7 +336,8 @@ class ShardedSolveService:
             self.invalidate("dispatch_error")
             raise
         return ShardKick(window=window, delta=delta, host=host, event=event,
-                         t0=t0, catalog=catalog, nodepool=nodepool)
+                         t0=t0, catalog=catalog, nodepool=nodepool,
+                         pods_count=len(pods))
 
     def _fetch_window(self, kick: ShardKick) -> ShardedPlan:
         """Phase 2: wait for the copy, check and decode every shard, and
@@ -351,11 +357,30 @@ class ShardedSolveService:
             self.last_delta = delta
             self._last_window = window
             self._last_unplaced = [len(p.unplaced_pods) for p in plan.plans]
+        self._publish_backlog(window.shard_pods)
         metrics.SHARDED_SOLVES.labels("device").inc()
         plan.solve_seconds = time.perf_counter() - kick.t0
         metrics.SHARDED_SOLVE_DURATION.labels("device").observe(
             plan.solve_seconds)
+        obs.instant("sharded.window", shards=window.num_shards,
+                    pods=kick.pods_count, mode=delta.mode,
+                    words=delta.words)
         return plan
+
+    def _publish_backlog(self, shard_pods) -> None:
+        """Publish shard_backlog_pods and retire the rows a smaller shard
+        set no longer produces: a stale row would read as a frozen
+        backlog on a dashboard."""
+        current = set()
+        for s, n in enumerate(shard_pods):
+            label = str(s)
+            metrics.SHARD_BACKLOG.labels(label).set(float(n))
+            current.add(label)
+        with self._lock:
+            stale = self._backlog_labels - current
+            self._backlog_labels = current
+        for label in stale:
+            metrics.SHARD_BACKLOG.remove(label)
 
     def _decode(self, window: ShardedWindow, out_np: np.ndarray,
                 delta_words: int = 0) -> ShardedPlan:
@@ -472,6 +497,7 @@ class ShardedSolveService:
         decision = RebalanceDecision(donor=donor, receiver=receiver,
                                      amount=amount, skew=skew,
                                      pressure=mat, tile=tile_np)
+        metrics.SHARD_REBALANCE_SKEW.set(float(skew))
         # the host-sourced telemetry slot: windows recorded after this
         # carry the skew in SLOT_REBALANCE_SKEW
         note_rebalance_skew(skew)
@@ -481,6 +507,11 @@ class ShardedSolveService:
             self.rebalances += 1
             self.migrations += len(decision.moved_keys)
             self.last_decision = decision
+        if decision.moved_keys:
+            metrics.SHARD_MIGRATIONS.inc(len(decision.moved_keys))
+            obs.instant("sharded.rebalance", donor=donor,
+                        receiver=receiver, skew=skew,
+                        moved=len(decision.moved_keys))
         return decision
 
     def _apply_migration(self, pods, decision: RebalanceDecision):

@@ -15,10 +15,12 @@ from __future__ import annotations
 
 import time
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.apis.pod import pod_key
 from karpenter_tpu_torch.sharded.degraded import ResilientShardedService
 from karpenter_tpu_torch.sharded.service import ShardedSolveService
 from karpenter_tpu_torch.solver.types import Plan, SolveRequest, SolverOptions
+from karpenter_tpu_torch.utils import metrics
 
 
 class ShardedSolver:
@@ -39,22 +41,28 @@ class ShardedSolver:
 
     def solve(self, request: SolveRequest) -> Plan:
         t0 = time.perf_counter()
-        # this window is the current pending ground truth: entries that
-        # left it any other way are withdrawn first, then this window's
-        # pods admit, and whatever places below withdraws
-        self.service.sync_backlog(pod_key(p) for p in request.pods)
-        self.service.admit(request.pods)
-        sharded = self.service.solve_window(
-            request.catalog, request.nodepool, request.pods)
-        plan = sharded.merged()
-        placed = {pn for n in plan.nodes for pn in n.pod_names}
-        self.service.withdraw(placed)
-        # the rebalance tick: pods left pending are the shard pressure,
-        # so a hash-hot backlog migrates ownership before the next window
-        if plan.unplaced_pods:
-            unplaced = set(plan.unplaced_pods)
-            self.service.rebalance(
-                [p for p in request.pods if pod_key(p) in unplaced])
+        with obs.span("solve", backend="sharded",
+                      pods=len(request.pods)) as sp:
+            # this window is the current pending ground truth: entries
+            # that left it any other way are withdrawn first, then this
+            # window's pods admit, and whatever places below withdraws
+            self.service.sync_backlog(pod_key(p) for p in request.pods)
+            self.service.admit(request.pods)
+            sharded = self.service.solve_window(
+                request.catalog, request.nodepool, request.pods)
+            plan = sharded.merged()
+            placed = {pn for n in plan.nodes for pn in n.pod_names}
+            self.service.withdraw(placed)
+            sp.set("nodes", len(plan.nodes))
+            sp.set("shards", sharded.num_shards)
+            # the rebalance tick: pods left pending are the shard
+            # pressure, so a hash-hot backlog migrates ownership before
+            # the next window
+            if plan.unplaced_pods:
+                unplaced = set(plan.unplaced_pods)
+                decision = self.service.rebalance(
+                    [p for p in request.pods if pod_key(p) in unplaced])
+                sp.set("rebalance_moved", len(decision.moved_keys))
         plan.solve_seconds = time.perf_counter() - t0
         on_device = sharded.backend == "sharded"
         delta = self.service.last_delta if on_device else None
@@ -63,6 +71,9 @@ class ShardedSolver:
                            "shard_pods": list(sharded.shard_pods),
                            "resident_mode": delta.mode if delta else "",
                            "delta_words": delta.words if delta else 0}
+        metrics.SOLVE_DURATION.labels("sharded").observe(plan.solve_seconds)
+        metrics.SOLVE_PODS.labels("sharded").observe(len(request.pods))
+        metrics.SOLVE_COST.labels("sharded").set(plan.total_cost_per_hour)
         return plan
 
     def stats(self) -> dict:

@@ -15,6 +15,9 @@ service's own arithmetic.
 - :func:`rebalance_violations` — the applied decision re-derives from its
   pressure matrix through the numpy oracle, its tile rows are identical,
   and the moved groups are owned by the receiver.
+
+Every message is the reference's, word for word: the chaos harness's
+``shards-converge`` verdicts carry them.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def partition_violations(service, pods) -> list[str]:
                        f"shard {dst}")
         if stable_shard(key, router.num_shards) == dst:
             out.append(f"override for {key[:40]}... is a no-op (home "
-                       f"shard): the map must stay minimal")
+                       f"shard) — the map must stay minimal")
     return out
 
 
@@ -120,7 +123,8 @@ def component_violations(service, pods) -> list[str]:
         prev = comp_shard.setdefault(find(i), (s, k))
         if prev[0] != s:
             out.append(f"affinity component split: {prev[1][:40]}... on "
-                       f"shard {prev[0]}, {k[:40]}... on shard {s}")
+                       f"shard {prev[0]}, {k[:40]}... on shard {s} — "
+                       f"inter-group edges are invisible to both solves")
     return out
 
 
@@ -149,12 +153,13 @@ def state_violations(service, pods, catalog) -> list[str]:
                 f"{fresh.shape}"]
     out: list[str] = []
     for name, got in (("host mirror", mirror),
-                      ("device state", snap["device"])):
+                      ("device tensors", snap["device"])):
         for s in range(fresh.shape[0]):
             diff = int(np.count_nonzero(got[s] != fresh[s]))
             if diff:
                 out.append(f"shard {s} {name} diverged from a fresh "
-                           f"rebuild ({diff} words differ)")
+                           f"ClusterState rebuild ({diff} words "
+                           f"differ)")
     return out
 
 
@@ -166,17 +171,19 @@ def rebalance_violations(service, decision) -> list[str]:
     if decision is None:
         return []
     out: list[str] = []
-    want = rebalance_oracle(decision.pressure)
-    got = (decision.donor, decision.receiver, decision.amount,
-           decision.skew)
-    if want != got:
-        out.append(f"rebalance decision {got} != host re-derivation "
-                   f"{want}")
+    donor, receiver, amount, skew = rebalance_oracle(decision.pressure)
+    if (donor, receiver, amount, skew) != (decision.donor,
+                                           decision.receiver,
+                                           decision.amount, decision.skew):
+        out.append(f"rebalance decision ({decision.donor}, "
+                   f"{decision.receiver}, {decision.amount}, "
+                   f"{decision.skew}) != host re-derivation "
+                   f"({donor}, {receiver}, {amount}, {skew})")
     if decision.tile.size:
         rows = decision.tile[:, :4]
         if not (rows == rows[0]).all():
-            out.append("rebalance decision tile differs across shards: "
-                       "every row must carry the one decision")
+            out.append("rebalance decision tile differs across shards — "
+                       "the collective must replicate one decision")
     for key in decision.moved_keys:
         owner = service.router.shard_of_key(key)
         if owner != decision.receiver:

@@ -142,13 +142,14 @@ class ResilientSolver:
         return getattr(self.primary, name)
 
     def solve(self, request: SolveRequest) -> Plan:
-        card = holds_card(self.primary)
         store = getattr(self.primary, "resident", None)
         seen = getattr(store, "invalidations", None)
         try:
             plan = self.primary.solve(request)
         except Exception as e:  # noqa: BLE001 — degrade, never fail the cycle
-            if card:
+            # read after the solve: a remote primary learns its sidecar's
+            # device from the sidecar's first reply
+            if holds_card(self.primary):
                 log.error("solver backend failed on the card",
                           backend=self.options.backend, error=str(e)[:200])
                 raise
@@ -157,7 +158,7 @@ class ResilientSolver:
             return self._degrade(request, "backend_failure", store, seen)
         defects = plan_defects(plan, request)
         if defects:
-            if card:
+            if holds_card(self.primary):
                 log.error("solver produced invalid plan on the card",
                           backend=plan.backend, defects=defects[:3])
                 self._invalidate(store, seen, "invalid_plan")

@@ -907,6 +907,10 @@ def _encode_impl(pods: Sequence[PodSpec], catalog: CatalogArrays,
             group_var = np.ascontiguousarray(group_var[order])
         if aff_index is not None:
             aff_index = aff_index.permute(order)
+            from karpenter_tpu_torch.utils import metrics as _metrics
+            _metrics.AFFINITY_EDGES.set(aff_index.edge_count)
+            _vals, _sizes = np.unique(aff_index.comp, return_counts=True)
+            _metrics.AFFINITY_COMPONENTS.set(int((_sizes > 1).sum()))
 
     label_rows = (np.stack(rows) if rows
                   else np.zeros((0, O), dtype=bool))

@@ -424,10 +424,12 @@ class FlatAttempt:
     __slots__ = ("catalog", "item_req", "item_gid", "item_live", "rows",
                  "item_row", "miss_rows", "G_pad", "O_pad", "I_pad",
                  "U_pad", "N", "N_cap", "K", "slim", "dev_inputs",
-                 "host", "event", "info", "t_disp", "t_issued", "tmpl")
+                 "host", "event", "info", "t_disp", "t_issued", "tmpl",
+                 "lam_bp")
 
     def __init__(self, **kw):
         self.tmpl = None
+        self.lam_bp = None       # None: the solver options' lambda
         self.dev_inputs = None
         self.host = self.event = self.info = None
         self.t_disp = self.t_issued = 0.0
@@ -524,13 +526,18 @@ def flat_template(solver, problem: EncodedProblem):
     return tmpl
 
 
-def dispatch_flat(solver, problem: EncodedProblem) -> FlatAttempt | None:
+def dispatch_flat(solver, problem: EncodedProblem,
+                  pref_lambda: float | None = None) -> FlatAttempt | None:
     """Run the flat program and start the result copy; None when the
-    window turns out unsuitable (the caller takes the scan path)."""
+    window turns out unsuitable (the caller takes the scan path).
+    ``pref_lambda`` overrides the solver options' penalty weight (the
+    sidecar's wire flag wins over the server's defaults)."""
     tmpl = flat_template(solver, problem)
     if tmpl is None:
         return None
     a = tmpl.clone()
+    if pref_lambda is not None:
+        a.lam_bp = int(pref_lambda * 10000)
     _dispatch_attempt(solver, a)
     return a
 
@@ -556,7 +563,8 @@ def _dispatch_attempt(solver, a: FlatAttempt) -> None:
     tmpl = a.tmpl if a.tmpl is not None else a
     off_alloc, off_price, off_rank = solver.device_offerings(a.catalog,
                                                              a.O_pad)
-    lam_bp = int(solver.options.preference_lambda * 10000)
+    lam_bp = a.lam_bp if a.lam_bp is not None else \
+        int(solver.options.preference_lambda * 10000)
     a.t_disp = time.perf_counter()
     item_req, item_gid, item_live, rows, item_row, miss_rows = \
         _device_inputs(solver, tmpl)
@@ -629,6 +637,43 @@ def finalize_flat(solver, problem: EncodedProblem, a: FlatAttempt) -> Plan:
         "torch")
     solver.last_stats["decode_s"] = time.perf_counter() - t_dec
     return plan
+
+
+def flat_compute_handle(solver, problem: EncodedProblem):
+    """A device-only probe of the flat program: a callable ``run(k=1)``
+    that re-runs the window ``k`` times back to back on inputs already on
+    the device (no upload, no result copy) and returns once the last
+    result is ready (``torch.cuda.synchronize`` on the card); the flat
+    mirror of ``TorchSolver.compute_handle``.  None when the window is
+    not a flat window.  The callable is run once before it is
+    returned."""
+    if not flat_viable(problem, solver.options):
+        return None
+    tmpl = flat_template(solver, problem)
+    if tmpl is None:
+        return None
+    off_alloc, off_price, off_rank = solver.device_offerings(
+        problem.catalog, tmpl.O_pad)
+    item_req, item_gid, item_live, rows, item_row, miss_rows = \
+        _device_inputs(solver, tmpl)
+    lam_bp = int(solver.options.preference_lambda * 10000)
+    dev = solver.device
+
+    def fn():
+        return flat_solve_torch(
+            item_req, item_gid, item_live, rows, item_row, off_alloc,
+            off_rank, miss_rows, off_price, I=tmpl.I_pad, O=tmpl.O_pad,
+            G=tmpl.G_pad, N=tmpl.N, K=tmpl.K, U=tmpl.U_pad, lam_bp=lam_bp,
+            slim=tmpl.slim)[0]
+
+    def run(k: int = 1):
+        outs = [fn() for _ in range(k)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return outs[-1]
+
+    run()
+    return run
 
 
 def solve_flat(solver, problem: EncodedProblem) -> Plan | None:

@@ -313,16 +313,19 @@ class _Prepared:
     solver keeps a resident store; set on every clone, never on the
     template a problem shares between solvers) pick the route
     (:attr:`route`); ``sto_grid`` keeps the stochastic fit grids of a
-    device."""
+    device.  ``right_size`` / ``pref_lambda`` override the solver's
+    options for this window (the sidecar's wire flags; None = the
+    options')."""
 
     __slots__ = ("catalog", "G_pad", "O_pad", "U_pad", "N", "N_cap", "K0",
                  "K_cap", "K", "dense16_ok", "dense16", "coo16", "packed",
                  "sto", "z_bp", "sto_grid", "aff", "pref_rows", "pref_idx",
-                 "resident", "tmpl")
+                 "resident", "tmpl", "right_size", "pref_lambda")
 
     def __init__(self, *, catalog, G_pad, O_pad, U_pad, N, N_cap, K0,
                  K_cap, packed, dense16_ok, sto=None, z_bp=0, aff=None,
-                 pref_rows=None, pref_idx=None):
+                 pref_rows=None, pref_idx=None, right_size=None,
+                 pref_lambda=None):
         self.catalog = catalog
         self.G_pad = G_pad
         self.O_pad = O_pad
@@ -343,6 +346,8 @@ class _Prepared:
         self.pref_idx = pref_idx
         self.resident = False
         self.tmpl = None
+        self.right_size = right_size
+        self.pref_lambda = pref_lambda
 
     @property
     def route(self) -> str:
@@ -426,8 +431,17 @@ class TorchSolver:
         )
 
         t0 = time.perf_counter()
-        plan = solve_with_zone_candidates(self, request)
+        with obs.span("solve", backend="torch",
+                      pods=len(request.pods)) as sp:
+            # handles the zone_candidates gate internally (a single solve
+            # when off or with no affinity groups)
+            plan = solve_with_zone_candidates(self, request)
+            sp.set("nodes", len(plan.nodes))
+            sp.set("path", self.last_stats.get("path", ""))
         plan.solve_seconds = time.perf_counter() - t0
+        metrics.SOLVE_DURATION.labels("torch").observe(plan.solve_seconds)
+        metrics.SOLVE_PODS.labels("torch").observe(len(request.pods))
+        metrics.SOLVE_COST.labels("torch").set(plan.total_cost_per_hour)
         return plan
 
     def solve_encoded(self, problem: EncodedProblem) -> Plan:
@@ -576,6 +590,166 @@ class TorchSolver:
             mid = (C + 1) // 2
             return (self.solve_encoded_batch(problems[:mid])
                     + self.solve_encoded_batch(problems[mid:]))
+
+    def prepare_arrays(self, catalog, group_req, group_count, group_cap,
+                       compat, num_nodes: int, n_cap: int,
+                       right_size=None, pref_rows=None, pref_idx=None,
+                       pref_lambda=None) -> _Prepared:
+        """A ``_Prepared`` from already-padded arrays (the sidecar's wire
+        format) against any catalog-like object with ``uid`` /
+        ``generation`` / ``availability_generation`` / ``num_offerings``
+        / ``offering_alloc()`` / ``off_price`` / ``offering_rank_price()``.
+        The raw compat is factored into deduped label rows here (the
+        device recomputes fit on top, idempotently: ``dedup_rows``)."""
+        G_pad, O_pad = compat.shape
+        total_pods = int(group_count.sum())
+        label_idx, rows = dedup_rows(compat)
+        U_pad = bucket(max(rows.shape[0], 1), LABELROW_BUCKETS)
+        packed = pack_input(group_req, group_count, group_cap, label_idx,
+                            _pad2(rows, U_pad, O_pad))
+        max_slots = int(catalog.offering_alloc()[:, 3].max()) \
+            if catalog.num_offerings else 1
+        K0, K_cap = self._compact_k(total_pods, G_pad)
+        if pref_rows is not None:
+            idx = np.full(G_pad, -1, np.int32)   # padding groups: no pref
+            if pref_idx is not None:
+                src = np.asarray(pref_idx, np.int32)
+                idx[:src.shape[0]] = src
+            pref_rows, pref_idx = pad_preferences(
+                np.asarray(pref_rows, np.float32), idx, G_pad, O_pad)
+        return _Prepared(catalog=catalog, G_pad=G_pad, O_pad=O_pad,
+                         U_pad=U_pad, N=num_nodes, N_cap=n_cap, K0=K0,
+                         K_cap=K_cap, packed=packed,
+                         dense16_ok=max_slots < (1 << 15),
+                         right_size=right_size, pref_rows=pref_rows,
+                         pref_idx=pref_idx, pref_lambda=pref_lambda)
+
+    def _solve_prepared(self, prep: _Prepared):
+        """Dispatch a prepared window and run the shared fetch, COO growth
+        and node escalation loop (:meth:`_fetch_prepared`) on it:
+        (node_off [N], assign [G, N], unplaced [G], cost).  The sidecar's
+        entry: it receives padded arrays and has no problem to decode
+        against."""
+        par = obs.current_span()
+        t0 = obs.now()
+        prep.resident = self.resident is not None
+        host, event = self._dispatch(prep)
+        t_iss = obs.now()
+        _phase("h2d", t0, t_iss, parent=par, path=ROUTE_KERNEL[prep.route])
+        out_np, t_dec = self._fetch_prepared(prep, host, event, t_disp=t0,
+                                             t_issued=t_iss, span=par)
+        res = unpack_result(out_np, prep.G_pad, prep.N, prep.K, prep.dense16,
+                            prep.coo16)
+        _phase("d2h", t_dec, obs.now(), parent=par, bytes=int(out_np.nbytes))
+        return res
+
+    def _fetch_prepared(self, prep: _Prepared, host, event, *,
+                        t_disp: float, t_issued: float, span=None,
+                        path: str | None = None, prepare_s: float = 0.0):
+        """The one fetch loop of a single window: wait for the result
+        copy, re-dispatch on COO overflow or node escalation (both rare),
+        account the fetch, record the telemetry block and set
+        ``last_stats``.  Returns (the packed result, the time its decode
+        may start).  ``path`` names a window that did not come from a
+        dispatch (a serving kick).  Nothing falls back: a program that
+        fails raises."""
+        kernel = "serving" if path else ROUTE_KERNEL[prep.route]
+        # the telemetry plane is the path of the dispatch that gave the
+        # result, as the reference's: a serving kick until a re-dispatch
+        plane = kernel
+        escalations = coo_growths = 0
+        while True:
+            # the fetch stays outside the guard, as the reference's
+            # np.asarray fetch (jax_backend.py:1396-1402)
+            if event is not None:
+                event.synchronize()
+            out_np = host.numpy()
+            t_fetch = obs.now()
+            _phase("compute", t_issued, t_fetch, parent=span, path=kernel)
+            G, N, K = prep.G_pad, prep.N, prep.K
+            if coo_buffer_full(out_np, G, N, K, prep.coo16) \
+                    and prep.K0 < prep.K_cap:
+                prep.grow_K0(grow_coo(prep.K0, prep.K_cap))
+                self._note_coo_growth(G, prep.K0)
+                coo_growths += 1
+                t_disp = obs.now()
+                host, event = self._dispatch(prep)
+                plane = ROUTE_KERNEL[prep.route]
+                t_issued = obs.now()
+                _phase("h2d", t_disp, t_issued, parent=span, path=kernel,
+                       retry="coo_growth")
+                continue
+            node_off = out_np[:N]
+            unplaced = out_np[N:N + G]
+            note_fetched(kernel, out_np, 1, G)
+            if needs_node_escalation(node_off, unplaced, N, prep.N_cap):
+                prep.escalate_N(bucket(prep.N * 4, NODE_BUCKETS))
+                escalations += 1
+                t_disp = obs.now()
+                host, event = self._dispatch(prep)
+                plane = ROUTE_KERNEL[prep.route]
+                t_issued = obs.now()
+                _phase("h2d", t_disp, t_issued, parent=span, path=kernel,
+                       retry="node_escalation")
+                continue
+            t_dec = obs.now()
+            telemetry = decode_and_record(
+                out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
+                plane=plane, escalations=escalations,
+                coo_growths=coo_growths)
+            self.last_stats = {
+                "path": path or self.route_path(prep.route),
+                "device": str(self.device),
+                "prepare_s": prepare_s, "wall_s": t_fetch - t_disp,
+                "dispatch_s": t_issued - t_disp,
+                "exec_fetch_s": t_fetch - t_issued,
+                "d2h_bytes": int(out_np.nbytes),
+                "h2d_bytes": int(prep.packed.nbytes),
+                "compact": bool(K), "G": G, "O": prep.O_pad, "N": N, "K": K,
+                "escalations": escalations, "coo_growths": coo_growths,
+                "telemetry": telemetry}
+            if prep.route == "resident":
+                delta = self.resident.last_delta
+                self.last_stats.update(h2d_bytes=delta.h2d_bytes,
+                                       resident_mode=delta.mode,
+                                       delta_words=delta.words)
+            return out_np, t_dec
+
+    def compute_handle(self, problem: EncodedProblem):
+        """A device-only probe of one window: returns a callable ``run(k=1)``
+        that re-runs the window's device program ``k`` times back to back
+        and returns once the last result is ready
+        (``torch.cuda.synchronize`` on the card).  The FFD route runs on
+        the packed buffer already on the device (no upload, no result
+        copy); another route keeps its routed dispatch, as the reference
+        keeps it for preference windows.  The resident route is bypassed.
+        The callable is run once before it is returned."""
+        prep = self._prepare(problem)
+        prep.resident = False
+        prep.K, prep.dense16, prep.coo16 = clamp_output_opts(
+            prep.K0, prep.dense16_ok, prep.G_pad, prep.N)
+        catalog_t = self.device_offerings(prep.catalog, prep.O_pad)
+        route = prep.route
+        if route == "ffd":
+            packed = upload(prep.packed, self.device)
+            kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
+                      right_size=self._right_size(prep), compact=prep.K,
+                      dense16=prep.dense16, coo16=prep.coo16)
+
+            def fn():
+                return solve_packed_torch(packed, *catalog_t, **kw)
+        else:
+            def fn():
+                return self._dispatch_route(prep, route, catalog_t)
+
+        def run(k: int = 1):
+            outs = [fn() for _ in range(k)]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return outs[-1]
+
+        run()
+        return run
 
     # -- internals ---------------------------------------------------------
 
@@ -750,7 +924,7 @@ class TorchSolver:
         ``DeviceFaultError`` invalidates the store too, and propagates."""
         try:
             return self.resident.dispatch_solve(
-                prep, prep.packed, catalog_t, self.options.right_size)
+                prep, prep.packed, catalog_t, self._right_size(prep))
         except DeviceFaultError:
             self.resident.invalidate("dispatch_error")
             raise
@@ -766,7 +940,7 @@ class TorchSolver:
     def _dispatch_route(self, prep: _Prepared, route: str, catalog_t):
         """One guarded dispatch of ``route``'s device program."""
         off_alloc, off_price, off_rank = catalog_t
-        rs = self.options.right_size
+        rs = self._right_size(prep)
         kw = dict(G=prep.G_pad, O=prep.O_pad, U=prep.U_pad, N=prep.N,
                   right_size=rs, compact=prep.K, dense16=prep.dense16,
                   coo16=prep.coo16)
@@ -787,8 +961,7 @@ class TorchSolver:
                         packed, upload(prep.pref_rows, self.device),
                         upload(prep.pref_idx, self.device), off_alloc,
                         off_price, off_rank, P=prep.pref_rows.shape[0],
-                        lam_bp=int(self.options.preference_lambda * 10000),
-                        **kw)
+                        lam_bp=self._lam_bp(prep), **kw)
                 elif route == "stochastic":
                     out = solve_packed_stochastic(
                         packed, sto, kd, kc, off_alloc, off_price, off_rank,
@@ -805,6 +978,15 @@ class TorchSolver:
             metrics.OVERCOMMIT_SOLVES.labels("stochastic").inc()
             metrics.OVERCOMMIT_Z.set(prep.z_bp / 10000.0)
         return out
+
+    def _right_size(self, prep: _Prepared) -> bool:
+        return self.options.right_size if prep.right_size is None \
+            else prep.right_size
+
+    def _lam_bp(self, prep: _Prepared) -> int:
+        lam = self.options.preference_lambda if prep.pref_lambda is None \
+            else prep.pref_lambda
+        return int(lam * 10000)
 
     def _fit_grids(self, prep: _Prepared, sto: torch.Tensor, off_alloc):
         """The stochastic fit grids (kd, kc) of the window on this
@@ -857,9 +1039,10 @@ class TorchSolver:
 
 
 class PendingSolve:
-    """One in-flight window.  ``result()`` waits for the result copy,
-    re-dispatches on COO overflow or node escalation (both rare), and
-    decodes; a flat window (``flat``) finishes through
+    """One in-flight window.  ``result()`` runs the solver's one fetch
+    loop (:meth:`TorchSolver._fetch_prepared`: the wait for the result
+    copy, the re-dispatch on COO overflow or node escalation, both rare)
+    and decodes; a flat window (``flat``) finishes through
     ``solver/flat.finalize_flat``.  The fetch falls back nowhere (the
     route strips sit at the dispatch, :meth:`TorchSolver.dispatch_packed`):
     a program that fails here raises."""
@@ -896,75 +1079,17 @@ class PendingSolve:
                                        self._flat)
             return self._done
         solver, prep = self._solver, self._prep
-        host, event = self._host, self._event
-        t_disp, t_issued = self._t_disp, self._t_issued
-        par = self._span
-        kernel = "serving" if self._path else ROUTE_KERNEL[prep.route]
-        # the telemetry plane is the path of the dispatch that gave the
-        # result, as the reference's: a serving kick until a re-dispatch
-        plane = kernel
-        escalations = coo_growths = 0
-        while True:
-            # the fetch stays outside the guard, as the reference's
-            # np.asarray fetch (jax_backend.py:1396-1402)
-            if event is not None:
-                event.synchronize()
-            out_np = host.numpy()
-            t_fetch = obs.now()
-            _phase("compute", t_issued, t_fetch, parent=par, path=kernel)
-            G, N, K = prep.G_pad, prep.N, prep.K
-            if coo_buffer_full(out_np, G, N, K, prep.coo16) \
-                    and prep.K0 < prep.K_cap:
-                prep.grow_K0(grow_coo(prep.K0, prep.K_cap))
-                solver._note_coo_growth(G, prep.K0)
-                coo_growths += 1
-                t_disp = obs.now()
-                host, event = solver._dispatch(prep)
-                plane = ROUTE_KERNEL[prep.route]
-                t_issued = obs.now()
-                _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
-                       retry="coo_growth")
-                continue
-            node_off = out_np[:N]
-            unplaced = out_np[N:N + G]
-            note_fetched(kernel, out_np, 1, G)
-            if needs_node_escalation(node_off, unplaced, N, prep.N_cap):
-                prep.escalate_N(bucket(prep.N * 4, NODE_BUCKETS))
-                escalations += 1
-                t_disp = obs.now()
-                host, event = solver._dispatch(prep)
-                plane = ROUTE_KERNEL[prep.route]
-                t_issued = obs.now()
-                _phase("h2d", t_disp, t_issued, parent=par, path=kernel,
-                       retry="node_escalation")
-                continue
-            t_dec = obs.now()
-            telemetry = decode_and_record(
-                out_np, G, N, K, dense16=prep.dense16, coo16=prep.coo16,
-                plane=plane, escalations=escalations,
-                coo_growths=coo_growths)
-            self._done = solver._decode(self._problem, out_np, G, N, K,
-                                        prep.dense16, prep.coo16)
-            t_end = obs.now()
-            _phase("d2h", t_dec, t_end, parent=par, bytes=int(out_np.nbytes))
-            solver.last_stats = {
-                "path": self._path or solver.route_path(prep.route),
-                "device": str(solver.device),
-                "prepare_s": self._prepare_s, "wall_s": t_fetch - t_disp,
-                "dispatch_s": t_issued - t_disp,
-                "exec_fetch_s": t_fetch - t_issued,
-                "decode_s": t_end - t_dec,
-                "d2h_bytes": int(out_np.nbytes),
-                "h2d_bytes": int(prep.packed.nbytes),
-                "compact": bool(K), "G": G, "O": prep.O_pad, "N": N, "K": K,
-                "escalations": escalations, "coo_growths": coo_growths,
-                "telemetry": telemetry}
-            if prep.route == "resident":
-                delta = solver.resident.last_delta
-                solver.last_stats.update(h2d_bytes=delta.h2d_bytes,
-                                         resident_mode=delta.mode,
-                                         delta_words=delta.words)
-            return self._done
+        out_np, t_dec = solver._fetch_prepared(
+            prep, self._host, self._event, t_disp=self._t_disp,
+            t_issued=self._t_issued, span=self._span, path=self._path,
+            prepare_s=self._prepare_s)
+        self._done = solver._decode(self._problem, out_np, prep.G_pad,
+                                    prep.N, prep.K, prep.dense16, prep.coo16)
+        t_end = obs.now()
+        _phase("d2h", t_dec, t_end, parent=self._span,
+               bytes=int(out_np.nbytes))
+        solver.last_stats["decode_s"] = t_end - t_dec
+        return self._done
 
 
 class BatchPendingSolve:

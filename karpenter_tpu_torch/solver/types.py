@@ -25,6 +25,7 @@ class SolverOptions:
 
     backend: str = "torch"          # "greedy" (the host oracle,
                                     # solver/greedy.py) | "torch" (the card)
+                                    # | "remote" (a sidecar: service.py)
     max_nodes: int = 4096           # static bound on nodes per solve
     right_size: bool = True         # post-pass: re-pick cheapest fitting offering
     bucket_groups: bool = True      # pad G/O/N to bucket ladders
@@ -50,6 +51,8 @@ class SolverOptions:
                                     # the python loop
     sharded: int = 0                # shard count forced on the sharded
                                     # service (0: KARPENTER_ENABLE_SHARDED)
+    address: str = ""               # backend "remote": the solver
+                                    # sidecar's gRPC address (host:port)
 
 
 @dataclass

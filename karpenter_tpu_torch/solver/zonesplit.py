@@ -23,6 +23,9 @@ from karpenter_tpu_torch.solver.encode import (
     viable_zones,
 )
 from karpenter_tpu_torch.solver.types import Plan, SolveRequest
+from karpenter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("solver.zonesplit")
 
 
 def affinity_candidates(problem: EncodedProblem
@@ -157,4 +160,11 @@ def solve_with_zone_candidates(backend, request: SolveRequest) -> Plan:
         gi, zone = cand_keys[best_i]
         base = _with_zone(base, gi, zone)
         del open_groups[gi]   # the winning group's pin is fixed
+        log.info("zone-affinity candidate won", zone=zone,
+                 cost=round(plan.total_cost_per_hour, 4),
+                 unplaced=len(plan.unplaced_pods))
+    if open_groups and budget <= 0:
+        log.warning("zone-candidate budget exhausted; remaining affinity "
+                    "groups keep the capacity-heuristic pin",
+                    remaining=len(open_groups))
     return plan

@@ -18,9 +18,9 @@ packed result into a :class:`ScenarioOutcome`:
   backlog at the scenario's placement rate, in virtual seconds
   (``WHATIF_RETRY_S`` per window, a heuristic, not a measurement).
 
-``plan_host`` is the same decode over the numpy oracle.  The device
-telemetry, span and profiler hooks of the reference wait for ROADMAP
-queue 1 item 9; a failed stacked solve raises.
+``plan_host`` is the same decode over the numpy oracle.  Each plan runs
+in a ``whatif.plan`` span, as the reference's; a failed stacked solve
+raises.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.device import resolve_device
 from karpenter_tpu_torch.faulttol import device_guard, device_id
 from karpenter_tpu_torch.obs.devtel import get_devtel
@@ -245,44 +246,48 @@ class WhatIfPlanner:
         from karpenter_tpu_torch.whatif.kernels import solve_scenarios
 
         t0 = time.perf_counter()
-        stacked = lower_scenarios(baseline, scenarios)
-        N = _estimate_nodes_for(baseline, stacked)
-        K_coo, dense16, coo16 = self._output_opts(baseline, stacked, N)
-        ct = self._catalog_tensors(baseline.catalog, baseline.O_pad)
-        base = torch.from_numpy(baseline.packed).to(self.device)
-        K = stacked.K
-        outs: list[np.ndarray] = []
-        dispatches = 0
-        ids = [device_id(self.device)]
-        for lo in range(0, K, self.max_k):
-            hi = min(lo + self.max_k, K)
-            get_devtel().note_dispatch(
-                "whatif",
-                (hi - lo, stacked.D, baseline.G_pad, baseline.O_pad,
-                 baseline.U_pad, N, K_coo, coo16, self.right_size),
-                h2d_bytes=int(baseline.packed.nbytes
-                              + stacked.didx[lo:hi].nbytes
-                              + stacked.dval[lo:hi].nbytes),
-                donated=True)
-            with device_guard("whatif", devices=ids) as guard:
-                with get_profiler().sampled("whatif") as probe:
-                    didx = torch.from_numpy(stacked.didx[lo:hi]).to(
-                        self.device)
-                    dval = torch.from_numpy(stacked.dval[lo:hi]).to(
-                        self.device)
-                    out = solve_scenarios(
-                        base, didx, dval, *ct, G=baseline.G_pad,
-                        O=baseline.O_pad, U=baseline.U_pad, N=N,
-                        right_size=self.right_size, compact=K_coo,
-                        dense16=dense16, coo16=coo16)
-                    probe.dispatched(out)
-                out_np = guard.fetch(out)
-            get_devtel().note_d2h(int(out_np.nbytes))
-            outs.append(out_np)
-            dispatches += 1
-        raw = np.concatenate(outs) if len(outs) > 1 else outs[0]
-        plan = self._decode(baseline, stacked, raw, N, K_coo, coo16,
-                            backend="device", dispatches=dispatches)
+        with obs.span("whatif.plan", backend="device",
+                      scenarios=len(scenarios)) as sp:
+            stacked = lower_scenarios(baseline, scenarios)
+            N = _estimate_nodes_for(baseline, stacked)
+            K_coo, dense16, coo16 = self._output_opts(baseline, stacked, N)
+            ct = self._catalog_tensors(baseline.catalog, baseline.O_pad)
+            base = torch.from_numpy(baseline.packed).to(self.device)
+            K = stacked.K
+            outs: list[np.ndarray] = []
+            dispatches = 0
+            ids = [device_id(self.device)]
+            for lo in range(0, K, self.max_k):
+                hi = min(lo + self.max_k, K)
+                get_devtel().note_dispatch(
+                    "whatif",
+                    (hi - lo, stacked.D, baseline.G_pad, baseline.O_pad,
+                     baseline.U_pad, N, K_coo, coo16, self.right_size),
+                    h2d_bytes=int(baseline.packed.nbytes
+                                  + stacked.didx[lo:hi].nbytes
+                                  + stacked.dval[lo:hi].nbytes),
+                    donated=True)
+                with device_guard("whatif", devices=ids) as guard:
+                    with get_profiler().sampled("whatif") as probe:
+                        didx = torch.from_numpy(stacked.didx[lo:hi]).to(
+                            self.device)
+                        dval = torch.from_numpy(stacked.dval[lo:hi]).to(
+                            self.device)
+                        out = solve_scenarios(
+                            base, didx, dval, *ct, G=baseline.G_pad,
+                            O=baseline.O_pad, U=baseline.U_pad, N=N,
+                            right_size=self.right_size, compact=K_coo,
+                            dense16=dense16, coo16=coo16)
+                        probe.dispatched(out)
+                    out_np = guard.fetch(out)
+                get_devtel().note_d2h(int(out_np.nbytes))
+                outs.append(out_np)
+                dispatches += 1
+            raw = np.concatenate(outs) if len(outs) > 1 else outs[0]
+            plan = self._decode(baseline, stacked, raw, N, K_coo, coo16,
+                                backend="device", dispatches=dispatches)
+            sp.set("dispatches", dispatches)
+            sp.set("delta_rung", stacked.D)
         plan.plan_seconds = time.perf_counter() - t0
         self.plans += 1
         if dispatches > 1:
@@ -296,15 +301,17 @@ class WhatIfPlanner:
         from karpenter_tpu_torch.whatif.oracle import solve_scenarios_np
 
         t0 = time.perf_counter()
-        stacked = lower_scenarios(baseline, scenarios)
-        N = _estimate_nodes_for(baseline, stacked)
-        K_coo, dense16, coo16 = self._output_opts(baseline, stacked, N)
-        raw = solve_scenarios_np(baseline, stacked, N=N,
-                                 right_size=self.right_size,
-                                 compact=K_coo, dense16=dense16,
-                                 coo16=coo16)
-        plan = self._decode(baseline, stacked, raw, N, K_coo, coo16,
-                            backend="host", dispatches=0)
+        with obs.span("whatif.plan", backend="host",
+                      scenarios=len(scenarios)):
+            stacked = lower_scenarios(baseline, scenarios)
+            N = _estimate_nodes_for(baseline, stacked)
+            K_coo, dense16, coo16 = self._output_opts(baseline, stacked, N)
+            raw = solve_scenarios_np(baseline, stacked, N=N,
+                                     right_size=self.right_size,
+                                     compact=K_coo, dense16=dense16,
+                                     coo16=coo16)
+            plan = self._decode(baseline, stacked, raw, N, K_coo, coo16,
+                                backend="host", dispatches=0)
         plan.plan_seconds = time.perf_counter() - t0
         self.plans += 1
         return plan

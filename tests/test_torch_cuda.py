@@ -1068,3 +1068,66 @@ def test_consolidation_and_repack_on_card_match_cpu(cuda_device, monkeypatch):
         card = run(cuda_device, resident)
         assert card[:3] == cpu[:3]
         assert card[3] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["headline", "pref", "flat"])
+def test_sidecar_handlers_on_card_reply_the_cpu_words(cuda_device, kind):
+    """The sidecar's byte handlers on the card, behind its gRPC server on
+    127.0.0.1: each reply's arrays equal the CPU handlers' on the same
+    request bytes, and the plan equals ``TorchSolver``'s on the card."""
+    from karpenter_tpu_torch.service import (
+        RemoteSolver, SolverHandlers, SolverServer, _unpack,
+    )
+    from karpenter_tpu_torch.solver.types import SolverOptions
+
+    if kind == "flat":
+        pods, catalog = workload.build_hetero_workload(600, 30, seed=7)
+        opts = SolverOptions(flat_min_groups=64)
+    else:
+        pods, catalog = workload.build_workload(1500, 60, seed=42)
+        opts = SolverOptions()
+        if kind == "pref":
+            pods = workload.with_preferences(pods)
+    card = SolverServer(options=opts, device=cuda_device).start()
+    cpu = SolverHandlers(opts, device="cpu")
+    calls = []
+
+    def logged(name, fn):
+        def call(request):
+            reply = fn(request)
+            calls.append((name, request, reply))
+            return reply
+        return call
+
+    client = RemoteSolver(f"127.0.0.1:{card.port}")
+    for name in ("_upload", "_solve"):
+        setattr(client, name, logged(name, getattr(client, name)))
+    try:
+        plan = client.solve(SolveRequest(pods, catalog))
+    finally:
+        client.close()
+        card.stop()
+    assert client.device == card.device
+    local = TorchSolver(opts, device=cuda_device).solve(
+        SolveRequest(pods, catalog))
+    assert [(n.offering_index, n.pod_names) for n in plan.nodes] == \
+        [(n.offering_index, n.pod_names) for n in local.nodes]
+    for name, request, reply in calls:
+        want = getattr(cpu, name)(request)
+        if name == "_solve":
+            got, ref = _unpack(reply), _unpack(want)
+            assert sorted(got) == sorted(ref)
+            for k in ref:
+                assert np.array_equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_calm_chaos_scenario_on_card_matches_cpu(cuda_device):
+    from karpenter_tpu_torch.chaos.runner import run_scenario
+
+    card = run_scenario("calm", 1, rounds=6, device=cuda_device)
+    cpu = run_scenario("calm", 1, rounds=6, device="cpu")
+    assert card.ok, card.render_failure()
+    assert card.digest == cpu.digest
+    assert card.harness.resident.device.type == cuda_device.type

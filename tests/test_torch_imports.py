@@ -53,7 +53,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # the resident store, the serving loop, the what-if, gang and
     # preemption planes, the sharded service, the repack plane, the
     # fault and profiling planes, the oracles, the degraded modes, the
-    # catalog intake, the provisioning loop and the controllers)
+    # catalog intake, the provisioning loop, the controllers, the
+    # sidecar and the chaos harness)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -176,7 +177,20 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.controllers.disruption",
               "karpenter_tpu_torch.controllers.preemption",
               "karpenter_tpu_torch.controllers.gang",
-              "karpenter_tpu_torch.core.leaderelection"):
+              "karpenter_tpu_torch.core.leaderelection",
+              # the gRPC solver sidecar and the chaos harness
+              "karpenter_tpu_torch.service",
+              "karpenter_tpu_torch.chaos",
+              "karpenter_tpu_torch.chaos.__main__",
+              "karpenter_tpu_torch.chaos.clock",
+              "karpenter_tpu_torch.chaos.cloud",
+              "karpenter_tpu_torch.chaos.crash",
+              "karpenter_tpu_torch.chaos.invariants",
+              "karpenter_tpu_torch.chaos.profile",
+              "karpenter_tpu_torch.chaos.runner",
+              "karpenter_tpu_torch.chaos.soak",
+              "karpenter_tpu_torch.chaos.solver",
+              "karpenter_tpu_torch.chaos.trace"):
         assert m in res["modules"]
 
 
