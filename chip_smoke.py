@@ -287,9 +287,38 @@ no result line:
    devices printed, ``ffd_scan_fleet`` (sharded) and ``ffd_scan``
    (serving) launched; (z6), after (y6): ``device-fault`` at seed 1
    raises ``DeviceFaultError`` out of ``run_scenario``, counted once, no
-   breadcrumb, no window on the host route.
-   (u0) every phase but (s), (u), (w6), (x6), (y6) and (z6) runs under a
-   gate that
+   breadcrumb, no window on the host route;
+   (l2) the what-if planning service, after (z): ``PlanningService`` over
+   the headline's 10,000 pending pods with a ledger seeded with arrivals
+   of every signature group over 24 virtual hours, ``evaluate(record=
+   True, hour=9)``: the standing menu (baseline, forecast peak, spot
+   storm, zone blackout, pool shrink) in one stacked plan that launches
+   exactly one ``ffd_scan_fleet`` and one ``cost_sum``, the fresh single
+   solves of ``validate=True`` one ``ffd_scan`` each, the payload (clock
+   fields aside) and ``digest()`` equal to the CPU port's; three
+   ``WhatIfController`` ticks through a ``ControllerManager`` at the
+   pinned hour, the registry growing as on the CPU; (w7) the headline
+   pods provisioned through ``ProviderFactory`` (``IKS_CLUSTER_ID`` in
+   the env it is given) as ``FakeIKS`` pool workers, half the claims (the
+   smallest pools' first) deleted through
+   ``NodeClaimTerminationController(factory=...)`` and one
+   ``PoolCleanupController`` tick, the live claims registered in one
+   ``FakeLoadBalancers`` pool by ``LoadBalancerController``, a quarter of
+   them dropped unseen and one ``LBMembershipSweeper`` tick: plan, pools,
+   workers, claims and members equal to a CPU rig's; (w8) the headline
+   pods provisioned over HTTP: ``StubCloudServer`` on 127.0.0.1 over a
+   500-profile ``FakeCloud``, ``VPCCloudClient`` -> ``PricingProvider``
+   -> ``InstanceTypeProvider`` -> ``CatalogArrays`` (equal to the direct
+   catalog on every field), ``provision_once`` on the card with an
+   ``Actuator`` over the same client: the plan (w2)'s, the instances on
+   the stub's cloud a CPU rig's over its own stub, the intake, solve and
+   actuation walls printed; (l6), after (z6): a scripted fault at the
+   ``whatif`` guard site raises ``DeviceFaultError`` out of ``evaluate``,
+   a ``WhatIfController`` tick counts ``ERRORS{whatif,
+   DeviceFaultError}`` once and records nothing, no breadcrumb and no
+   host plan, and the next clean tick records.
+   (u0) every phase but (s), (u), (w6), (x6), (y6), (z6) and (l6) runs
+   under a gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``), an
    ``ERRORS{controller.*, reconcile}`` sample or an
@@ -334,6 +363,7 @@ import uuid
 import warnings
 from collections import deque
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -440,6 +470,25 @@ from karpenter_tpu_torch.core.leaderelection import AlwaysLeader
 from karpenter_tpu_torch.core.kubelet import FakeKubelet
 from karpenter_tpu_torch.recovery import (
     CrashInjector, IntentJournal, Reconciler, SimulatedCrash, crashpoints,
+)
+from karpenter_tpu_torch.apis.nodeclass import (
+    DynamicPoolConfig, HealthCheck, LoadBalancerIntegration,
+    LoadBalancerTarget,
+)
+from karpenter_tpu_torch.cloud.fake_iks import FakeIKS
+from karpenter_tpu_torch.cloud.loadbalancer import (
+    FakeLoadBalancers, LoadBalancerProvider,
+)
+from karpenter_tpu_torch.cloud.stub import StubCloudServer
+from karpenter_tpu_torch.cloud.vpc import VPCCloudClient
+from karpenter_tpu_torch.controllers.iks import PoolCleanupController
+from karpenter_tpu_torch.controllers.loadbalancer import (
+    LBMembershipSweeper, LoadBalancerController,
+)
+from karpenter_tpu_torch.core.factory import ProviderFactory
+from karpenter_tpu_torch.whatif.service import WhatIfController
+from karpenter_tpu_torch.core.workerpool import (
+    ANNOTATION_POOL_ID, WorkerPoolActuator,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM
@@ -4123,7 +4172,11 @@ PROVISION = dict(
     quick=dict(idle_seconds=0.05, max_seconds=0.5, max_pods=10_000),
     retry_s=0.3, deadline_s=60.0,
     # (w4)-(w6): the first 2,000 headline pods
-    small=2000, cpu_limit_milli=1_000_000, soft_taint=("dedicated", "gpu"))
+    small=2000, cpu_limit_milli=1_000_000, soft_taint=("dedicated", "gpu"),
+    # (w6)'s started window fires at its count only (the 2,000 pods): at
+    # the quick idle a stall of the host between two adds split them into
+    # two windows, and the one scripted fault reached only the first
+    fault_window=dict(idle_seconds=60.0, max_seconds=60.0, max_pods=2000))
 
 
 def provision_nodeclass():
@@ -4133,6 +4186,14 @@ def provision_nodeclass():
     nodeclass.status.resolved_image_id = "img-1"
     nodeclass.status.set_condition("Ready", "True", "Validated")
     return nodeclass
+
+
+def permissive() -> CircuitBreakerManager:
+    """A breaker that admits every create of a plan (its defaults, 2
+    creates a minute and 5 at once, would stop a 240-node plan)."""
+    return CircuitBreakerManager(CircuitBreakerConfig(
+        failure_threshold=100_000, rate_limit_per_minute=100_000,
+        max_concurrent_instances=100_000))
 
 
 class ProvisionRig:
@@ -4170,9 +4231,7 @@ class ProvisionRig:
         self.journal = journal
         self.actuator = Actuator(
             self.cloud, self.cluster, unavailable=self.unavail,
-            breaker=CircuitBreakerManager(CircuitBreakerConfig(
-                failure_threshold=100_000, rate_limit_per_minute=100_000,
-                max_concurrent_instances=100_000)), journal=journal)
+            breaker=permissive(), journal=journal)
         self.prov = Provisioner(
             self.cluster, self.itp, self.actuator, ProvisionerOptions(
                 solver=self.solver, window=WindowOptions(**self.window)),
@@ -4285,8 +4344,11 @@ def phase_provision(dev, card: str, pods) -> dict:
             rigs.append(rig)
             out = {"cycle": provision_cycle(dev, card, rig, pods, rigs,
                                             launches)}
+            clock_plan = out["cycle"].pop("plan")
+            # (w8) holds its plan over HTTP against (w2)'s
+            out["plan"] = clock_plan[1]
             out["failed_create"] = provision_failed_create(
-                dev, card, rig, out["cycle"].pop("plan"), launches)
+                dev, card, rig, clock_plan, launches)
             out["limits"] = provision_limits(dev, card, pods, rigs,
                                              launches)
             out["after"] = provision_after(dev, card, rig, pods, rigs,
@@ -4727,7 +4789,7 @@ def phase_provision_fault(dev, card: str, pods) -> dict:
     from karpenter_tpu_torch.faulttol import DeviceFaultError
 
     small = pods[:PROVISION["small"]]
-    rig = ProvisionRig(dev, window=PROVISION["quick"])
+    rig = ProvisionRig(dev, window=PROVISION["fault_window"])
     try:
         rig.add(small)
         with injected():
@@ -5813,6 +5875,582 @@ def phase_chaos_fault(dev, card: str) -> dict:
         f"{wall:.3f} s, counted once by the guard, no breadcrumb, no "
         f"window on the host route")
     return {"raised": what, "counted": counted, "wall_s": wall}
+
+
+# -- (l2), (l6) the what-if planning service ---------------------------------
+
+WHATIF_SERVICE = dict(seed=17, hour=9, hours=24, ticks=3)
+# the standing menu's scenarios, the blackout's zone seeded
+WHATIF_MENU = ("baseline", "forecast-peak", "spot-storm", "zone-blackout",
+               "pool-shrink")
+# the payload's fields that read a clock
+WALL_FIELDS = ("plan_seconds", "wall_seconds", "built_at", "created_at")
+
+
+class PendingPods:
+    """Just enough cluster for ``PlanningService``: a fixed pending set
+    (the reference CLI's stub), so no arrival is stamped at the clock."""
+
+    def __init__(self, pods):
+        self._pods = [SimpleNamespace(spec=p) for p in pods]
+
+    def pending_pods(self):
+        return list(self._pods)
+
+    def list(self, kind, predicate=None):
+        return []
+
+    def get_nodeclass(self, name):
+        return None
+
+
+def seed_arrivals(ledger, pods, seed: int) -> int:
+    """The shape of the reference CLI's ``_seeded_world``: 0-2 arrivals of
+    every signature group in each of 24 virtual hours."""
+    rng = random.Random(seed * 31)
+    sigs = sorted({p.signature_key() for p in pods})
+    n = 0
+    for hour in range(WHATIF_SERVICE["hours"]):
+        for sig in sigs:
+            for _ in range(rng.randint(0, 2)):
+                ledger.arrival(sig, t=hour * 3600.0)
+                n += 1
+    return n
+
+
+def without_walls(obj):
+    """A payload with every field that reads a clock taken out."""
+    if isinstance(obj, dict):
+        return {k: without_walls(v) for k, v in obj.items()
+                if k not in WALL_FIELDS}
+    if isinstance(obj, list):
+        return [without_walls(v) for v in obj]
+    return obj
+
+
+@contextlib.contextmanager
+def pinned_hour(hour: int):
+    """The service's clock read at ``hour`` o'clock of a virtual day: a
+    periodic tick takes its hour from the clock."""
+    from karpenter_tpu_torch.whatif import service as service_mod
+
+    saved = service_mod.now
+    service_mod.now = lambda: hour * 3600.0
+    try:
+        yield
+    finally:
+        service_mod.now = saved
+
+
+def whatif_side(device, pods, catalog, validate=True) -> SimpleNamespace:
+    """One side's service over the headline pods and a ledger seeded with
+    arrivals; the stacked plan's launches kept apart from the rest."""
+    ledger = PlacementLedger()
+    arrivals = seed_arrivals(ledger, pods, WHATIF_SERVICE["seed"])
+    cluster = PendingPods(pods)
+    with obs.use_ledger(ledger):
+        svc = whatif.PlanningService(
+            cluster, catalog_fn=lambda: catalog,
+            seed=WHATIF_SERVICE["seed"], validate=validate, device=device)
+    side = SimpleNamespace(ledger=ledger, cluster=cluster, svc=svc,
+                           arrivals=arrivals, plan_launches=[], plans=[])
+    plan = svc.planner.plan
+
+    def counted(baseline, scenarios):
+        before = launch_counts()
+        try:
+            out = plan(baseline, scenarios)
+            side.plans.append(out)
+            return out
+        finally:
+            after = launch_counts()
+            side.plan_launches.append(
+                {k: v - before[k] for k, v in after.items()})
+
+    svc.planner.plan = counted
+    return side
+
+
+def whatif_ticks(side, n: int) -> list:
+    """``n`` ``WhatIfController`` ticks through a ``ControllerManager`` of
+    the side's own at the pinned hour: the registry's size after each."""
+    mgr = ControllerManager(side.cluster)
+    mgr.register(WhatIfController(side.svc))
+    sizes = []
+    with obs.use_ledger(side.ledger), pinned_hour(WHATIF_SERVICE["hour"]):
+        for _ in range(n):
+            mgr.sync(rounds=1)
+            sizes.append(len(side.svc.recommendations()))
+    return sizes
+
+
+def whatif_errors() -> dict:
+    return {k: v for (c, k), v in metrics.ERRORS.samples().items()
+            if c == "whatif"}
+
+
+def phase_whatif_service(dev, card: str, pods, catalog) -> dict:
+    """(l2) ``PlanningService`` over the headline's pending pods on the
+    card: the standing menu in one stacked plan (one ``ffd_scan_fleet``,
+    one ``cost_sum``), the fresh single solves of ``validate=True``, the
+    payload and digest equal to the CPU port's; three
+    ``WhatIfController`` ticks through a ``ControllerManager``."""
+    t_phase = time.perf_counter()
+    errors0 = whatif_errors()
+    hour = WHATIF_SERVICE["hour"]
+    card_side = whatif_side(dev, pods, catalog)
+    reset_launches()
+    t0 = time.perf_counter()
+    with obs.use_ledger(card_side.ledger):
+        payload = card_side.svc.evaluate(record=True, hour=hour)
+    wall = time.perf_counter() - t0
+    total = launch_counts()
+    stacked = card_side.plan_launches[0]
+    if {k: v for k, v in stacked.items() if v} != \
+            {"ffd_scan_fleet": 1, "cost_sum": 1} or \
+            payload["dispatches"] != 1 or payload["backend"] != "device":
+        raise AssertionError(f"what-if service (l2): the stacked plan took "
+                             f"{payload['dispatches']} solves on "
+                             f"{payload['backend']!r} and launched "
+                             f"{stacked}, want one ffd_scan_fleet and one "
+                             f"cost_sum on the device")
+    replay = {k: v - stacked[k] for k, v in total.items()}
+    names = [s["scenario"].split(":")[0] for s in payload["scenarios"]]
+    if tuple(names) != WHATIF_MENU:
+        raise AssertionError(f"what-if service (l2): the menu is {names}, "
+                             f"want {list(WHATIF_MENU)}")
+    if payload["validation"]["violations"]:
+        raise AssertionError(f"what-if service (l2): validate_whatif: "
+                             f"{payload['validation']['violations'][:3]}")
+    K = len(names)
+    require_launches(replay, ["ffd_scan", "cost_sum"],
+                     "what-if service (l2) replay")
+    if replay["ffd_scan"] != K:
+        raise AssertionError(f"what-if service (l2): the replay launched "
+                             f"{replay}, want one ffd_scan per scenario")
+    t1 = time.perf_counter()
+    cpu_side = whatif_side("cpu", pods, catalog)
+    with obs.use_ledger(cpu_side.ledger):
+        cpu_payload = cpu_side.svc.evaluate(record=True, hour=hour)
+    cpu_s = time.perf_counter() - t1
+    if without_walls(payload) != without_walls(cpu_payload):
+        diff = [k for k in payload
+                if without_walls(payload[k]) != without_walls(cpu_payload[k])]
+        raise AssertionError(f"what-if service (l2): the payload differs "
+                             f"from the CPU port's in {diff}")
+    digest = card_side.svc.digest()
+    if digest != cpu_side.svc.digest():
+        raise AssertionError("what-if service (l2): the digest differs from "
+                             "the CPU port's")
+    reset_launches()
+    t0 = time.perf_counter()
+    sizes = whatif_ticks(card_side, WHATIF_SERVICE["ticks"])
+    ticks_s = time.perf_counter() - t0
+    tick_launches = launch_counts()
+    cpu_sizes = whatif_ticks(cpu_side, WHATIF_SERVICE["ticks"])
+    if sizes != cpu_sizes or card_side.svc.digest() != \
+            cpu_side.svc.digest() or sizes[-1] <= len(
+                payload["recommendations"]):
+        raise AssertionError(f"what-if service (l2): the registry after "
+                             f"each tick {sizes}, on the CPU {cpu_sizes}")
+    require_launches(tick_launches, ["ffd_scan_fleet", "cost_sum"],
+                     "what-if service (l2) ticks")
+    if whatif_errors() != errors0 or card_side.svc.snapshot()[
+            "degraded_plans"]:
+        raise AssertionError(f"what-if service (l2): a planning error was "
+                             f"counted: {whatif_errors()}")
+    launches = {k: total[k] + tick_launches[k] for k in total}
+    out = {"launches": launches, "stacked_launches": stacked,
+           "replay_launches": replay, "tick_launches": tick_launches,
+           "scenarios": names, "K": K, "arrivals": card_side.arrivals,
+           "recommendations": len(payload["recommendations"]),
+           "registry": sizes, "digest": digest,
+           "evaluate_ms": wall * 1e3,
+           "plan_ms": payload["plan_seconds"] * 1e3,
+           "cpu_evaluate_s": cpu_s, "ticks_s": ticks_s,
+           "horizon_risk": payload["horizon_risk"],
+           "host_s": time.perf_counter() - t_phase}
+    say(f"what-if service (l2) [{card}]: PlanningService over "
+        f"{payload['pending_pods']} pending pods x {catalog.num_types} "
+        f"types, ledger seeded with {card_side.arrivals} arrivals over 24 "
+        f"virtual hours, hour {hour}: menu {names} in one stacked plan "
+        f"(launches {stacked}), validate=True replay launches {replay}; "
+        f"{out['recommendations']} recommendations, horizon risk "
+        f"{payload['horizon_risk']}; payload (clock fields aside) and "
+        f"digest {digest[:12]} equal to the CPU port's ({cpu_s:.3f} s on "
+        f"the host); evaluate {wall * 1e3:.3f} ms (stacked plan "
+        f"{out['plan_ms']:.3f} ms); {WHATIF_SERVICE['ticks']} "
+        f"WhatIfController ticks in {ticks_s:.3f} s, registry {sizes} as "
+        f"on the CPU, launches {tick_launches}")
+    return out
+
+
+def phase_whatif_fault(dev, card: str, pods, catalog) -> dict:
+    """(l6) A scripted device fault at the ``whatif`` guard site:
+    ``evaluate`` raises ``DeviceFaultError``; a ``WhatIfController`` tick
+    counts ``ERRORS{whatif, DeviceFaultError}`` once and records nothing;
+    no breadcrumb, no host plan; the next clean tick records."""
+    from karpenter_tpu_torch.faulttol import DeviceFaultError
+
+    side = whatif_side(dev, pods, catalog, validate=False)
+    marks = degradation_marks()
+    errors0 = whatif_errors()
+    with injected("whatif"):
+        with obs.use_ledger(side.ledger):
+            ms = expect_fault("what-if (l6) evaluate", side.svc.evaluate,
+                              record=True, hour=WHATIF_SERVICE["hour"])
+    mgr = ControllerManager(side.cluster)
+    mgr.register(WhatIfController(side.svc))
+    reset_launches()
+    with injected("whatif"), obs.use_ledger(side.ledger), \
+            pinned_hour(WHATIF_SERVICE["hour"]):
+        mgr.sync(rounds=1)
+    faulted = launch_counts()
+    counted = marks_moved(errors0, whatif_errors())
+    if counted != {"DeviceFaultError": 1.0} or side.svc.recommendations() \
+            or not side.svc.last_error:
+        raise AssertionError(f"what-if (l6): the faulted tick counted "
+                             f"{counted} and left "
+                             f"{len(side.svc.recommendations())} "
+                             f"recommendations, last error "
+                             f"{side.svc.last_error!r}")
+    expect_marks("what-if (l6)", marks, {})
+    reset_launches()
+    with obs.use_ledger(side.ledger), pinned_hour(WHATIF_SERVICE["hour"]):
+        mgr.sync(rounds=1)
+    launches = launch_counts()
+    backends = {p.backend for p in side.plans}
+    if not side.svc.recommendations() or backends != {"device"} or \
+            side.svc.last_error or side.svc.snapshot()["degraded_plans"]:
+        raise AssertionError(f"what-if (l6): the clean tick recorded "
+                             f"{len(side.svc.recommendations())}, backends "
+                             f"{backends}, last error "
+                             f"{side.svc.last_error!r}")
+    require_launches(launches, ["ffd_scan_fleet", "cost_sum"],
+                     "what-if (l6) clean tick")
+    say(f"what-if (l6) [{card}]: a scripted fault at 'whatif' raised "
+        f"DeviceFaultError out of evaluate ({ms:.3f} ms); the faulted "
+        f"WhatIfController tick counted {counted} and recorded nothing "
+        f"(launches {faulted}); no breadcrumb, no host plan; the clean "
+        f"tick recorded {len(side.svc.recommendations())} on backends "
+        f"{sorted(backends)} (launches {launches})")
+    return {"raised_ms": ms, "counted": counted,
+            "recorded": len(side.svc.recommendations()),
+            "launches": launches}
+
+
+# -- (w7), (w8) the IKS, load-balancer and HTTP cloud layer ------------------
+
+IKS = dict(cluster_id="cls-1", prefix="kp", lb="lb-1", lb_pool="web",
+           lb_port=443)
+HTTP = dict(api_key="chip-smoke-key")
+
+
+def iks_nodeclass(nodeclass):
+    """(w1)'s NodeClass with dynamic worker pools (reaped as soon as they
+    are empty) and one load-balancer pool."""
+    nodeclass.spec.iks_dynamic_pools = DynamicPoolConfig(
+        enabled=True, pool_name_prefix=IKS["prefix"],
+        empty_pool_ttl_seconds=0)
+    nodeclass.spec.load_balancer_integration = LoadBalancerIntegration(
+        enabled=True, target_groups=(LoadBalancerTarget(
+            load_balancer_id=IKS["lb"], pool_name=IKS["lb_pool"],
+            port=IKS["lb_port"], health_check=HealthCheck(
+                protocol="tcp", port=IKS["lb_port"])),))
+    return nodeclass
+
+
+class IKSRig(ProvisionRig):
+    """(w7) A ``ProvisionRig`` whose provisioner actuates through a
+    ``ProviderFactory``: ``IKS_CLUSTER_ID`` in the env it is given, so
+    the NodeClass's plans become workers of ``FakeIKS`` pools on the same
+    fake cloud through a ``WorkerPoolActuator``."""
+
+    def restart(self, journal=None):
+        iks_nodeclass(self.nodeclass)
+        super().restart(journal)
+        self.iks = FakeIKS(IKS["cluster_id"], self.cloud)
+        self.pools = WorkerPoolActuator(self.iks, self.cluster,
+                                        breaker=permissive(),
+                                        unavailable=self.unavail)
+        self.factory = ProviderFactory(
+            self.actuator, self.pools,
+            env={"IKS_CLUSTER_ID": IKS["cluster_id"]})
+        self.prov.factory = self.factory
+
+
+def iks_world(rig) -> dict:
+    """The pools (name, flavor, zones, size, dynamic), the workers (id,
+    pool, zone, instance) and the claims by pod set."""
+    return {"pools": sorted((p.id, p.name, p.flavor, tuple(sorted(p.zones)),
+                             p.size_per_zone, p.dynamic, p.state)
+                            for p in rig.iks.list_pools()),
+            "workers": sorted((w.id, w.pool_id, w.zone, w.instance_id)
+                              for w in rig.iks.list_workers()),
+            "claims": provision_claims(rig.cluster),
+            "instances": rig.cloud.instance_count()}
+
+
+def lb_members(lbs) -> list:
+    pool = lbs.pools.get((IKS["lb"], IKS["lb_pool"]))
+    return sorted((m.address, m.port) for m in pool.members.values()) \
+        if pool is not None else []
+
+
+def iks_script(rig, pods, clock=None) -> dict:
+    """(w7) on one rig: the pods' plan actuated as pool workers; half the
+    claims (the smallest pools' first) deleted through
+    ``NodeClaimTerminationController(factory=...)`` and one
+    ``PoolCleanupController`` tick; the live claims joined, registered in
+    one load-balancer pool by ``LoadBalancerController``, a quarter of
+    them then dropped from the store unseen and one ``LBMembershipSweeper``
+    tick."""
+    out = {}
+    rig.add(pods)
+    plans = rig.prov.provision_once()
+    if len(plans) != 1:
+        raise AssertionError(f"iks (w7): {len(plans)} plans")
+    out["plan"] = plans[0]
+    out["provisioned"] = iks_world(rig)
+    # the claims of the smallest pools first, so the deleted half empties
+    # whole pools
+    size = collections.Counter(c.annotations.get(ANNOTATION_POOL_ID)
+                               for c in rig.cluster.nodeclaims())
+    claims = sorted(rig.cluster.nodeclaims(), key=lambda c: (
+        size[c.annotations.get(ANNOTATION_POOL_ID)],
+        c.annotations.get(ANNOTATION_POOL_ID, ""), c.name))
+    if any(ANNOTATION_POOL_ID not in c.annotations for c in claims):
+        raise AssertionError("iks (w7): a claim was not created as a pool "
+                             "worker")
+    term = NodeClaimTerminationController(rig.cluster, rig.actuator,
+                                          factory=rig.factory)
+    for c in claims[:len(claims) // 2]:
+        c.deleted = True
+        term.reconcile(c.name)
+    PoolCleanupController(rig.cluster, rig.iks).reconcile()
+    out["reaped"] = iks_world(rig)
+    lbs = FakeLoadBalancers()
+    provider = LoadBalancerProvider(lbs)
+    kubelet = FakeKubelet(rig.cluster)
+    registration = RegistrationController(rig.cluster)
+    lbc = LoadBalancerController(rig.cluster, provider)
+    live = sorted(rig.cluster.nodeclaims(), key=lambda c: c.name)
+    for c in live:
+        kubelet.join(c, ready=True)
+        registration.reconcile(c.name)
+        lbc.reconcile(c.name)
+    out["registered"] = lb_members(lbs)
+    for c in live[:len(live) // 4]:
+        rig.cluster.delete("nodeclaims", c.name)
+    LBMembershipSweeper(rig.cluster, provider).reconcile()
+    out["swept"] = lb_members(lbs)
+    out["records"] = sorted(r.name for r in
+                            rig.cluster.list("lbregistrations"))
+    return out
+
+
+def phase_provision_iks(dev, card: str, pods) -> dict:
+    """(w7) Provisioning through the IKS factory on the card against the
+    same script on a CPU rig of the port (names from counters)."""
+    t_phase = time.perf_counter()
+    rigs = []
+    try:
+        with side_state():
+            rig = IKSRig(dev)
+            rigs.append(rig)
+            reset_launches()
+            t0 = time.perf_counter()
+            card_out = iks_script(rig, pods)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        with side_state():
+            cpu = IKSRig("cpu")
+            rigs.append(cpu)
+            t1 = time.perf_counter()
+            cpu_out = iks_script(cpu, pods)
+            cpu_s = time.perf_counter() - t1
+    finally:
+        for r in rigs:
+            r.close()
+    require_launches(launches, ["ffd_scan", "cost_sum"], "iks (w7)")
+    plans_equal("iks (w7) plan against the CPU port's", card_out["plan"],
+                cpu_out["plan"])
+    for key in ("provisioned", "reaped", "registered", "swept", "records"):
+        if card_out[key] != cpu_out[key]:
+            raise AssertionError(f"iks (w7): {key} differs from the CPU "
+                                 f"port's")
+    prov, reaped = card_out["provisioned"], card_out["reaped"]
+    if not prov["workers"] or len(prov["workers"]) != len(
+            card_out["plan"].nodes) or prov["instances"] != len(
+                prov["workers"]) or len(reaped["pools"]) >= len(
+                    prov["pools"]) or not card_out["swept"]:
+        raise AssertionError(f"iks (w7): {len(prov['pools'])} pools and "
+                             f"{len(prov['workers'])} workers for "
+                             f"{len(card_out['plan'].nodes)} nodes, "
+                             f"{len(reaped['pools'])} pools after the "
+                             f"cleanup, {len(card_out['swept'])} members")
+    out = {"launches": launches, "wall_s": wall, "cpu_s": cpu_s,
+           "nodes": len(card_out["plan"].nodes),
+           "pools": len(prov["pools"]), "workers": len(prov["workers"]),
+           "pools_after_cleanup": len(reaped["pools"]),
+           "workers_after_delete": len(reaped["workers"]),
+           "members": len(card_out["registered"]),
+           "members_after_sweep": len(card_out["swept"]),
+           "host_s": time.perf_counter() - t_phase}
+    say(f"iks (w7) [{card}]: {len(pods)} headline pods through "
+        f"Provisioner(factory=ProviderFactory(Actuator, WorkerPoolActuator("
+        f"FakeIKS), env={{IKS_CLUSTER_ID}})) in {wall:.3f} s: "
+        f"{out['nodes']} nodes as {out['workers']} workers in "
+        f"{out['pools']} dynamic pools; half the claims deleted through "
+        f"NodeClaimTerminationController(factory=...), one "
+        f"PoolCleanupController tick left {out['pools_after_cleanup']} "
+        f"pools and {out['workers_after_delete']} workers; "
+        f"LoadBalancerController registered {out['members']} members, "
+        f"LBMembershipSweeper left {out['members_after_sweep']}; plan, "
+        f"pools, workers, claims and members equal to the CPU port's "
+        f"({cpu_s:.3f} s on the host); launches {launches}")
+    return out
+
+
+class HTTPRig:
+    """(w8) ``StubCloudServer`` over a 500-profile ``FakeCloud`` on
+    127.0.0.1; ``VPCCloudClient`` -> ``PricingProvider`` ->
+    ``InstanceTypeProvider`` -> ``CatalogArrays``, a ``Provisioner`` on
+    ``device`` and an ``Actuator`` over the same client."""
+
+    def __init__(self, device):
+        self.cloud = FakeCloud(profiles=generate_profiles(INTAKE["types"]))
+        self.server = StubCloudServer(cloud=self.cloud,
+                                      api_key=HTTP["api_key"]).start()
+        self.pricing = self.prov = None
+        try:
+            self.client = VPCCloudClient(self.server.endpoint,
+                                         HTTP["api_key"],
+                                         region=self.cloud.region)
+            t0 = time.perf_counter()
+            self.pricing = PricingProvider(self.client)
+            self.unavail = UnavailableOfferings()
+            self.itp = InstanceTypeProvider(self.client, self.pricing,
+                                            self.unavail)
+            self.catalog = CatalogArrays.build(self.itp.list())
+            self.intake_s = time.perf_counter() - t0
+            self.cluster = ClusterState()
+            self.cluster.add_nodeclass(provision_nodeclass())
+            self.cluster.add_nodepool(NodePool(name="default",
+                                               nodeclass_name="default"))
+            self.actuator = Actuator(self.client, self.cluster,
+                                     unavailable=self.unavail,
+                                     breaker=permissive())
+            self.prov = Provisioner(
+                self.cluster, self.itp, self.actuator, ProvisionerOptions(
+                    window=WindowOptions(**PROVISION["window"])),
+                device=device)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self):
+        try:
+            if self.prov is not None:
+                self.prov.stop()
+            if self.pricing is not None:
+                self.pricing.close()
+        finally:
+            self.server.stop()
+
+
+def http_instances(cloud) -> list:
+    return sorted((i.name, i.profile, i.zone, i.capacity_type, i.subnet_id,
+                   i.image_id, len(i.volume_ids), tuple(sorted(
+                       i.tags.items())))
+                  for i in cloud.list_instances())
+
+
+def http_script(rig, pods) -> dict:
+    clock = CycleClock(rig.prov)
+    for p in pods:
+        rig.cluster.add_pod(p)
+    t0 = time.perf_counter()
+    plans = rig.prov.provision_once()
+    wall = time.perf_counter() - t0
+    if len(plans) != 1:
+        raise AssertionError(f"http (w8): {len(plans)} plans")
+    return {"plan": plans[0], "wall_s": wall, "split_s": dict(clock.s),
+            "instances": http_instances(rig.cloud),
+            "leaks": no_leaks("http (w8)", rig.cloud, rig.cluster),
+            "cloud_calls": sum(len(v) for v in
+                               rig.cloud.recorder.calls.values())}
+
+
+def phase_provision_http(dev, card: str, pods, w2_plan) -> dict:
+    """(w8) The headline pods provisioned over HTTP on the card: the
+    catalog built over the wire equal to the one built on the fake cloud
+    directly, array for array; the card's plan (w2)'s; the instances on
+    the stub's cloud those of a CPU rig over its own stub."""
+    t_phase = time.perf_counter()
+    rigs = []
+    try:
+        with side_state():
+            rig = HTTPRig(dev)
+            rigs.append(rig)
+            direct = workload.build_catalog(INTAKE["types"])
+            for f in CATALOG_FIELDS:
+                a, b = getattr(rig.catalog, f), getattr(direct, f)
+                same = np.array_equal(a, b) if isinstance(a, np.ndarray) \
+                    else a == b
+                if not same:
+                    raise AssertionError(f"http (w8): the catalog's {f} "
+                                         f"built over the wire differs from "
+                                         f"the one built on FakeCloud")
+            reset_launches()
+            card_out = http_script(rig, pods)
+            launches = launch_counts()
+        with side_state():
+            cpu = HTTPRig("cpu")
+            rigs.append(cpu)
+            t1 = time.perf_counter()
+            cpu_out = http_script(cpu, pods)
+            cpu_s = time.perf_counter() - t1
+    finally:
+        for r in rigs:
+            r.close()
+    require_launches(launches, ["ffd_scan", "cost_sum"], "http (w8)")
+    plans_equal("http (w8) plan against (w2)'s", card_out["plan"], w2_plan)
+    plans_equal("http (w8) plan against the CPU port's", card_out["plan"],
+                cpu_out["plan"])
+    if card_out["instances"] != cpu_out["instances"] or len(
+            card_out["instances"]) != len(card_out["plan"].nodes):
+        raise AssertionError(f"http (w8): {len(card_out['instances'])} "
+                             f"instances on the stub's cloud for "
+                             f"{len(card_out['plan'].nodes)} nodes, or not "
+                             f"the CPU rig's")
+    s = card_out["split_s"]
+    split = {"intake": rig.intake_s, "catalog": s.get("catalog", 0.0),
+             "solve": s.get("solve", 0.0),
+             "actuation": s.get("actuation", 0.0),
+             "nomination": s.get("nomination", 0.0)}
+    out = {"launches": launches, "wall_s": card_out["wall_s"],
+           "split_ms": {k: v * 1e3 for k, v in split.items()},
+           "cpu_s": cpu_s, "nodes": len(card_out["plan"].nodes),
+           "instances": len(card_out["instances"]),
+           "resources": card_out["leaks"],
+           "cloud_calls": card_out["cloud_calls"],
+           "host_s": time.perf_counter() - t_phase}
+    say(f"http (w8) [{card}]: VPCCloudClient over StubCloudServer "
+        f"(127.0.0.1:{rig.server.port}) -> PricingProvider -> "
+        f"InstanceTypeProvider -> CatalogArrays equal to the direct "
+        f"catalog on every field; provision_once of {len(pods)} headline "
+        f"pods in {card_out['wall_s'] * 1e3:.3f} ms; split: intake over "
+        f"the wire {split['intake'] * 1e3:.3f} ms, catalog resolve "
+        f"{split['catalog'] * 1e3:.3f} ms, solve {split['solve'] * 1e3:.3f}"
+        f" ms, actuation over the wire {split['actuation'] * 1e3:.3f} ms "
+        f"({out['nodes']} creates, {card_out['cloud_calls']} cloud calls "
+        f"through the wire), nomination "
+        f"{split['nomination'] * 1e3:.3f} ms; plan equal to (w2)'s and to "
+        f"the CPU rig's; {out['instances']} instances on the stub's cloud "
+        f"({card_out['leaks']}) equal to the CPU rig's over its own stub "
+        f"({cpu_s:.3f} s on the host); launches {launches}")
+    return out
 
 
 # -- (s) the fault and profiling planes ----------------------------------------
@@ -7436,8 +8074,14 @@ def main() -> int:
     sidecar_run = gated("(y) sidecar", phase_sidecar, dev, card, pods,
                         catalog)
     chaos_run = gated("(z) chaos", phase_chaos, dev, card)
+    whatif_service = gated("(l2) what-if service", phase_whatif_service,
+                           dev, card, pods, catalog)
+    iks_run = gated("(w7) iks", phase_provision_iks, dev, card, pods)
+    http_run = gated("(w8) http", phase_provision_http, dev, card, pods,
+                     provision.pop("plan"))
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
-        f"but (s), nor in (v), (w1)-(w5), (x1)-(x5), (y) or (z), no "
+        f"but (s), nor in (v), (w1)-(w5), (x1)-(x5), (y), (z), (l2), "
+        f"(w7) or (w8), no "
         f"controller's "
         f"reconcile failed and no plan was refused; "
         f"sharded_solves_total{{host}} "
@@ -7448,6 +8092,7 @@ def main() -> int:
     controllers_fault = phase_controllers_fault(dev, card, pods)
     sidecar_fault = phase_sidecar_fault(dev, card, pods, catalog)
     chaos_fault = phase_chaos_fault(dev, card)
+    whatif_fault = phase_whatif_fault(dev, card, pods, catalog)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -7487,6 +8132,9 @@ def main() -> int:
                      "controllers": controllers["launches"],
                      "sidecar": sidecar_run["launches"],
                      "chaos": chaos_run["launches"],
+                     "whatif_service": whatif_service["launches"],
+                     "iks": iks_run["launches"],
+                     "http": http_run["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -7528,7 +8176,9 @@ def main() -> int:
             "controllers": controllers,
             "controllers_fault": controllers_fault,
             "sidecar": sidecar_run, "sidecar_fault": sidecar_fault,
-            "chaos": chaos_run, "chaos_fault": chaos_fault, "fault": fault,
+            "chaos": chaos_run, "chaos_fault": chaos_fault,
+            "whatif_service": whatif_service, "whatif_fault": whatif_fault,
+            "iks": iks_run, "http": http_run, "fault": fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

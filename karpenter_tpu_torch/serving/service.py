@@ -440,10 +440,15 @@ class ShardedServingLoop:
         return out
 
     def _finish(self, pend: ShardedServingPending):
-        """Fetch one window.  It leaves the ring whether or not the fetch
-        succeeds; only a fetched window counts."""
+        """Fetch one window.  It leaves the ring and is counted as fetched
+        before the fetch, as the reference counts it, so a fetch that
+        faults over to the host route counts too."""
         kick, kick_seq = pend._kick
         self._inflight.remove(pend)
+        self.fetched += 1
+        if self.kicks > kick_seq:
+            self.overlapped += 1
+        metrics.SERVING_OVERLAP.set(self.overlap_fraction)
         try:
             plan = self.service._fetch_window(kick)
         except DeviceFaultError:
@@ -454,12 +459,6 @@ class ShardedServingLoop:
             # membership are identical: no window lost
             plan = self.service.solve_window_host(
                 kick.catalog, kick.nodepool, window=kick.window)
-            metrics.SERVING_RING_OCCUPANCY.set(float(len(self._inflight)))
-            return plan
-        self.fetched += 1
-        if self.kicks > kick_seq:
-            self.overlapped += 1
-        metrics.SERVING_OVERLAP.set(self.overlap_fraction)
         metrics.SERVING_RING_OCCUPANCY.set(float(len(self._inflight)))
         return plan
 

@@ -64,6 +64,16 @@ class WhatIfBaseline:
     def L(self) -> int:
         return int(self.packed.size)
 
+    def base_counts(self) -> np.ndarray:
+        return self.packed[:self.G_pad * 8].reshape(
+            self.G_pad, 8)[:, _COL_COUNT].copy()
+
+    def group_signature(self, gi: int) -> str:
+        """The encoder group's constraint-signature key, the arrival
+        table's grouping key, so a forecasted wave lands on the solve
+        group its history came from."""
+        return self.problem.groups[gi].representative.signature_key()
+
 
 # ---------------------------------------------------------------------------
 # Perturbations (solve-visible: lowered to word edits)
@@ -199,6 +209,43 @@ def quota_clamp(baseline: WhatIfBaseline, quota: int) -> CapClamp:
     caps = tuple((int(g), int(min(int(meta[g, _COL_CAP]), int(quota))))
                  for g in range(baseline.problem.num_groups))
     return CapClamp(caps=caps)
+
+
+def perturbations_from_profile(profile, catalog,
+                               baseline: WhatIfBaseline, rng) -> tuple:
+    """A :class:`ChaosProfile`'s storm, blackout and quota knobs as
+    scenario perturbations.  ``rng`` is the scenario seed's stream: a
+    profile and a seed determine the perturbation set."""
+    out: list = []
+    if profile.preempt_storm_rate > 0.0:
+        out.append(spot_storm_mask(catalog, profile.preempt_storm_frac,
+                                   rng))
+    if profile.capacity_blackout_rate > 0.0 and catalog.zones:
+        zone = catalog.zones[rng.randrange(len(catalog.zones))]
+        out.append(zone_blackout_mask(catalog, zone))
+    if profile.instance_quota:
+        out.append(quota_clamp(baseline, profile.instance_quota))
+    return tuple(out)
+
+
+def wave_from_forecast(baseline: WhatIfBaseline,
+                       expected: dict[str, int],
+                       scale: float = 1.0) -> ArrivalWave:
+    """Forecasted arrivals per signature onto the baseline's groups (the
+    first group of each signature).  Signatures the baseline lacks are
+    dropped; counts pass unsanitized, so garbage rates reach
+    ``validate_whatif``."""
+    by_sig: dict[str, int] = {}
+    for gi in range(baseline.problem.num_groups):
+        sig = baseline.group_signature(gi)
+        if sig not in by_sig:
+            by_sig[sig] = gi
+    waves = []
+    for sig, n in sorted(expected.items()):
+        gi = by_sig.get(sig)
+        if gi is not None:
+            waves.append((gi, int(round(n * scale))))
+    return ArrivalWave(waves=tuple(waves))
 
 
 # ---------------------------------------------------------------------------

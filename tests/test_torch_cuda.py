@@ -1131,3 +1131,140 @@ def test_calm_chaos_scenario_on_card_matches_cpu(cuda_device):
     assert card.ok, card.render_failure()
     assert card.digest == cpu.digest
     assert card.harness.resident.device.type == cuda_device.type
+
+
+def _whatif_run(device, pods, catalog):
+    """One ``PlanningService`` evaluation over ``pods`` with a ledger
+    seeded with 0-2 arrivals of each signature in each of 24 hours:
+    (payload, digest, launches of the evaluation)."""
+    import random
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.obs.ledger import PlacementLedger
+    from karpenter_tpu_torch.solver import cost_sum
+    from karpenter_tpu_torch.whatif import PlanningService
+
+    class Pending:
+        def pending_pods(self):
+            return [SimpleNamespace(spec=p) for p in pods]
+
+        def list(self, kind, predicate=None):
+            return []
+
+    ledger = PlacementLedger()
+    rng = random.Random(17)
+    for hour in range(24):
+        for sig in sorted({p.signature_key() for p in pods}):
+            for _ in range(rng.randint(0, 2)):
+                ledger.arrival(sig, t=hour * 3600.0)
+    counters = (ffd_kernel.LAUNCHES, cost_sum.LAUNCHES)
+    before = {k: v for c in counters for k, v in c.items()}
+    with obs.use_ledger(ledger):
+        svc = PlanningService(Pending(), catalog_fn=lambda: catalog, seed=17,
+                              device=device)
+        payload = svc.evaluate(record=True, hour=9)
+    launches = {k: v - before[k] for c in counters for k, v in c.items()
+                if v != before[k]}
+    return payload, svc.digest(), launches
+
+
+@pytest.mark.cuda
+def test_whatif_service_on_card_matches_cpu(cuda_device):
+    """The standing menu over 2,000 pending pods runs in one stacked plan
+    on the card (one ``ffd_scan_fleet``, one ``cost_sum``); the payload
+    (clock fields aside) and the digest are the CPU port's."""
+    def walls(obj):
+        if isinstance(obj, dict):
+            return {k: walls(v) for k, v in obj.items() if k not in (
+                "plan_seconds", "wall_seconds", "built_at", "created_at")}
+        if isinstance(obj, list):
+            return [walls(v) for v in obj]
+        return obj
+
+    pods, catalog = workload.build_workload(2000, 60, seed=21)
+    card, card_digest, launches = _whatif_run(cuda_device, pods, catalog)
+    cpu, cpu_digest, _ = _whatif_run("cpu", pods, catalog)
+    assert launches == {"ffd_scan_fleet": 1, "cost_sum": 1}
+    assert card["dispatches"] == 1 and card["backend"] == "device"
+    assert card["recommendations"]
+    assert walls(card) == walls(cpu)
+    assert card_digest == cpu_digest
+
+
+def _iks_world(device, pods):
+    """``pods`` provisioned through ``ProviderFactory`` (``IKS_CLUSTER_ID``
+    in its env) as ``FakeIKS`` pool workers by a ``Provisioner`` on
+    ``device``; then the claims of the smallest pools, half of all,
+    terminated through the factory and one pool cleanup tick."""
+    import collections
+
+    from karpenter_tpu_torch.apis.nodeclass import DynamicPoolConfig
+    from karpenter_tpu_torch.cloud.fake_iks import FakeIKS
+    from karpenter_tpu_torch.controllers.iks import PoolCleanupController
+    from karpenter_tpu_torch.controllers.nodeclaim import (
+        NodeClaimTerminationController,
+    )
+    from karpenter_tpu_torch.core.factory import ProviderFactory
+    from karpenter_tpu_torch.core.workerpool import (
+        ANNOTATION_POOL_ID, WorkerPoolActuator,
+    )
+
+    prov, pricing, unavail = _provision_rig(device)
+    try:
+        nc = prov.cluster.get_nodeclass("default")
+        nc.spec.iks_dynamic_pools = DynamicPoolConfig(
+            enabled=True, pool_name_prefix="kp", empty_pool_ttl_seconds=0)
+        iks = FakeIKS("cls-1", prov.actuator.cloud)
+        pools = WorkerPoolActuator(iks, prov.cluster,
+                                   breaker=prov.actuator.breaker,
+                                   unavailable=unavail)
+        prov.factory = ProviderFactory(prov.actuator, pools,
+                                       env={"IKS_CLUSTER_ID": "cls-1"})
+        for p in pods:
+            prov.cluster.add_pod(p)
+        plans = prov.provision_once()
+
+        def state():
+            return (sorted((p.id, p.name, p.flavor, tuple(sorted(p.zones)),
+                            p.size_per_zone) for p in iks.list_pools()),
+                    sorted((w.id, w.pool_id, w.zone, w.instance_id)
+                           for w in iks.list_workers()),
+                    _claims_by_pods(prov.cluster))
+
+        made = state()
+        size = collections.Counter(c.annotations[ANNOTATION_POOL_ID]
+                                   for c in prov.cluster.nodeclaims())
+        claims = sorted(prov.cluster.nodeclaims(), key=lambda c: (
+            size[c.annotations[ANNOTATION_POOL_ID]],
+            c.annotations[ANNOTATION_POOL_ID], c.name))
+        term = NodeClaimTerminationController(prov.cluster, prov.actuator,
+                                              factory=prov.factory)
+        for c in claims[:len(claims) // 2]:
+            c.deleted = True
+            term.reconcile(c.name)
+        PoolCleanupController(prov.cluster, iks).reconcile()
+        return [(n.offering_index, n.pod_names) for n in plans[0].nodes], \
+            made, state()
+    finally:
+        prov.stop()
+        pricing.close()
+
+
+@pytest.mark.cuda
+def test_iks_factory_provisioning_on_card_matches_cpu(cuda_device):
+    """2,000 pods planned on the card and actuated as IKS pool workers:
+    the plan, the pools, the workers and the claims are the CPU port's,
+    before and after half the claims are terminated and the emptied
+    pools reaped."""
+    from karpenter_tpu_torch.solver import cost_sum
+
+    pods, _ = workload.build_workload(2000, 60, seed=21)
+    before = (ffd_kernel.LAUNCHES["ffd_scan"], cost_sum.LAUNCHES["cost_sum"])
+    card = _iks_world(cuda_device, pods)
+    assert ffd_kernel.LAUNCHES["ffd_scan"] > before[0]
+    assert cost_sum.LAUNCHES["cost_sum"] > before[1]
+    cpu = _iks_world("cpu", pods)
+    assert card == cpu
+    plan, made, after = card
+    assert len(made[1]) == len(plan) and len(after[0]) < len(made[0])

@@ -292,6 +292,39 @@ def test_sharded_serving_failover_matches_reference(catalogs, site):
     assert tplan.backend == "sharded"
 
 
+def test_sharded_serving_failed_over_fetch_counts_as_reference(catalogs):
+    """A fetch that faults over to the host route is counted as fetched
+    (and overlapped) before the fetch, as the reference counts it: the
+    loop's stats and the ``SERVING_OVERLAP`` sample equal the
+    reference's, and so do the plans."""
+    jcat, tcat = catalogs
+    jstream, tstream = churn(17, rounds=3)
+    jloop = JShardedServingLoop(j_service(2), capacity=2)
+    tloop = ShardedServingLoop(ShardedSolveService(2, device="cpu"),
+                               capacity=2)
+    out = []
+    for ft, loop, cat, stream, mod in (
+            (jft, jloop, jcat, jstream, j_metrics),
+            (tft, tloop, tcat, tstream, t_metrics)):
+        first = loop.submit(cat, pods=stream[0])
+        second = loop.submit(cat, pods=stream[1])
+        ft.install_injector(SiteInjector("sharded-fetch"))
+        plans = [first.result()]
+        ft.clear_injector()
+        plans.append(second.result())
+        plans.append(loop.submit(cat, pods=stream[2]).result())
+        out.append((plans, loop.stats(), mod.SERVING_OVERLAP.get()))
+    (jplans, jstats, joverlap), (tplans, tstats, toverlap) = out
+    assert [p.backend for p in jplans] == [p.backend for p in tplans] == [
+        "sharded-host", "sharded", "sharded"]
+    assert [sharded_view(p) for p in tplans] == \
+        [sharded_view(p) for p in jplans]
+    assert tstats == jstats
+    assert (tstats["fetched"], tstats["overlapped"],
+            tstats["host_failovers"]) == (3, 1, 1)
+    assert toverlap == joverlap == tstats["overlap_fraction"]
+
+
 # -- the planes' wrappers -----------------------------------------------------
 
 class Boom:

@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # preemption planes, the sharded service, the repack plane, the
     # fault and profiling planes, the oracles, the degraded modes, the
     # catalog intake, the provisioning loop, the controllers, the
-    # sidecar and the chaos harness)
+    # sidecar, the chaos harness, the what-if service and the IKS,
+    # load-balancer and HTTP cloud layer)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -190,7 +191,23 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.chaos.runner",
               "karpenter_tpu_torch.chaos.soak",
               "karpenter_tpu_torch.chaos.solver",
-              "karpenter_tpu_torch.chaos.trace"):
+              "karpenter_tpu_torch.chaos.trace",
+              # the what-if planning service and the IKS, load-balancer
+              # and HTTP half of the cloud layer
+              "karpenter_tpu_torch.whatif.forecast",
+              "karpenter_tpu_torch.whatif.service",
+              "karpenter_tpu_torch.whatif.__main__",
+              "karpenter_tpu_torch.cloud.fake_iks",
+              "karpenter_tpu_torch.cloud.http",
+              "karpenter_tpu_torch.cloud.vpc",
+              "karpenter_tpu_torch.cloud.iks",
+              "karpenter_tpu_torch.cloud.loadbalancer",
+              "karpenter_tpu_torch.cloud.stub",
+              "karpenter_tpu_torch.cloud.client_manager",
+              "karpenter_tpu_torch.core.workerpool",
+              "karpenter_tpu_torch.core.factory",
+              "karpenter_tpu_torch.controllers.iks",
+              "karpenter_tpu_torch.controllers.loadbalancer"):
         assert m in res["modules"]
 
 

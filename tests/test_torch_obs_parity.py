@@ -29,6 +29,7 @@ import pytest
 
 import bench
 from karpenter_tpu import obs as j_obs
+from karpenter_tpu.obs import prof as j_prof
 from karpenter_tpu.parallel.mesh import shard_mesh
 from karpenter_tpu.serving import RING_SLOTS as J_RING_SLOTS
 from karpenter_tpu.serving.service import ServingLoop as JServingLoop
@@ -44,6 +45,7 @@ from karpenter_tpu.solver import encode as j_encode
 from karpenter_tpu.utils import metrics as j_metrics
 
 from karpenter_tpu_torch import obs as t_obs
+from karpenter_tpu_torch.obs import prof as t_prof
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.serving import RING_SLOTS
 from karpenter_tpu_torch.serving.service import ServingLoop
@@ -76,9 +78,16 @@ def _state_of(fam):
 
 @pytest.fixture(autouse=True)
 def fresh(monkeypatch):
-    """Both packages start from empty metric families and an empty
-    recorder; afterwards every family and the recorder are put back, so
-    a later test of the same worker reads only its own samples."""
+    """Both packages start from empty metric families, an empty recorder
+    and a fresh device profiler; afterwards every family, the recorder
+    and the profiler are put back, so a later test of the same worker
+    reads only its own samples.  The profiler samples dispatch 0, N,
+    2N... of each kernel counted over the process, so without a fresh
+    one the earlier solves of the worker decide which dispatch of this
+    test writes ``karpenter_tpu_device_time_seconds``."""
+    for prof in (j_prof, t_prof):
+        prof.get_profiler()         # its first call installs the hooks
+        monkeypatch.setattr(prof, "_PROFILER", prof.DeviceProfiler())
     saved = []
     for obs_mod, metrics in SIDES.values():
         fams = _families(metrics)

@@ -470,13 +470,14 @@ def test_serving_loop_failed_fetch_raises_again_and_counts_nothing():
         with pytest.raises(RuntimeError) as caught:
             handle.result()
         assert caught.value is err
+    # counted once, before the fetch, as the reference counts it
     stats = loop.stats()
     assert (stats["fetched"], stats["overlapped"], stats["inflight"]) == (
-        0, 0, 0)
+        1, 0, 0)
     del service._fetch_window
     plan = loop.submit(cat, pods=seqs[1]).result()
     assert plan.merged() is not None
-    assert loop.stats()["fetched"] == 1
+    assert loop.stats()["fetched"] == 2
 
 
 def test_sharded_parity_violations_empty():
