@@ -20,7 +20,8 @@ gang plane and the preemption plane at the shapes of bench.py's
 ``run_whatif``, ``run_gang`` and ``run_preempt``, then the sharded
 service (the headline window, ``run_sharded``'s churn and hash-skewed
 streams, its serving loop) and the repack plane at ``run_repack``'s
-fleet; and checks that each
+fleet, then the provisioning stack around the solve up to the operator
+a deployment starts and its two command lines; and checks that each
 path ran through its hand-written CUDA kernels (the order-fixed cost sum
 on every path that writes a cost word, the flat program's order-fixed
 segment sum, the pref right-size's order-fixed presence sum; the
@@ -316,9 +317,43 @@ no result line:
    ``whatif`` guard site raises ``DeviceFaultError`` out of ``evaluate``,
    a ``WhatIfController`` tick counts ``ERRORS{whatif,
    DeviceFaultError}`` once and records nothing, no breadcrumb and no
-   host plan, and the next clean tick records.
-   (u0) every phase but (s), (u), (w6), (x6), (y6), (z6) and (l6) runs
-   under a gate that
+   host plan, and the next clean tick records; (op1) the operator, after
+   (w8): ``Operator(Options.from_env(env), cloud=<(w2)'s 500-profile
+   FakeCloud>, device="cuda")`` with the what-if plane, a journal
+   directory, warmup and a free ``KARPENTER_METRICS_PORT``, (w2)'s ready
+   NodeClass, started; the 10,000 headline pods added, the window firing
+   at its count (idle and max 60 s), every pod nominated, then
+   ``FakeKubelet.join_pending(ready=True)`` until every claim is
+   initialised: ``ffd_scan`` and ``cost_sum`` launched, the claims (by
+   pod set, count, $/h) those of ``Operator(device="cpu")`` on the same
+   script, the wall from the first add to the last nomination and its
+   solve share printed; (op2) that operator's HTTP surface over
+   ``urllib``: ``/healthz`` and ``/readyz`` 200, ``/metrics`` with
+   ``karpenter_tpu_build_info{backend="torch",platform="cuda"}`` and a
+   torch solve count, ``/statusz`` (backend, leader, last solve, phases,
+   recovery and what-if blocks), ``/debug/traces``, ``/slo``,
+   ``/explain``, ``/telemetry`` and ``/risk`` 200 with JSON,
+   ``/debug/whatif`` over the 10,000 pending pods 200 with one
+   ``ffd_scan_fleet`` and one ``cost_sum`` launch for its stacked plan
+   and a second request meanwhile 429, ``/debug/profile`` taken while
+   headline windows solve through the operator's solver holding samples
+   with a CUDA-event device time and a second capture 429, ``POST
+   /validate-nodeclass`` answering a valid and an invalid document as
+   the CPU operator's; (op3) ``drain()`` leaving no open intent and
+   ``drain-spans.jsonl``, a new operator on the journal recovering
+   nothing, and an operator stopped inside a create (``SimulatedCrash``
+   at ``actuate.post_create``) replayed by the next one; (op4) ``python
+   -m karpenter_tpu_torch --pods 10000 --seconds 120`` and ``python -m
+   karpenter_tpu_torch.obs export --format chrome`` in fresh processes
+   on the card (their default device; run as ``-m`` runs them, with the
+   launch counts printed at exit): exit 0, every pod nominated, at least
+   one window, ``ffd_scan`` and ``cost_sum`` launched, the trace holding
+   the CPU demo's span names; (op6), after (l6): a scripted fault at the
+   ``whatif`` guard site under a live operator's ``/debug/whatif`` over
+   2,000 pending pods answers 500 with ``DeviceFaultError`` in its text,
+   no host plan and no breadcrumb, and the next request 200.
+   (u0) every phase but (s), (u), (w6), (x6), (y6), (z6), (l6) and (op6)
+   runs under a gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``), an
    ``ERRORS{controller.*, reconcile}`` sample or an
@@ -6453,6 +6488,627 @@ def phase_provision_http(dev, card: str, pods, w2_plan) -> dict:
     return out
 
 
+# -- (op1)-(op4), (op6) the operator, its HTTP server and the command lines --
+
+OPERATOR = dict(
+    # (op1): the window fires at its count, the 10,000 headline pods (idle
+    # and max past any stall of the host between two adds, as (v2), (w2)
+    # and (x2)); the deadline bounds every wait of the phase
+    window=dict(idle_seconds=60.0, max_seconds=60.0, max_pods=10_000),
+    deadline_s=120.0,
+    # (op2): the capture's length; headline solves through the operator's
+    # own solver keep windows on the card while it runs
+    profile_s=1.0,
+    # (op4): the simulation command line at the headline's pod count
+    cli_pods=10_000, cli_seconds=120, cli_timeout_s=300,
+    # (op6): the pods left pending in the started window (below its
+    # count) for the what-if plan to read
+    fault_pods=2000)
+# (op2): a document the admission webhook allows and one it refuses (the
+# documents of tests/test_admission.py)
+ADMISSION_DOCS = {
+    "valid": {"metadata": {"name": "x"}, "spec": {
+        "region": "us-south", "image": "img-1",
+        "instanceProfile": "bx2-4x16", "vpc": "vpc-1"}},
+    "invalid": {"apiVersion": "admission.k8s.io/v1",
+                "kind": "AdmissionReview", "request": {
+                    "uid": "u-123", "object": {
+                        "metadata": {"name": "x"}, "spec": {
+                            "region": "us-south", "zone": "eu-de-1",
+                            "image": "img-1", "instanceProfile": "bx2-4x16",
+                            "vpc": "vpc-1"}}}},
+}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, data: bytes | None = None, method: str | None = None):
+    """(status, body) of one request to a local server; an HTTP error
+    status is an answer."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_json(url: str, data: bytes | None = None):
+    code, body = http(url, data, "POST" if data else None)
+    return code, json.loads(body)
+
+
+class OperatorRig:
+    """The port's ``Operator`` on ``device``, started: the 500-profile
+    ``FakeCloud`` of (w2), options from the environment a deployment
+    would give it (the what-if plane on, a journal directory, a free
+    ``KARPENTER_METRICS_PORT``, warmup as asked, a breaker that admits a
+    whole plan, the window of ``OPERATOR``), (w2)'s ready NodeClass and
+    the default NodePool, the provisioner's stages timed (``CycleClock``,
+    wrapped before the start builds the window)."""
+
+    def __init__(self, device, journal_dir: str, warmup: bool = True,
+                 cloud=None):
+        from karpenter_tpu_torch.operator import Operator, Options
+
+        self.port = free_port()
+        self.journal_dir = journal_dir
+        window = OPERATOR["window"]
+        self.env = {
+            "TPU_CLOUD_REGION": "us-south", "TPU_CLOUD_API_KEY": "chip-smoke",
+            "KARPENTER_ENABLE_WHATIF": "1",
+            "KARPENTER_JOURNAL_DIR": journal_dir,
+            "KARPENTER_METRICS_PORT": str(self.port),
+            "KARPENTER_TPU_WARMUP": "true" if warmup else "false",
+            "KARPENTER_WINDOW_IDLE_SECONDS": str(window["idle_seconds"]),
+            "KARPENTER_WINDOW_MAX_SECONDS": str(window["max_seconds"]),
+            "KARPENTER_WINDOW_MAX_PODS": str(window["max_pods"]),
+            "CIRCUIT_BREAKER_FAILURE_THRESHOLD": "100000",
+            "CIRCUIT_BREAKER_RATE_LIMIT_PER_MINUTE": "100000",
+            "CIRCUIT_BREAKER_MAX_CONCURRENT_INSTANCES": "100000"}
+        self.cloud = cloud or FakeCloud(profiles=generate_profiles(
+            INTAKE["types"]))
+        self.op = Operator(Options.from_env(self.env), cloud=self.cloud,
+                           device=device)
+        self.op.cluster.add_nodeclass(provision_nodeclass())
+        self.op.cluster.add_nodepool(NodePool(name="default",
+                                              nodeclass_name="default"))
+        self.clock = CycleClock(self.op.provisioner)
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.op.start()
+        # the start's two planning ticks (the manager's sync and the poll
+        # loop's first cycle) over: the next one is WHATIF_INTERVAL_S
+        # (60 s) away, so no tick holds the single flight when the phase
+        # asks /debug/whatif
+        svc = self.op.whatif
+        wait_for("operator start's what-if ticks", lambda: svc.snapshot()[
+            "ticks"] >= 2 and not svc._flight.locked())
+
+    def stop(self) -> None:
+        if self.op._started:
+            self.op.stop()
+
+
+def operator_claims(cluster) -> dict:
+    """The claims by pod set (``provision_claims``), their count and
+    their $/h."""
+    claims = [c for c in cluster.nodeclaims() if not c.deleted]
+    return {"by_pods": provision_claims(cluster), "count": len(claims),
+            "cost": sum(c.hourly_price for c in claims)}
+
+
+def wait_for(label: str, pred, deadline_s: float = None) -> float:
+    """Poll ``pred`` every 20 ms; its wall, or fail past the deadline."""
+    t0 = time.perf_counter()
+    end = t0 + (deadline_s or OPERATOR["deadline_s"])
+    while not pred():
+        if time.perf_counter() > end:
+            raise AssertionError(f"{label}: not reached in "
+                                 f"{deadline_s or OPERATOR['deadline_s']} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def operator_nominate(rig: OperatorRig, pods) -> dict:
+    """(op1) The headline pods added to the started operator's cluster:
+    the window fires at its count and every pod is nominated."""
+    op = rig.op
+    warmup = op._warmup_thread
+    warm_at_add = warmup is not None and warmup.is_alive()
+    t0 = time.perf_counter()
+    for p in pods:
+        op.cluster.add_pod(p)
+    t_added = time.perf_counter()
+    wait_for("operator (op1) nominations", lambda: all(
+        p.nominated_node for p in op.cluster.pending_pods()))
+    clock = rig.clock
+    # the handler times itself when it returns, after the nominations
+    wait_for("operator (op1) window handler", lambda: "window" in clock.s)
+    fired = [n for _, n in clock.fired]
+    if fired != [len(pods)]:
+        raise AssertionError(f"operator (op1): windows of {fired}, want one "
+                             f"of {len(pods)} (it fires at its count)")
+    wall = clock.last_nominate - t0
+    return {"wall_s": wall, "adds_s": t_added - t0,
+            "solve_s": clock.s["solve"], "solve_share": clock.s["solve"] / wall,
+            "window_s": clock.s["window"], "catalog_s": clock.s["catalog"],
+            "actuation_s": clock.s["actuation"],
+            "nomination_s": clock.s["nomination"], "windows": fired,
+            "warmup_alive_at_add": warm_at_add,
+            "warmup_alive_at_nominate": warmup is not None
+            and warmup.is_alive()}
+
+
+def operator_join(rig: OperatorRig, n_pods: int) -> dict:
+    """(op1) ``FakeKubelet.join_pending(ready=True)`` until every claim is
+    initialised and every pod nominated and bound."""
+    op = rig.op
+    kubelet = FakeKubelet(op.cluster, op.cloud)
+
+    def settled():
+        kubelet.join_pending(ready=True)
+        pods = op.cluster.list("pods")
+        claims = [c for c in op.cluster.nodeclaims() if not c.deleted]
+        return len(pods) == n_pods and all(
+            p.nominated_node and p.bound_node for p in pods) and claims and \
+            all(c.initialized for c in claims)
+
+    return {"join_s": wait_for("operator (op1) joins", settled),
+            "instances": op.cloud.instance_count()}
+
+
+def operator_whatif(rig: OperatorRig) -> dict:
+    """(op2) ``/debug/whatif`` over the live pending window: 200, its
+    stacked plan one ``ffd_scan_fleet`` and one ``cost_sum`` launch and
+    nothing else; a second request while the first plans gets 429 (the
+    first is held inside its plan until the second is answered)."""
+    import threading
+
+    svc = rig.op.whatif
+    plan = svc.planner.plan
+    gate = threading.Event()
+    seen: list = []
+
+    def held(baseline, scenarios):
+        gate.wait(OPERATOR["deadline_s"])
+        before = launch_counts()
+        out = plan(baseline, scenarios)
+        after = launch_counts()
+        seen.append(({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}, out.backend))
+        return out
+
+    svc.planner.plan = held
+    got: dict = {}
+    try:
+        first = threading.Thread(target=lambda: got.update(
+            first=http_json(f"{rig.base}/debug/whatif")))
+        first.start()
+        wait_for("operator (op2) what-if in flight", svc._flight.locked)
+        got["second"] = http_json(f"{rig.base}/debug/whatif")
+        gate.set()
+        first.join(OPERATOR["deadline_s"])
+    finally:
+        gate.set()
+        svc.planner.plan = plan
+    code, payload = got["first"]
+    if code != 200 or got["second"][0] != 429:
+        raise AssertionError(f"operator (op2) /debug/whatif: {code} then "
+                             f"{got['second'][0]}, want 200 then 429: "
+                             f"{str(payload)[:300]}")
+    if len(seen) != 1 or seen[0][0] != {"ffd_scan_fleet": 1, "cost_sum": 1} \
+            or seen[0][1] != "device" or payload["dispatches"] != 1:
+        raise AssertionError(f"operator (op2) /debug/whatif: plans {seen}, "
+                             f"dispatches {payload['dispatches']}, want one "
+                             f"stacked plan on the device launching one "
+                             f"ffd_scan_fleet and one cost_sum")
+    return {"launches": seen[0][0], "pending_pods": payload["pending_pods"],
+            "scenarios": [s["scenario"] for s in payload["scenarios"]],
+            "plan_ms": payload["plan_seconds"] * 1e3,
+            "recommendations": len(payload["recommendations"])}
+
+
+def operator_profile(rig: OperatorRig) -> dict:
+    """(op2) ``/debug/profile`` taken while headline windows solve through
+    the operator's own solver: samples with a CUDA-event device time; a
+    second capture meanwhile answers 429."""
+    import threading
+
+    from karpenter_tpu_torch.obs.prof import get_profiler
+
+    request = rig.clock.solves[0][0]
+    solver = rig.op.provisioner.solver
+    got: dict = {}
+    cap = threading.Thread(target=lambda: got.update(first=http_json(
+        f"{rig.base}/debug/profile?duration_s={OPERATOR['profile_s']}")))
+    cap.start()
+    wait_for("operator (op2) capture", lambda: get_profiler()._capture
+             is not None)
+    got["second"] = http_json(f"{rig.base}/debug/profile?duration_s=1")
+    solves = 0
+    while cap.is_alive():
+        solver.solve(request)
+        solves += 1
+    cap.join()
+    code, payload = got["first"]
+    samples = payload["samples"]
+    timed = [s for s in samples if s.get("device_s", 0.0) > 0.0]
+    # CUDA events give the device time: a CPU dry run has samples only
+    want = timed if rig.op.device.type == "cuda" else samples
+    if code != 200 or got["second"][0] != 429 or not want:
+        raise AssertionError(f"operator (op2) /debug/profile: {code} then "
+                             f"{got['second'][0]} (want 200 then 429), "
+                             f"{len(samples)} samples, {len(timed)} with a "
+                             f"device time, over {solves} solves")
+    device_ms = [s["device_s"] * 1e3 for s in timed] or [0.0]
+    return {"solves": solves, "samples": len(samples),
+            "kernels": sorted({s["kernel"] for s in samples}),
+            "device_ms_p50": float(np.median(device_ms)),
+            "device_time": payload["device_time"]}
+
+
+def operator_surface(rig: OperatorRig) -> dict:
+    """(op2) The probes, ``/metrics``, ``/statusz`` and the JSON debug
+    endpoints of the live operator; build_info names the operator's
+    device type (cuda on the card)."""
+    base = rig.base
+    codes = {path: http(base + path)[0] for path in ("/healthz", "/readyz")}
+    _, text = http(base + "/metrics")
+    text = text.decode()
+    info = re.search(r'karpenter_tpu_build_info\{version="[^"]*",'
+                     r'backend="torch",platform="' + rig.op.device.type
+                     + r'"\} 1\.0', text)
+    solves = re.search(r'karpenter_tpu_solve_duration_seconds_count'
+                       r'\{backend="torch"\} (\d+)', text)
+    code, status = http_json(base + "/statusz")
+    debug = {}
+    for path in ("/debug/traces", "/debug/slo", "/debug/explain",
+                 "/debug/telemetry", "/debug/risk"):
+        c, body = http(base + path)
+        debug[path] = (c, sorted(json.loads(body)) if c == 200 else body)
+    bad = [p for p, (c, _) in debug.items() if c != 200]
+    want_status = status.get("backend") == "torch" and \
+        status.get("leader") is True and status.get("last_solve") and \
+        status.get("last_solve_phases_ms") and "whatif" in status and \
+        status.get("recovery", {}).get("journal", {}).get("enabled")
+    if set(codes.values()) != {200} or not info or not solves or \
+            int(solves.group(1)) < 1 or code != 200 or not want_status or bad:
+        raise AssertionError(
+            f"operator (op2): probes {codes}, build_info "
+            f"{bool(info)}, solve count "
+            f"{solves.group(1) if solves else None}, /statusz {code} "
+            f"{ {k: status.get(k) for k in ('backend', 'leader')} }, "
+            f"failing debug endpoints {bad}")
+    return {"probes": codes, "solve_count": int(solves.group(1)),
+            "families": text.count("# TYPE "),
+            "statusz_keys": sorted(status),
+            "last_solve_path": status["last_solve"].get("path"),
+            "debug": {p: k for p, (_, k) in debug.items()}}
+
+
+def admission_answers(base: str) -> dict:
+    return {name: http_json(f"{base}/validate-nodeclass",
+                            json.dumps(doc).encode())
+            for name, doc in ADMISSION_DOCS.items()}
+
+
+def operator_cpu(pods, journal_dir: str) -> tuple:
+    """(op1), (op2) The same script on ``Operator(device="cpu")``: its
+    claims after the joins and its admission answers."""
+    rig = OperatorRig("cpu", journal_dir)
+    try:
+        nominate = operator_nominate(rig, pods)
+        operator_join(rig, len(pods))
+        return (operator_claims(rig.op.cluster), admission_answers(rig.base),
+                nominate)
+    finally:
+        rig.stop()
+
+
+def operator_drain(dev, rig: OperatorRig) -> dict:
+    """(op3) ``drain()`` leaves no open intent and writes the span bundle;
+    a new operator on the same journal recovers nothing; an operator
+    stopped with an open create intent is replayed by the next one
+    (``tests/test_recovery.py::TestOperatorDrain``)."""
+    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.recovery.journal import read_journal
+    from karpenter_tpu_torch.solver.types import PlannedNode
+
+    t0 = time.perf_counter()
+    rig.op.drain()
+    drain_s = time.perf_counter() - t0
+    d = rig.journal_dir
+    intents, _, _, _ = read_journal(os.path.join(d, "intents.jsonl"))
+    open_intents = rig.op.journal.stats().get("open_intents", 0)
+    bundle = os.path.join(d, "drain-spans.jsonl")
+    if open_intents or not all(i.outcome for i in intents) or \
+            not os.path.exists(bundle):
+        raise AssertionError(f"operator (op3): {open_intents} open intents "
+                             f"after the drain, bundle "
+                             f"{os.path.exists(bundle)}")
+    opts = dict(region="us-south", api_key="chip-smoke", solver_warmup=False,
+                window=WindowOptions(idle_seconds=0.05, max_seconds=0.5))
+    again = Operator(Options(journal_dir=d, **opts), cloud=rig.cloud,
+                     device=dev)
+    again.recover()
+    replayed = again._recovery_report.replayed
+    again.stop()
+    with tempfile.TemporaryDirectory() as crash_dir:
+        op = Operator(Options(journal_dir=crash_dir, **opts),
+                      cloud=FakeCloud(region="us-south"), device=dev)
+        nodeclass = op.cluster.add_nodeclass(provision_nodeclass())
+        catalog = op.provisioner._catalog_for(nodeclass)
+        op.cluster.add_pod(pod_api.PodSpec(
+            "crashpod", requests=pod_api.ResourceRequests(500, 1024, 0, 1)))
+        injector = CrashInjector("actuate.post_create", seed=1,
+                                 first_hit_range=(1, 1), max_crashes=1)
+        node = PlannedNode(instance_type=catalog.type_names[0],
+                           zone="us-south-1", capacity_type="on-demand",
+                           price=1.0, pod_names=["default/crashpod"])
+        try:
+            with crashpoints.installed(injector):
+                op.actuator.create_node(node, nodeclass, catalog)
+        except SimulatedCrash:
+            pass
+        else:
+            raise AssertionError("operator (op3): the crash was not drawn")
+        op.journal.close()
+        op.pricing.close()
+        op2 = Operator(Options(journal_dir=crash_dir, **opts), cloud=op.cloud,
+                       cluster=op.cluster, device=dev)
+        try:
+            op2.recover()
+            rep = op2._recovery_report
+            pod = op2.cluster.get("pods", "default/crashpod")
+            crash = (rep.replayed, rep.finished, op2.cloud.instance_count(),
+                     bool(pod.nominated_node))
+        finally:
+            op2.stop()
+    if replayed != 0 or crash != (1, 1, 1, True):
+        raise AssertionError(f"operator (op3): the drained journal replayed "
+                             f"{replayed}; the crashed one (replayed, "
+                             f"finished, instances, nominated) {crash}")
+    return {"drain_s": drain_s, "intents": len(intents),
+            "restart_replayed": replayed, "crash_replay": crash}
+
+
+def phase_operator(dev, card: str, pods) -> dict:
+    """(op1)-(op3) The operator on the card at the headline (see the
+    module docstring)."""
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        # each side on its own process state from its construction on:
+        # its start already prices the catalog with the process's spot
+        # risk model, which the earlier phases' ledgers trained
+        with side_state():
+            rig = OperatorRig(dev, os.path.join(d, "card"))
+            try:
+                reset_launches()
+                out["nominate"] = operator_nominate(rig, pods)
+                launches = launch_counts()
+                require_launches(launches, ["ffd_scan", "cost_sum"],
+                                 "operator (op1) window")
+                request, plan = rig.clock.solves[0]
+                clean_and_placed("operator (op1) plan", plan, pods,
+                                 request.catalog, request.nodepool)
+                reset_launches()
+                out["whatif"] = operator_whatif(rig)
+                out["join"] = operator_join(rig, len(pods))
+                add_launches(launches, launch_counts())
+                claims = operator_claims(rig.op.cluster)
+                out["surface"] = operator_surface(rig)
+                reset_launches()
+                out["profile"] = operator_profile(rig)
+                add_launches(launches, launch_counts())
+                admission = admission_answers(rig.base)
+                out["drain"] = operator_drain(dev, rig)
+            finally:
+                rig.stop()
+        t1 = time.perf_counter()
+        with side_state():
+            cpu_claims, cpu_admission, cpu_nominate = operator_cpu(
+                pods, os.path.join(d, "cpu"))
+        cpu_s = time.perf_counter() - t1
+    if claims != cpu_claims:
+        card_only = set(claims["by_pods"].items()) - set(
+            cpu_claims["by_pods"].items())
+        raise AssertionError(
+            f"operator (op1): {claims['count']} claims at "
+            f"${claims['cost']:.4f}/h, the CPU operator's "
+            f"{cpu_claims['count']} at ${cpu_claims['cost']:.4f}/h; "
+            f"{len(card_only)} of the card's (pod set, offering) pairs "
+            f"are not the CPU's")
+    if admission != cpu_admission or admission["valid"][1] != {
+            "allowed": True, "errors": []} or admission["invalid"][1][
+                "response"]["allowed"]:
+        raise AssertionError(f"operator (op2) admission: {admission}, the "
+                             f"CPU operator's {cpu_admission}")
+    out.update(launches=launches, claims=claims["count"],
+               cost=claims["cost"], cpu_s=cpu_s,
+               cpu_wall_s=cpu_nominate["wall_s"],
+               host_s=time.perf_counter() - t_phase)
+    n, w, s = out["nominate"], out["whatif"], out["surface"]
+    p, dr = out["profile"], out["drain"]
+    say(f"operator (op1) [{card}]: Operator(device={dev}) over the "
+        f"{INTAKE['types']}-profile FakeCloud, what-if on, journal, metrics "
+        f"port, warmup on (alive at the first add: "
+        f"{n['warmup_alive_at_add']}, at the last nomination: "
+        f"{n['warmup_alive_at_nominate']}); {len(pods)} headline pods in "
+        f"windows of {n['windows']}; wall from the first add to the last "
+        f"nomination {n['wall_s'] * 1e3:.3f} ms (adds "
+        f"{n['adds_s'] * 1e3:.3f} ms, solve {n['solve_s'] * 1e3:.3f} ms, "
+        f"solve share {n['solve_share']:.4f}, window handler "
+        f"{n['window_s'] * 1e3:.3f} ms: catalog resolves of every caller "
+        f"{n['catalog_s'] * 1e3:.3f} ms, actuation "
+        f"{n['actuation_s'] * 1e3:.3f} ms, nominations (each journaled) "
+        f"{n['nomination_s'] * 1e3:.3f} ms); joins "
+        f"{out['join']['join_s']:.3f} "
+        f"s; {claims['count']} claims at ${claims['cost']:.4f}/h, "
+        f"{out['join']['instances']} instances, equal by pod set to "
+        f"Operator(device=cpu)'s ({cpu_s:.3f} s on the host, its wall "
+        f"{cpu_nominate['wall_s'] * 1e3:.3f} ms); launches {launches}")
+    say(f"operator (op2) [{card}]: probes {s['probes']}, /metrics "
+        f"{s['families']} families with build_info{{backend=torch,"
+        f"platform={dev.type}}} and {s['solve_count']} torch solves, /statusz "
+        f"backend torch, leader, last solve on {s['last_solve_path']}, "
+        f"recovery and whatif blocks; {sorted(s['debug'])} 200 with JSON; "
+        f"/debug/whatif 200 over {w['pending_pods']} pending pods "
+        f"({len(w['scenarios'])} scenarios, stacked plan "
+        f"{w['plan_ms']:.3f} ms, launches {w['launches']}), a second "
+        f"request 429; /debug/profile over {p['solves']} headline solves: "
+        f"{p['samples']} samples of {p['kernels']}, device time p50 "
+        f"{p['device_ms_p50']:.4f} ms (CUDA events), a second capture 429; "
+        f"POST /validate-nodeclass answered as the CPU operator")
+    say(f"operator (op3) [{card}]: drain in {dr['drain_s'] * 1e3:.3f} ms, "
+        f"{dr['intents']} intents all closed, drain-spans.jsonl written; a "
+        f"new operator on the journal replayed {dr['restart_replayed']}; "
+        f"a crashed create replayed (replayed, finished, instances, "
+        f"nominated) {dr['crash_replay']}")
+    return out
+
+
+# runs a module as ``python -m`` does (``runpy``, as ``__main__``, the
+# arguments after it) and, at exit, prints the kernels' launch counts of
+# that process to stderr
+CLI_COUNTED = (
+    "import atexit, json, runpy, sys\n"
+    "from karpenter_tpu_torch.solver import (\n"
+    "    cost_sum, ffd_kernel, presence_sum, segment_sum)\n"
+    "def counts():\n"
+    "    c = {k: v for m in (ffd_kernel, segment_sum, presence_sum,\n"
+    "                        cost_sum) for k, v in m.LAUNCHES.items()}\n"
+    "    print('launches: ' + json.dumps(c), file=sys.stderr, flush=True)\n"
+    "atexit.register(counts)\n"
+    "runpy.run_module(sys.argv.pop(1), run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def cli_run(args: list, label: str) -> tuple:
+    """One command line of the port in a fresh process from the
+    repository root, its module run as ``python -m`` runs it:
+    (stdout, launches, wall s)."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTED, *args],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=OPERATOR["cli_timeout_s"])
+    wall = time.perf_counter() - t0
+    counted = [ln for ln in proc.stderr.splitlines()
+               if ln.startswith("launches: ")]
+    if proc.returncode != 0 or len(counted) != 1:
+        raise AssertionError(f"{label}: exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, json.loads(counted[0][len("launches: "):]), wall
+
+
+def phase_cli(dev, card: str) -> dict:
+    """(op4) ``python -m karpenter_tpu_torch --pods 10000 --seconds 120``
+    and ``python -m karpenter_tpu_torch.obs export --format chrome`` as
+    processes on the card (their default device): the summary's counts,
+    and the trace's span names those of the demo on the CPU."""
+    from karpenter_tpu_torch.obs import export as obs_export
+    from karpenter_tpu_torch.obs.__main__ import _run_demo
+
+    on_cpu = [] if dev.type == "cuda" else ["--device", "cpu"]
+    pods = OPERATOR["cli_pods"]
+    text, launches, sim_s = cli_run(
+        ["karpenter_tpu_torch", "--pods", str(pods), "--seconds",
+         str(OPERATOR["cli_seconds"])] + on_cpu, "cli (op4) simulation")
+    lines = text.strip().splitlines()[-5:]
+    summary = dict(line.split(":", 1) for line in lines)
+    windows = int(summary.get("solve windows", "0"))
+    if summary.get("pods nominated", "").strip() != f"{pods}/{pods}" or \
+            windows < 1:
+        raise AssertionError(f"cli (op4) simulation: {lines}")
+    if dev.type == "cuda":
+        require_launches(launches, ["ffd_scan", "cost_sum"],
+                         "cli (op4) simulation")
+    text, obs_launches, obs_s = cli_run(
+        ["karpenter_tpu_torch.obs", "export", "--format", "chrome"] + on_cpu,
+        "cli (op4) obs export")
+    # the demo's solver is the host greedy oracle: it launches nothing
+    require_no_launches(obs_launches, "cli (op4) obs export demo")
+    names = {e["name"] for e in json.loads(text)["traceEvents"]}
+    demo = {d["name"] for d in obs_export.recorder_to_dicts(
+        _run_demo("cpu"))}
+    if not demo <= names:
+        raise AssertionError(f"cli (op4) obs export: the trace lacks the CPU "
+                             f"demo's spans {sorted(demo - names)}")
+    say(f"cli (op4) [{card}]: python -m karpenter_tpu_torch --pods {pods} "
+        f"exited 0 in {sim_s:.3f} s: {'; '.join(s.strip() for s in lines)}; "
+        f"launches {launches}; "
+        f"python -m karpenter_tpu_torch.obs export --format chrome exited 0 "
+        f"in {obs_s:.3f} s with {len(names)} span names, the CPU demo's "
+        f"{len(demo)} among them"
+        + (f" (and {sorted(names - demo)})" if names - demo else ""))
+    return {"sim_s": sim_s, "windows": windows, "summary": lines,
+            "obs_s": obs_s, "span_names": sorted(names),
+            "launches": launches}
+
+
+def phase_operator_fault(dev, card: str, pods) -> dict:
+    """(op6) A scripted fault at the ``whatif`` guard site under the live
+    operator's ``/debug/whatif``: 500 with ``DeviceFaultError`` in its
+    text, no host plan and no breadcrumb; the next request 200."""
+    pending = pods[:OPERATOR["fault_pods"]]
+    with tempfile.TemporaryDirectory() as d:
+        rig = OperatorRig(dev, d, warmup=False)
+        try:
+            svc = rig.op.whatif
+            for p in pending:
+                rig.op.cluster.add_pod(p)
+            plan = svc.planner.plan
+            plans: list = []
+
+            def kept(baseline, scenarios):
+                out = plan(baseline, scenarios)
+                plans.append(out.backend)
+                return out
+
+            svc.planner.plan = kept
+            marks = degradation_marks()
+            degraded = svc.snapshot()["degraded_plans"]
+            recs = len(svc.recommendations())
+            with injected("whatif"):
+                code, payload = http_json(f"{rig.base}/debug/whatif")
+            if code != 500 or "DeviceFaultError" not in payload.get(
+                    "error", "") or plans or \
+                    svc.snapshot()["degraded_plans"] != degraded or \
+                    len(svc.recommendations()) != recs:
+                raise AssertionError(f"operator (op6): {code} "
+                                     f"{str(payload)[:300]}, plans {plans}")
+            expect_marks("operator (op6)", marks, {})
+            reset_launches()
+            code2, payload2 = http_json(f"{rig.base}/debug/whatif")
+            launches = launch_counts()
+            if code2 != 200 or plans != ["device"] or \
+                    payload2["pending_pods"] != len(pending):
+                raise AssertionError(f"operator (op6): the next request "
+                                     f"{code2}, plans {plans}")
+            require_launches(launches, ["ffd_scan_fleet", "cost_sum"],
+                             "operator (op6) next request")
+        finally:
+            rig.stop()
+    say(f"operator (op6) [{card}]: a scripted fault at 'whatif' under "
+        f"/debug/whatif over {len(pending)} pending pods answered {code} "
+        f"({payload['error']!r}); no host plan, no breadcrumb; the next "
+        f"request {code2} on the device (launches {launches})")
+    return {"code": code, "error": payload["error"], "next": code2,
+            "launches": launches}
+
+
 # -- (s) the fault and profiling planes ----------------------------------------
 
 FAULT = dict(windows=300, capture_s=1.5, batch=16, warm=20,
@@ -8079,9 +8735,12 @@ def main() -> int:
     iks_run = gated("(w7) iks", phase_provision_iks, dev, card, pods)
     http_run = gated("(w8) http", phase_provision_http, dev, card, pods,
                      provision.pop("plan"))
+    operator_run = gated("(op1)-(op3) operator", phase_operator, dev, card,
+                         pods)
+    cli = gated("(op4) cli", phase_cli, dev, card)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
         f"but (s), nor in (v), (w1)-(w5), (x1)-(x5), (y), (z), (l2), "
-        f"(w7) or (w8), no "
+        f"(w7), (w8) or (op1)-(op4), no "
         f"controller's "
         f"reconcile failed and no plan was refused; "
         f"sharded_solves_total{{host}} "
@@ -8093,6 +8752,7 @@ def main() -> int:
     sidecar_fault = phase_sidecar_fault(dev, card, pods, catalog)
     chaos_fault = phase_chaos_fault(dev, card)
     whatif_fault = phase_whatif_fault(dev, card, pods, catalog)
+    operator_fault = phase_operator_fault(dev, card, pods)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -8135,6 +8795,8 @@ def main() -> int:
                      "whatif_service": whatif_service["launches"],
                      "iks": iks_run["launches"],
                      "http": http_run["launches"],
+                     "operator": operator_run["launches"],
+                     "cli": cli["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -8178,7 +8840,8 @@ def main() -> int:
             "sidecar": sidecar_run, "sidecar_fault": sidecar_fault,
             "chaos": chaos_run, "chaos_fault": chaos_fault,
             "whatif_service": whatif_service, "whatif_fault": whatif_fault,
-            "iks": iks_run, "http": http_run, "fault": fault,
+            "iks": iks_run, "http": http_run, "operator": operator_run,
+            "cli": cli, "operator_fault": operator_fault, "fault": fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

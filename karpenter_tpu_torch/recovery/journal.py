@@ -27,9 +27,15 @@ Durability is fsync-batched: intent records always fsync (write-ahead);
 notes/dones/state fsync every ``fsync_interval`` records or at flush.
 The file is bounded: once more than ``max_records`` have accumulated,
 compaction rewrites it keeping only open intents and the newest state
-record per key (atomic ``os.replace``).
+record per key (atomic ``os.replace``).  The next compaction waits for
+``max(max_records, 2 * live)`` records, where ``live`` is what the last
+one kept: the file stays within twice its live set, and compaction is
+amortized over the appends.
 
-(Copy of ``karpenter_tpu/recovery/journal.py``.)
+(Copy of ``karpenter_tpu/recovery/journal.py``, but for that threshold:
+the reference compacts on every append once the live set alone exceeds
+``max_records``, so an operator nominating 10,000 pods rewrote the
+whole file about 6,000 times.)
 """
 
 from __future__ import annotations
@@ -203,6 +209,8 @@ class IntentJournal(NullJournal):
         self._fh: io.TextIOBase | None = None
         self._unsynced = 0
         self._records = 0          # records in the file (approx, see load)
+        # the record count that triggers the next compaction
+        self._compact_at = self.max_records
         self._compactions = 0
         # in-memory mirrors of what is on disk (kept current so open
         # intents / state reads never re-parse the file on the hot path)
@@ -276,7 +284,7 @@ class IntentJournal(NullJournal):
             metrics.JOURNAL_RECORDS.labels(rec["rec"]).inc()
             if durable or self._unsynced >= self.fsync_interval:
                 self._fsync_locked()
-            if self._records > self.max_records:
+            if self._records > self._compact_at:
                 self._compact_locked()
 
     def _fsync_locked(self) -> None:
@@ -373,6 +381,7 @@ class IntentJournal(NullJournal):
             self._fh = None
         os.replace(tmp, self.path)
         self._records = n
+        self._compact_at = max(self.max_records, 2 * n)
         self._unsynced = 0
         self._compactions += 1
         metrics.JOURNAL_COMPACTIONS.inc()

@@ -1268,3 +1268,125 @@ def test_iks_factory_provisioning_on_card_matches_cpu(cuda_device):
     assert card == cpu
     plan, made, after = card
     assert len(made[1]) == len(plan) and len(after[0]) < len(made[0])
+
+
+def _operator_world(device, pods, warmup=True):
+    """The port's ``Operator`` on ``device`` over a 60-profile fake cloud:
+    its window fires at ``len(pods)`` (idle and max past any stall of the
+    host), the breaker admits a whole plan, warmup as asked.  Returns the
+    claims by pod set, the window sizes and the operator's last solve
+    path; the operator is stopped."""
+    from karpenter_tpu_torch.apis.nodeclass import (
+        InstanceRequirements, NodeClass, NodeClassSpec, PlacementStrategy,
+    )
+    from karpenter_tpu_torch.cloud.fake import FakeCloud, generate_profiles
+    from karpenter_tpu_torch.core import CircuitBreakerConfig, WindowOptions
+    from karpenter_tpu_torch.operator import Operator, Options
+
+    opts = Options(
+        region="us-south", api_key="k", solver_warmup=warmup,
+        window=WindowOptions(idle_seconds=60.0, max_seconds=60.0,
+                             max_pods=len(pods)),
+        circuit_breaker=CircuitBreakerConfig(
+            failure_threshold=100_000, rate_limit_per_minute=100_000,
+            max_concurrent_instances=100_000))
+    op = Operator(opts, cloud=FakeCloud(profiles=generate_profiles(60)),
+                  device=device)
+    op.cluster.add_nodeclass(NodeClass(name="default", spec=NodeClassSpec(
+        region="us-south", image="img-1", vpc="vpc-1",
+        instance_requirements=InstanceRequirements(min_cpu=2),
+        placement_strategy=PlacementStrategy())))
+    fired = []
+    on_window = op.provisioner._on_window
+
+    def counted(batch, *args, **kwargs):
+        fired.append(len(batch))
+        return on_window(batch, *args, **kwargs)
+
+    op.provisioner._on_window = counted
+    op.start()
+    try:
+        for p in pods:
+            op.cluster.add_pod(p)
+        import time
+
+        deadline = time.time() + 120
+        while time.time() < deadline and not all(
+                p.nominated_node for p in op.cluster.pending_pods()):
+            time.sleep(0.05)
+        assert all(p.nominated_node for p in op.cluster.pending_pods())
+        return (_claims_by_pods(op.cluster), fired,
+                op.statusz()["last_solve"].get("path"))
+    finally:
+        op.stop()
+        assert op._warmup_thread is None
+
+
+@pytest.mark.cuda
+def test_operator_window_on_card_matches_cpu(cuda_device):
+    """2,000 pods through the started operator on the card, its warmup
+    thread on: one window at its count, the claims (by pod set) those of
+    the same operator on the CPU, ``ffd_scan`` and ``cost_sum``
+    launched."""
+    from karpenter_tpu_torch.solver import cost_sum
+
+    pods, _ = workload.build_workload(2000, 60, seed=21)
+    before = (ffd_kernel.LAUNCHES["ffd_scan"], cost_sum.LAUNCHES["cost_sum"])
+    card = _operator_world(cuda_device, pods)
+    assert ffd_kernel.LAUNCHES["ffd_scan"] > before[0]
+    assert cost_sum.LAUNCHES["cost_sum"] > before[1]
+    cpu = _operator_world("cpu", pods, warmup=False)
+    assert card[1] == cpu[1] == [2000]
+    assert card[0] == cpu[0]
+    assert card[2] == "ffd-cuda" and cpu[2] == "ffd-reference"
+
+
+@pytest.mark.cuda
+def test_debug_profile_has_device_time_on_card(cuda_device):
+    """``/debug/profile`` taken while windows solve on the card: samples
+    with a CUDA-event device time, and a second capture meanwhile
+    answers 429."""
+    import json
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    from karpenter_tpu_torch.obs import prof
+    from karpenter_tpu_torch.operator.server import MetricsServer
+
+    pods, catalog = workload.build_workload(2000, 60, seed=21)
+    solver = TorchSolver(device=cuda_device)
+    solver.solve(SolveRequest(pods, catalog))
+    saved = prof._PROFILER
+    prof._PROFILER = prof.DeviceProfiler()
+    srv = MetricsServer(host="127.0.0.1", port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    out = {}
+    try:
+        def capture():
+            with urllib.request.urlopen(
+                    f"{base}/debug/profile?duration_s=1.5", timeout=30) as r:
+                out["first"] = (r.status, json.loads(r.read()))
+
+        t = threading.Thread(target=capture)
+        t.start()
+        time.sleep(0.2)
+        try:
+            urllib.request.urlopen(f"{base}/debug/profile?duration_s=1",
+                                   timeout=30)
+            out["second"] = 200
+        except urllib.error.HTTPError as e:
+            out["second"] = e.code
+        end = time.time() + 1.0
+        while time.time() < end:
+            solver.solve(SolveRequest(pods, catalog))
+        t.join(timeout=30)
+    finally:
+        srv.stop()
+        prof._PROFILER = saved
+    code, payload = out["first"]
+    assert code == 200 and out["second"] == 429
+    samples = payload["samples"]
+    assert samples and all(s["device_s"] > 0 for s in samples)
+    assert "scan" in payload["device_time"]

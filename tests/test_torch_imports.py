@@ -54,8 +54,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # preemption planes, the sharded service, the repack plane, the
     # fault and profiling planes, the oracles, the degraded modes, the
     # catalog intake, the provisioning loop, the controllers, the
-    # sidecar, the chaos harness, the what-if service and the IKS,
-    # load-balancer and HTTP cloud layer)
+    # sidecar, the chaos harness, the what-if service, the IKS,
+    # load-balancer and HTTP cloud layer, the operator and the command
+    # lines)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -207,7 +208,15 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.core.workerpool",
               "karpenter_tpu_torch.core.factory",
               "karpenter_tpu_torch.controllers.iks",
-              "karpenter_tpu_torch.controllers.loadbalancer"):
+              "karpenter_tpu_torch.controllers.loadbalancer",
+              # the operator, its HTTP server and the two command lines
+              "karpenter_tpu_torch.operator",
+              "karpenter_tpu_torch.operator.options",
+              "karpenter_tpu_torch.operator.credentials",
+              "karpenter_tpu_torch.operator.server",
+              "karpenter_tpu_torch.operator.operator",
+              "karpenter_tpu_torch.__main__",
+              "karpenter_tpu_torch.obs.__main__"):
         assert m in res["modules"]
 
 

@@ -30,6 +30,7 @@ import pytest
 import bench
 from karpenter_tpu import obs as j_obs
 from karpenter_tpu.obs import prof as j_prof
+from karpenter_tpu.obs import watchdog as j_watchdog
 from karpenter_tpu.parallel.mesh import shard_mesh
 from karpenter_tpu.serving import RING_SLOTS as J_RING_SLOTS
 from karpenter_tpu.serving.service import ServingLoop as JServingLoop
@@ -46,6 +47,7 @@ from karpenter_tpu.utils import metrics as j_metrics
 
 from karpenter_tpu_torch import obs as t_obs
 from karpenter_tpu_torch.obs import prof as t_prof
+from karpenter_tpu_torch.obs import watchdog as t_watchdog
 from karpenter_tpu_torch import workload
 from karpenter_tpu_torch.serving import RING_SLOTS
 from karpenter_tpu_torch.serving.service import ServingLoop
@@ -84,10 +86,16 @@ def fresh(monkeypatch):
     reads only its own samples.  The profiler samples dispatch 0, N,
     2N... of each kernel counted over the process, so without a fresh
     one the earlier solves of the worker decide which dispatch of this
-    test writes ``karpenter_tpu_device_time_seconds``."""
+    test writes ``karpenter_tpu_device_time_seconds``.  Each package's
+    anomaly watchdog is fresh too (its breach counters are samples)."""
     for prof in (j_prof, t_prof):
         prof.get_profiler()         # its first call installs the hooks
         monkeypatch.setattr(prof, "_PROFILER", prof.DeviceProfiler())
+    # the anomaly watchdog's baselines (latency per kernel and phase,
+    # fill per plane) are the process's too: an earlier test's windows
+    # decide whether this one's samples breach
+    for wd in (j_watchdog, t_watchdog):
+        monkeypatch.setattr(wd, "_WATCHDOG", wd.Watchdog())
     saved = []
     for obs_mod, metrics in SIDES.values():
         fams = _families(metrics)
@@ -164,6 +172,24 @@ def catalogs():
     return bench.build_catalog(60), workload.build_catalog(60)
 
 
+# The windows' pods are built here, once, before each test's ``fresh``:
+# ``build_workload`` also prices a catalog through the pricing batcher,
+# whose batches (a 0.2 s idle) a stall of a loaded host splits, so its
+# samples would differ between the packages by timing alone.
+
+@pytest.fixture(scope="module")
+def plain_pods():
+    return (bench.build_workload(400, 60, seed=5)[0],
+            workload.build_workload(400, 60, seed=5)[0])
+
+
+@pytest.fixture(scope="module")
+def serving_pods():
+    return [(bench.build_workload(120 + 10 * w, 60, seed=7)[0],
+             workload.build_workload(120 + 10 * w, 60, seed=7)[0])
+            for w in range(RING_SLOTS + 2)]
+
+
 def affinity_pods():
     return (bench._affinity_bench_pods("ap0", 300, np.random.RandomState(190),
                                        services=4, spread_sets=2),
@@ -190,10 +216,10 @@ def test_affinity_windows_write_the_reference_samples_and_spans(catalogs):
                for t in traces("t")) == 3
 
 
-def test_plain_windows_write_the_reference_samples_and_spans(catalogs):
+def test_plain_windows_write_the_reference_samples_and_spans(catalogs,
+                                                          plain_pods):
     jcat, tcat = catalogs
-    jpods, _ = bench.build_workload(400, 60, seed=5)
-    tpods, _ = workload.build_workload(400, 60, seed=5)
+    jpods, tpods = plain_pods
     js = JaxSolver(JSolverOptions(use_pallas="off"))
     ts = TorchSolver(SolverOptions(), device="cpu")
     for _ in range(2):
@@ -203,10 +229,10 @@ def test_plain_windows_write_the_reference_samples_and_spans(catalogs):
     assert t_metrics.SOLVE_PODS.count("torch") == 2
 
 
-def test_sharded_window_writes_the_reference_samples_and_spans(catalogs):
+def test_sharded_window_writes_the_reference_samples_and_spans(catalogs,
+                                                              plain_pods):
     jcat, tcat = catalogs
-    jpods, _ = bench.build_workload(400, 60, seed=5)
-    tpods, _ = workload.build_workload(400, 60, seed=5)
+    jpods, tpods = plain_pods
     # the port holds every shard on one device: the reference's shards
     # go on one device too, as the port's sharded tests place them
     jsolver = JShardedSolver(2)
@@ -221,15 +247,14 @@ def test_sharded_window_writes_the_reference_samples_and_spans(catalogs):
     assert any("sharded.window" in t for t in traces("t"))
 
 
-def test_serving_backpressure_writes_the_reference_samples(catalogs):
+def test_serving_backpressure_writes_the_reference_samples(catalogs,
+                                                          serving_pods):
     jcat, tcat = catalogs
     assert RING_SLOTS == J_RING_SLOTS
     jloop = JServingLoop(JaxSolver(JSolverOptions(use_pallas="off")))
     tloop = ServingLoop(TorchSolver(SolverOptions(), device="cpu"))
     jh, th = [], []
-    for w in range(RING_SLOTS + 2):
-        jpods, _ = bench.build_workload(120 + 10 * w, 60, seed=7)
-        tpods, _ = workload.build_workload(120 + 10 * w, 60, seed=7)
+    for jpods, tpods in serving_pods:
         jh.append(jloop.submit(j_encode(jpods, jcat)))
         th.append(tloop.submit(t_encode(tpods, tcat)))
     assert tloop.backpressured == jloop.backpressured == 2

@@ -160,6 +160,29 @@ def test_journal_torn_line_compaction_and_seq(tmp_path, fixed_ids):
     assert [i[0] for i in intents] == ["t-000201"] and state == {"k": 1}
 
 
+def test_journal_compaction_is_amortized_over_a_large_state(tmp_path):
+    """A live state larger than ``max_records`` (an operator nominating
+    more pods than that): the port compacts when the file doubles its
+    live set, the reference on every append past ``max_records``.  The
+    state read back and the records on disk are the same."""
+    out = []
+    for m in SIDES:
+        path = str(tmp_path / f"{m.pkg}.jsonl")
+        j = m.journal.IntentJournal(path, owner="t", max_records=64,
+                                    fsync=False)
+        for i in range(400):
+            j.state(f"nom/p{i}", f"c{i % 7}")
+        compactions = j.stats()["compactions"]
+        j.close()
+        _, state, _, _ = m.journal.read_journal(path)
+        reread = m.journal.IntentJournal(path, owner="t").state_map()
+        out.append((compactions, state, reread))
+    (ref_n, ref_state, ref_map), (n, state, reread) = out
+    assert state == ref_state == reread == ref_map
+    assert len(state) == 400
+    assert ref_n == 400 - 64 and n == 3       # at 65, 130 and 260 records
+
+
 def test_null_journal_and_idempotency_switch(tmp_path, fixed_ids):
     def script(m, path):
         nj = m.journal.NULL_JOURNAL

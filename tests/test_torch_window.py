@@ -247,8 +247,10 @@ def test_solve_window_through_both_solvers():
             fired.append(len(batch))
             return node_names(solve(list(batch)), batch)
 
+        # the window fires at its count: a loaded host stalls the adds
+        # past a short idle or max, which splits the window
         win = window_mod.SolveWindow(on_window, window_mod.WindowOptions(
-            idle_seconds=0.05, max_seconds=0.05, max_pods=len(pods)))
+            idle_seconds=60.0, max_seconds=60.0, max_pods=len(pods)))
         try:
             got = [f.result(timeout=120) for f in win.add_all(pods)]
         finally:
