@@ -351,9 +351,25 @@ no result line:
    the CPU demo's span names; (op6), after (l6): a scripted fault at the
    ``whatif`` guard site under a live operator's ``/debug/whatif`` over
    2,000 pending pods answers 500 with ``DeviceFaultError`` in its text,
-   no host plan and no breadcrumb, and the next request 200.
-   (u0) every phase but (s), (u), (w6), (x6), (y6), (z6), (l6) and (op6)
-   runs under a gate that
+   no host plan and no breadcrumb, and the next request 200; (mp1)-(mp3)
+   the mesh half of the fleet solves on ``fleet_mesh()`` (one slot per
+   card) over (b)'s clusters: ``fleet_solve`` with one ``ffd_scan_fleet``
+   and one ``cost_sum`` launch per slot, equal word for word to
+   ``fleet_solve_packed`` and to (b)'s plain CPU program, its p50 beside
+   ``fleet_solve_packed``'s; ``fleet_solve_pallas_sharded`` escalating
+   from a 64-slot COO buffer to the dense results; the offer-sharded
+   ``fleet_solve_sharded_offerings`` on ``solver_mesh(1, 1)`` equal to
+   the unsharded solve, its wall and the device kernels its step loop
+   issues; (mp4), after (op6): ``ShardedSolveService(2)`` on the card's
+   shard mesh, its rows equal to ``solve_shards(mesh=None)``, the card
+   quarantined on a fresh board (the window raises
+   ``DeviceFaultError(kind="quarantined")``, no rebuild, no host plan)
+   and recovered after one green probe with one ``device_recovered``
+   rebuild and plans equal.  A mesh wider than one card is held only on
+   CPU slots (tests/test_torch_parallel.py,
+   tests/test_torch_mesh_failover.py).
+   (u0) every phase but (s), (u), (w6), (x6), (y6), (z6), (l6), (op6) and
+   (mp4) runs under a gate that
    fails the run if it moves a degradation breadcrumb
    (``solver/degraded.breadcrumbs()``), an
    ``ERRORS{controller.*, reconcile}`` sample or an
@@ -410,8 +426,9 @@ from karpenter_tpu_torch import cuda_build, workload
 from karpenter_tpu_torch.apis import pod as pod_api
 from karpenter_tpu_torch.apis.requirements import LABEL_ZONE
 from karpenter_tpu_torch.parallel import (
-    FleetProblem, fleet_device_catalog, fleet_pack_inputs,
-    fleet_solve_packed,
+    FleetProblem, fleet_device_catalog, fleet_mesh, fleet_pack_inputs,
+    fleet_parse_outputs, fleet_solve, fleet_solve_packed,
+    fleet_solve_pallas_sharded, fleet_solve_sharded_offerings, solver_mesh,
 )
 from karpenter_tpu_torch.affinity.kernel import solve_packed_affinity
 from karpenter_tpu_torch.affinity.validate import validate_affinity_plan
@@ -582,6 +599,10 @@ SHARDED = dict(shards=2, warm=20, wide=4, pods=10_000, types=500, rounds=4,
 # _run_repack_defrag's torus case (two gx3-64x512 nodes, gpu=2
 # singletons 3 and 1, a parked 2x2x2 gang)
 REPACK = dict(claims=2000, types=500, pods_per_claim=2, seed=13, iters=8)
+# the mesh phase (mp): the fleet of phase (b) on fleet_mesh(), a COO
+# capacity small enough to escalate, the offer-sharded solve's timing
+# repetitions and cost tolerance, and the sharded service's shard count
+MESH = dict(reps=5, compact=64, offer_reps=3, cost_rtol=1e-6, shards=2)
 KERNELS = {
     "ffd_scan": dict(
         route="cuda", source="karpenter_tpu_torch/csrc/ffd_scan.cu",
@@ -1280,7 +1301,224 @@ def phase_fleet(dev) -> dict:
         f"fleet solve {cold_s * 1e3:.3f} ms")
     return {"stacked": stacked, "N": N, "U": U, "packed": packed,
             "dev_catalog": dev_catalog, "launches": launches,
-            "nodes": nodes, "cold_s": cold_s}
+            "nodes": nodes, "cold_s": cold_s, "plain": plain}
+
+
+def results_equal(label: str, got, want, cost_rtol: float = 0.0) -> None:
+    """Two (node_off, assign, unplaced, cost) numpy results: the first
+    three equal word for word, the cost bit for bit (or within
+    ``cost_rtol``)."""
+    for name, a, b in zip(("node_off", "assign", "unplaced"), got, want):
+        bad = np.argwhere(a != b)
+        if a.shape != b.shape or bad.size:
+            raise AssertionError(f"{label}: {name} differs ({a.shape} vs "
+                                 f"{b.shape}; first at "
+                                 f"{bad[0].tolist() if bad.size else None})")
+    if cost_rtol:
+        np.testing.assert_allclose(got[3], want[3], rtol=cost_rtol,
+                                   err_msg=f"{label}: cost")
+    elif not np.array_equal(got[3].view(np.int32), want[3].view(np.int32)):
+        raise AssertionError(f"{label}: cost words differ: {got[3]} vs "
+                             f"{want[3]}")
+
+
+def phase_mesh(dev, card: str, fleet: dict) -> dict:
+    """(mp1)-(mp3) The mesh half of the fleet solves on ``fleet_mesh()``
+    (one slot per card) over phase (b)'s clusters at its node axis:
+    (mp1) ``fleet_solve``, one ``ffd_scan_fleet`` and one ``cost_sum``
+    launch per slot, equal word for word to ``fleet_solve_packed`` and
+    to phase (b)'s plain CPU fleet program, its p50 wall beside
+    ``fleet_solve_packed``'s (both pack and upload on every call) in
+    turns; (mp2) ``fleet_solve_pallas_sharded`` from a COO capacity of
+    MESH["compact"] slots, which must escalate, equal to the dense
+    results; (mp3) ``fleet_solve_sharded_offerings`` on
+    ``solver_mesh(1, 1)``: node_off, assign and unplaced equal to
+    (mp1)'s, the cost within MESH["cost_rtol"] (its sum is not the
+    order-fixed ``cost_sum``), no hand kernel launched, its wall and the
+    device kernels its host-issued step loop launches (torch.profiler)."""
+    stacked, N = fleet["stacked"], fleet["N"]
+    C, G, O = stacked.compat.shape
+    mesh = fleet_mesh()
+    width = mesh.shape["fleet"]
+    plain = fleet_parse_outputs(fleet["plain"], C, G, N, 0)
+    reset_launches()
+    got = fleet_solve(stacked, mesh, num_nodes=N)
+    launches = launch_counts()
+    want = {"ffd_scan_fleet": width, "cost_sum": width}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"(mp1) launches {launches}, want {want}")
+    dense = fleet_solve_packed(stacked, num_nodes=N, device=dev)
+    results_equal("(mp1) against fleet_solve_packed", got, dense)
+    results_equal("(mp1) against the plain CPU fleet program", got, plain)
+    walls = {"fleet_solve": [], "fleet_solve_packed": []}
+    for _ in range(MESH["reps"]):
+        for name, fn in (("fleet_solve", lambda: fleet_solve(
+                stacked, mesh, num_nodes=N)),
+                ("fleet_solve_packed", lambda: fleet_solve_packed(
+                    stacked, num_nodes=N, device=dev))):
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append(time.perf_counter() - t0)
+    p50 = {k: p50_ms(v) for k, v in walls.items()}
+    say(f"mesh (mp1) [{card}]: fleet_solve on fleet_mesh() ({width} slot"
+        f"{'s' if width > 1 else ''}: "
+        f"{[str(d) for d in mesh.devices.flat]}), {C} clusters G={G} O={O} "
+        f"N={N}: launches {launches}; equal word for word to "
+        f"fleet_solve_packed and to the plain CPU fleet program; p50 of "
+        f"{MESH['reps']} in turns (each packs and uploads): fleet_solve "
+        f"{p50['fleet_solve']:.4f} ms ({fmt_ms(np.array(walls['fleet_solve']) * 1e3)}), "
+        f"fleet_solve_packed {p50['fleet_solve_packed']:.4f} ms "
+        f"({fmt_ms(np.array(walls['fleet_solve_packed']) * 1e3)})")
+    mesh_launches = dict(launches)
+
+    N2 = max(N, 128)
+    dense2 = dense if N2 == N else fleet_solve_packed(
+        stacked, num_nodes=N2, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    coo = fleet_solve_pallas_sharded(stacked, mesh, num_nodes=N,
+                                     compact=MESH["compact"],
+                                     compact_cap=G * N2)
+    coo_s = time.perf_counter() - t0
+    launches2 = launch_counts()
+    dispatches = launches2["ffd_scan_fleet"] // width
+    if dispatches < 2 or launches2["cost_sum"] != launches2[
+            "ffd_scan_fleet"]:
+        raise AssertionError(f"(mp2) did not escalate: {launches2}")
+    results_equal("(mp2) against the dense results", coo, dense2)
+    add_launches(mesh_launches, launches2)
+    say(f"mesh (mp2) [{card}]: fleet_solve_pallas_sharded from K="
+        f"{MESH['compact']} escalated through {dispatches} dispatches of "
+        f"the whole mesh (launches {launches2}), results equal to the dense "
+        f"ones at N={N2}; wall {coo_s * 1e3:.3f} ms")
+
+    smesh = solver_mesh(1, 1)
+    reset_launches()
+    t0 = time.perf_counter()
+    off = fleet_solve_sharded_offerings(stacked, smesh, num_nodes=N)
+    off_s = time.perf_counter() - t0
+    launches3 = launch_counts()
+    require_no_launches(launches3, "offer-sharded solve")
+    results_equal("(mp3) against the unsharded solve", off, dense,
+                  cost_rtol=MESH["cost_rtol"])
+    cost_rel = float(np.max(np.abs(off[3] - dense[3])
+                            / np.maximum(np.abs(dense[3]), 1e-30)))
+    walls3 = []
+    for _ in range(MESH["offer_reps"]):
+        t0 = time.perf_counter()
+        fleet_solve_sharded_offerings(stacked, smesh, num_nodes=N)
+        walls3.append(time.perf_counter() - t0)
+    prof = profile_spans(lambda: fleet_solve_sharded_offerings(
+        stacked, smesh, num_nodes=N), 1, "mp3")
+    kernels3 = None if prof is None else prof["kernels_per_span"]
+    say(f"mesh (mp3) [{card}]: fleet_solve_sharded_offerings on "
+        f"solver_mesh(1, 1), {C} clusters batched over G={G} host-issued "
+        f"steps: node_off, assign and unplaced equal to the unsharded "
+        f"solve's, cost within {cost_rel:.3g} relative; no hand kernel "
+        f"launched; cold {off_s * 1e3:.3f} ms, warm "
+        f"{fmt_ms(np.array(walls3) * 1e3)} ms (p50 "
+        f"{p50_ms(walls3):.4f} ms); device kernels per solve "
+        f"(torch.profiler) {kernels3}")
+    return {"launches": mesh_launches, "width": width, "p50_ms": p50,
+            "walls_ms": {k: [w * 1e3 for w in v] for k, v in walls.items()},
+            "coo_dispatches": dispatches, "coo_ms": coo_s * 1e3,
+            "offer_cold_ms": off_s * 1e3,
+            "offer_ms": [w * 1e3 for w in walls3],
+            "offer_cost_rel": cost_rel, "offer_kernels": kernels3}
+
+
+def phase_mesh_fault(dev, card: str, pods, catalog) -> dict:
+    """(mp4) ``ShardedSolveService(2, device="cuda")`` on a fresh health
+    board with a clock of its own: a window on the default mesh (one
+    slot per card; ``mesh_devices`` the card count, no failover), its
+    rows equal to ``solve_shards(mesh=None)`` of the same state; then
+    the card quarantined (three faults): the next window raises
+    ``DeviceFaultError(kind="quarantined")`` with the card in
+    ``quarantined_devices``, before any rebuild, and no host plan is made
+    (the resilient wrapper raises too); then the clock past the recovery
+    timeout and one green probe of the card: exactly one rebuild, reason
+    ``device_recovered``, one failover, and the plan equal to the first."""
+    from karpenter_tpu_torch import faulttol
+    from karpenter_tpu_torch.faulttol import health as health_mod
+    from karpenter_tpu_torch.sharded import ResilientShardedService
+    from karpenter_tpu_torch.sharded.kernels import solve_shards
+    from karpenter_tpu_torch.sharded.service import ShardedSolveService
+    from karpenter_tpu_torch.resident.kernels import new_state
+
+    now = [1000.0]
+    faulttol.clear_injector()
+    board = faulttol.HealthBoard(clock=lambda: now[0],
+                                 triage_writer=lambda *a, **k: None,
+                                 probe_interval_s=0.0, probe_successes=1)
+    health_mod._BOARD = board
+    try:
+        reset_launches()
+        svc = ShardedSolveService(MESH["shards"], device="cuda")
+        width = torch.cuda.device_count()
+        kick = svc._kick_window(catalog, pods=pods)
+        rows = kick.host.numpy().copy()
+        plan0 = svc._fetch_window(kick)
+        # the service's own launches, before the comparison's
+        launches = launch_counts()
+        st = svc.stats()
+        if (st["mesh_devices"], st["failovers"], st["quarantined_devices"]) \
+                != (min(width, MESH["shards"]), 0, []):
+            raise AssertionError(f"(mp4) stats {st}")
+        w = kick.window
+        S, L = w.stacked.shape
+        didx = torch.full((S, resident_delta.DELTA_BUCKETS[0]), L,
+                          dtype=torch.int32, device=dev)
+        dval = torch.zeros_like(didx)
+        _, single = solve_shards(
+            new_state(w.stacked, dev), didx, dval,
+            *svc._catalog_tensors(catalog, w.O_pad, dev), G=w.G_pad,
+            O=w.O_pad, U=w.U_pad, N=w.N)
+        if not np.array_equal(rows, single.cpu().numpy()):
+            raise AssertionError("(mp4) mesh rows differ from "
+                                 "solve_shards(mesh=None)")
+        ids = svc.device_ids
+        for _ in range(board.fault_threshold):
+            board.record_fault(ids[0], kind="error", kernel="sharded-solve")
+        host0 = metrics.SHARDED_SOLVES.get("host")
+        rebuilds, windows = svc.rebuilds, svc.windows
+        raised = []
+        for target in (svc, ResilientShardedService(svc)):
+            try:
+                target.solve_window(catalog, pods=pods)
+            except faulttol.DeviceFaultError as e:
+                raised.append(e.kind)
+        st = svc.stats()
+        if raised != ["quarantined"] * 2 or svc.rebuilds != rebuilds \
+                or svc.windows != windows \
+                or metrics.SHARDED_SOLVES.get("host") != host0 \
+                or st["quarantined_devices"] != sorted(ids):
+            raise AssertionError(f"(mp4) quarantined: raised {raised}, "
+                                 f"rebuilds {svc.rebuilds}/{rebuilds}, "
+                                 f"stats {st}")
+        now[0] += board.recovery_timeout_s + 1.0
+        reset_launches()
+        plan1 = svc.solve_window(catalog, pods=pods)
+        add_launches(launches, launch_counts())
+        st = svc.stats()
+        if svc.rebuilds != rebuilds + 1 \
+                or svc.last_delta.reason != "device_recovered" \
+                or st["failovers"] != 1 or st["quarantined_devices"] \
+                or board.last_failover_reason != "device_recovered":
+            raise AssertionError(f"(mp4) recovery: rebuilds "
+                                 f"{svc.rebuilds}/{rebuilds}, reason "
+                                 f"{svc.last_delta.reason}, stats {st}")
+        for a, b in zip(plan1.plans, plan0.plans):
+            plans_equal("(mp4) recovered plan", a, b)
+    finally:
+        health_mod._BOARD = None
+    say(f"mesh (mp4) [{card}]: ShardedSolveService({MESH['shards']}) on "
+        f"{ids}: mesh_devices {min(width, MESH['shards'])}, rows equal to "
+        f"solve_shards(mesh=None); {ids[0]} quarantined -> "
+        f"DeviceFaultError(kind='quarantined') from the service and its "
+        f"resilient wrapper, no rebuild, no host plan; recovered after one "
+        f"green probe: one rebuild (device_recovered), failovers 1, plans "
+        f"equal; launches {launches}")
+    return {"launches": launches, "devices": ids}
 
 
 def stream_windows(catalog):
@@ -8738,9 +8976,10 @@ def main() -> int:
     operator_run = gated("(op1)-(op3) operator", phase_operator, dev, card,
                          pods)
     cli = gated("(op4) cli", phase_cli, dev, card)
+    mesh_run = gated("(mp1)-(mp3) mesh", phase_mesh, dev, card, fleet)
     say(f"gate (u0): no degradation breadcrumb moved in any phase (a)-(t) "
         f"but (s), nor in (v), (w1)-(w5), (x1)-(x5), (y), (z), (l2), "
-        f"(w7), (w8) or (op1)-(op4), no "
+        f"(w7), (w8), (op1)-(op4) or (mp1)-(mp3), no "
         f"controller's "
         f"reconcile failed and no plan was refused; "
         f"sharded_solves_total{{host}} "
@@ -8753,6 +8992,7 @@ def main() -> int:
     chaos_fault = phase_chaos_fault(dev, card)
     whatif_fault = phase_whatif_fault(dev, card, pods, catalog)
     operator_fault = phase_operator_fault(dev, card, pods)
+    mesh_fault = phase_mesh_fault(dev, card, pods, catalog)
     degraded = phase_degraded(dev, card, pods, catalog,
                               oracles.pop("cases"))
     checks["ffd_scan_fleet"]["max_abs_err"] = max(
@@ -8797,6 +9037,8 @@ def main() -> int:
                      "http": http_run["launches"],
                      "operator": operator_run["launches"],
                      "cli": cli["launches"],
+                     "mesh": mesh_run["launches"],
+                     "mesh_fault": mesh_fault["launches"],
                      "fault": fault["launches"],
                      "degraded": degraded["launches"]}
     total = {name: sum(pl.get(name, 0) for pl in path_launches.values())
@@ -8842,6 +9084,7 @@ def main() -> int:
             "whatif_service": whatif_service, "whatif_fault": whatif_fault,
             "iks": iks_run, "http": http_run, "operator": operator_run,
             "cli": cli, "operator_fault": operator_fault, "fault": fault,
+            "mesh": mesh_run, "mesh_fault": mesh_fault,
             "degraded": degraded,
             "timing": timing, "kernels": record}, indent=1, default=str))
     say(json.dumps({"kernels": record}))

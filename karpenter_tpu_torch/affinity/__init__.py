@@ -28,3 +28,11 @@ C_PAD = 32
 
 # "Unbounded" sentinel for spread-bound rows.
 AFF_BIG = 1 << 20
+
+
+def affinity_enabled(problem) -> bool:
+    """Does this encoded problem carry the affinity plane?  True when
+    the encoder attached an ``affinity.encode.AffinityIndex`` (at least
+    one live inter-group edge or bounded spread class); an edge-free
+    window is byte-identical to a build without this plane."""
+    return getattr(problem, "aff", None) is not None

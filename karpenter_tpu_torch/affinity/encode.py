@@ -78,6 +78,23 @@ class AffinityIndex:
     def num_groups(self) -> int:
         return int(self.member.shape[1])
 
+    @property
+    def req_mat(self) -> np.ndarray:
+        """Dense int32 [G, G]: ``req_mat[g, h]`` = 1 when g carries a
+        required edge targeting h (any scope), the validator's view."""
+        req = self.req_host | self.req_zone                 # [G, C]
+        return (req.astype(np.int32) @ self.member.astype(np.int32)
+                > 0).astype(np.int32)
+
+    @property
+    def anti_mat(self) -> np.ndarray:
+        """Dense int32 [G, G]: anti edges, symmetric closure (kube
+        enforces anti-affinity in both directions at schedule time)."""
+        anti = self.anti_host | self.anti_zone
+        m = (anti.astype(np.int32) @ self.member.astype(np.int32)
+             > 0).astype(np.int32)
+        return (m | m.T).astype(np.int32)
+
     def permute(self, order: np.ndarray) -> "AffinityIndex":
         """Re-align every per-group axis with a sorted group order
         (``new[i] = old[order[i]]``) — called once, after the FFD

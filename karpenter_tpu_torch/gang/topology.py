@@ -61,6 +61,15 @@ class SliceTable:
     def pmax(self) -> int:
         return int(self.masks.shape[1])
 
+    def free_grid(self, occupancy: np.ndarray) -> np.ndarray:
+        """bool [O, Pmax]: placement p of offering o is valid and chip-
+        disjoint from ``occupancy`` (uint64 [O]), the batched fit test."""
+        return self.valid & ((self.masks & occupancy[:, None]) == 0)
+
+    def fits(self, occupancy: np.ndarray) -> np.ndarray:
+        """bool [O]: some placement is still free under ``occupancy``."""
+        return self.free_grid(occupancy).any(axis=1)
+
 
 def _chip_index(dims: tuple[int, ...]) -> np.ndarray:
     """Row-major chip numbering of the torus grid."""
@@ -153,6 +162,13 @@ def slice_table(catalog: CatalogArrays,
         _TABLE_CACHE.pop(next(iter(_TABLE_CACHE)))
     _TABLE_CACHE[key] = table
     return table
+
+
+def clear_topology_cache() -> None:
+    """Test hook: drop every cached placement table."""
+    _PLACEMENT_CACHE.clear()
+    _TABLE_CACHE.clear()
+    _RANK_CACHE.clear()
 
 
 # ---------------------------------------------------------------------------

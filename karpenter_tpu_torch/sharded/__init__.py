@@ -1,11 +1,12 @@
-"""The sharded continuous-solve service on one device (port of
-``karpenter_tpu/sharded``).
+"""The sharded continuous-solve service (port of ``karpenter_tpu/sharded``).
 
 Pods hash to shards by constraint signature (:mod:`router`); each
-shard's packed window stays resident on the device as one row of a
-stacked ``[S, L + 1]`` state fed by word deltas; every window is one
-stacked solve, the shards being the problem axis of the fleet kernel
-(:mod:`kernels`: one ``ffd_scan_fleet`` and one ``cost_sum`` launch);
+shard's packed window stays resident as one row of a stacked
+``[S, L + 1]`` state fed by word deltas, each slot of the shard mesh
+holding its block of rows on its device; every window is one stacked
+solve, the shards being the problem axis of the fleet kernel
+(:mod:`kernels`: one ``ffd_scan_fleet`` and one ``cost_sum`` launch per
+slot);
 a periodic rebalance moves signature-group ownership from the most to
 the least loaded shard (:mod:`service`).  ``ShardedSolver`` serves it
 behind ``.solve()`` and :mod:`validate` checks it independently.
@@ -18,8 +19,9 @@ window of a service on the CPU there (one on the card raises).
 Opt-in through ``SolverOptions(sharded=N)`` (N > 1) or the environment
 variable ``KARPENTER_ENABLE_SHARDED`` (with ``KARPENTER_SHARDS``,
 default 2): ``make_solver`` then returns ``ShardedSolver`` (wrapped in
-``ResilientSolver``).  Shard meshes wider than one device and the
-health-board failover are not ported (ROADMAP queue 1 item 10).
+``ResilientSolver``).  When the health board quarantines a slot's
+device, the service remaps its mesh onto the survivors (N-1 failover);
+with none left a window raises ``DeviceFaultError(kind="quarantined")``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ counted.  A failed rebalance falls to the numpy oracle of the decision
 (``sharded/kernels.rebalance_oracle``), with
 ``ERRORS{sharded, degraded_rebalance}`` and ``degraded_rebalances``.
 
-A service on the card never hands a window or a rebalance to the host
+A window whose every mesh device is quarantined raises
+``DeviceFaultError(kind="quarantined")`` before any rebuild: on the CPU
+it takes the host route like any other failure.  A service on the card
+never hands a window or a rebalance to the host
 (``device.holds_card``): the failure raises, the service having
 invalidated its stacked state at the failed kick or fetch.
 """

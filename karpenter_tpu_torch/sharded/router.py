@@ -148,6 +148,12 @@ class ShardRouter:
             self.migrations += 1
             return True
 
+    def component_of(self, key: str) -> tuple[str, ...]:
+        """The bound component containing ``key`` (a singleton tuple for
+        unbound keys), the unit every migration moves."""
+        with self._lock:
+            return self._components.get(key, (key,))
+
     def overrides(self) -> dict[str, int]:
         with self._lock:
             return dict(self._owner)

@@ -1,14 +1,16 @@
 """The sharded continuous-solve service (port of
-``karpenter_tpu/sharded/service.py``), on one device.
+``karpenter_tpu/sharded/service.py``).
 
 The admission front-end (:class:`ShardRouter`) hashes pods to shards;
 each shard's packed window stays resident on the device between windows
 as one stacked ``[S, L + 1]`` state fed by the resident delta path
 (``resident/store.plan_update`` over the flattened buffer: only the
 changed int32 words move, padded to one shared ``DELTA_BUCKETS`` rung);
-every window is one stacked solve (``sharded/kernels.solve_shards``: one
-``ffd_scan_fleet`` launch over the S shards and one ``cost_sum``
-launch); the periodic rebalance is a device reduction
+every window is one stacked solve over the shard mesh
+(``sharded/kernels.solve_shards``: each slot of the mesh holds its
+contiguous block of shards, and solves them with one ``ffd_scan_fleet``
+launch and one ``cost_sum`` launch); the periodic rebalance is a device
+reduction
 (``rebalance_shards``) whose decision the host applies as
 signature-group ownership migrations.
 
@@ -33,9 +35,16 @@ plan.  The same host route is the degraded contract of
 ``sharded/degraded.py::ResilientShardedService`` for a service on the
 CPU.
 
-On one card the shard mesh is one device wide (``mesh_devices`` 1); the
-health-board failover onto fewer devices is not ported (ROADMAP queue 1
-item 10).  The kick, the fetch and the rebalance run inside
+The shard mesh (``parallel/mesh.py::shard_mesh``) spans the service's
+slots (:func:`slot_pool`): every card for a bare ``device="cuda"`` (one
+slot on a one-card machine), the one device for ``cuda:i`` or the CPU,
+or the slots of an explicit ``mesh``.  N-1
+failover (:meth:`ShardedSolveService._refresh_mesh`, called at every
+kick and rebalance): when the health board's quarantine set changes,
+the mesh is remapped onto the surviving devices and the stacked state
+rebuilt from the host mirror; with no survivor the kick raises
+``DeviceFaultError(kind="quarantined")`` before any rebuild.  The kick,
+the fetch and the rebalance run inside
 ``device_guard`` ("sharded-solve", "sharded-fetch", "rebalance"), the
 kick and the rebalance in a sampled profiler bracket, each noted in
 ``obs.devtel`` as the reference notes it.  A failed kick or fetch
@@ -57,10 +66,15 @@ import torch
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.apis.pod import pod_key
 from karpenter_tpu_torch.device import resolve_device
-from karpenter_tpu_torch.faulttol import device_guard, device_id
+from karpenter_tpu_torch.faulttol import (
+    DeviceFaultError, device_guard, device_id, device_ids, get_health_board,
+)
 from karpenter_tpu_torch.obs.devtel import get_devtel
 from karpenter_tpu_torch.obs.prof import get_profiler
 from karpenter_tpu_torch.obs.telemetry_words import note_rebalance_skew
+from karpenter_tpu_torch.parallel.mesh import (
+    SHARD_AXIS, Mesh, default_devices, on_slot, shard_mesh,
+)
 from karpenter_tpu_torch.resident.delta import (
     DELTA_BUCKETS, WindowDelta, pad_delta,
 )
@@ -77,6 +91,9 @@ from karpenter_tpu_torch.solver.torch_backend import (
 )
 from karpenter_tpu_torch.solver.types import bucket
 from karpenter_tpu_torch.utils import metrics
+from karpenter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("sharded.service")
 
 
 class CorruptShardResult(RuntimeError):
@@ -90,13 +107,14 @@ class ShardKick:
     phase needs, and what a host re-solve of the window needs
     (``catalog``, ``nodepool``).  ``host`` / ``event`` are the pinned
     copy of the device result and the event that marks its end (None on
-    the CPU)."""
+    the CPU); ``devices`` the board ids of the mesh it was kicked on."""
 
     __slots__ = ("window", "delta", "host", "event", "t0", "catalog",
-                 "nodepool", "pods_count")
+                 "nodepool", "pods_count", "devices")
 
     def __init__(self, window, delta, host, event, t0, catalog=None,
-                 nodepool=None, pods_count=0):
+                 nodepool=None, pods_count=0, devices=None):
+        self.devices = devices
         self.pods_count = pods_count
         self.window = window
         self.delta = delta
@@ -108,23 +126,38 @@ class ShardKick:
 
 
 class ShardedSolveService:
-    """Stacked resident state + per-shard solves, on ``device`` (the card
-    unless the CPU is asked for)."""
+    """Stacked resident state + per-shard solves over a shard mesh of
+    ``device``'s kind (the card unless the CPU is asked for).
+
+    The mesh's slots, and the pool it fails over within, come from one
+    input: an explicit ``mesh`` (a ``parallel/mesh.py`` mesh) brings its
+    own slots; otherwise :func:`slot_pool` of ``device`` (every card for
+    a bare ``cuda``, the one slot for an indexed device or the CPU), over
+    which the mesh is ``shard_mesh(num_shards)``.  (The reference fails
+    an explicit mesh over onto every device of the process.)"""
 
     MAX_DEVICE_CATALOGS = 4
 
-    def __init__(self, num_shards: int, *, right_size: bool = True,
-                 device="cuda"):
+    def __init__(self, num_shards: int, *, mesh: Mesh | None = None,
+                 right_size: bool = True, device="cuda"):
         self.router = ShardRouter(num_shards)
         self.num_shards = num_shards
         self.right_size = right_size
         self.device = resolve_device(device)
-        self.device_ids = [device_id(self.device)]
+        self._devices = (list(mesh.devices.flat) if mesh is not None
+                         else slot_pool(device))
+        kinds = {d.type for d in self._devices}
+        if kinds != {self.device.type}:
+            raise ValueError(f"a {self.device.type} service takes "
+                             f"{self.device.type} slots only, got "
+                             f"{sorted(kinds)}")
+        self._mesh = mesh
         self._lock = threading.Lock()
-        # stacked resident state: host mirror [S, L] + device state
-        # [S, L + 1], generation-tracked like resident/store
+        # stacked resident state: host mirror [S, L] + the device state,
+        # each mesh slot's rows [S / width, L + 1] on its device,
+        # generation-tracked like resident/store
         self._mirror: np.ndarray | None = None
-        self._dev: torch.Tensor | None = None
+        self._dev: list[torch.Tensor] | None = None
         self._generation: tuple | None = None
         self._shapes: tuple | None = None       # (G_pad, O_pad, U_pad, N)
         self._pending_reason = ""
@@ -139,23 +172,84 @@ class ShardedSolveService:
         self.invalidations = 0
         self.rebalances = 0
         self.migrations = 0
+        self.failovers = 0
         self.last_delta: WindowDelta | None = None
         self.last_decision: RebalanceDecision | None = None
+        # the health-board quarantine set the mesh was last remapped
+        # against (N-1 failover bookkeeping)
+        self._quarantined_seen: frozenset = frozenset()
         # the shard_backlog_pods labels this service has published: a
         # smaller shard set retires the rows it leaves behind
         self._backlog_labels: set[str] = set()
 
-    # -- catalog -----------------------------------------------------------
+    # -- mesh / catalog ----------------------------------------------------
 
-    def _catalog_tensors(self, catalog, O_pad: int):
-        """(off_alloc, off_price, off_rank) on the device, cached by the
-        catalog's generations; a bumped generation of a catalog drops its
-        older tensors, foreign catalogs are capped by count."""
+    @property
+    def mesh(self) -> Mesh:
+        if self._mesh is None:
+            self._mesh = shard_mesh(self.num_shards, devices=self._devices)
+        return self._mesh
+
+    @property
+    def device_ids(self) -> list[str]:
+        return device_ids(self.mesh.devices.flat)
+
+    def _refresh_mesh(self) -> None:
+        """N-1 shard failover: when the health board's quarantine set
+        changes, remap the shard mesh onto the surviving devices (the
+        largest-divisor ladder of ``shard_mesh``: extra shards fold into
+        each slot's block) and invalidate the stacked state so the next
+        window rebuilds every shard from the host mirror.  Router
+        ownership is untouched: only the shard -> device mapping moves.
+        With no survivor it raises ``DeviceFaultError(kind=
+        "quarantined")`` on every window, before any rebuild."""
+        board = get_health_board()
+        board.tick()
+        quarantined = board.quarantined_ids()
+        survivors = [d for d in self._devices
+                     if device_id(d) not in quarantined]
+        if not survivors:
+            with self._lock:
+                self._quarantined_seen = quarantined
+            raise DeviceFaultError(
+                "every device is quarantined; the sharded service has "
+                "no survivors to remap onto", kernel="sharded-solve",
+                kind="quarantined")
+        with self._lock:
+            if quarantined == self._quarantined_seen:
+                return
+            prev = self._quarantined_seen
+            self._quarantined_seen = quarantined
+        reason = "device_failover" if len(quarantined) > len(prev) \
+            else "device_recovered"
+        old_width = None if self._mesh is None \
+            else int(self._mesh.shape[SHARD_AXIS])
+        self._mesh = shard_mesh(self.num_shards, devices=survivors)
+        self.invalidate(reason)
+        with self._lock:
+            self.failovers += 1
+        board.note_failover(reason)
+        # drop the board rows of devices that left the service's set
+        # entirely; quarantined devices stay so recovery finds them
+        board.prune(device_id(d) for d in self._devices)
+        log.warning("shard mesh remapped onto survivors",
+                    reason=reason, survivors=len(survivors),
+                    quarantined=sorted(quarantined), old_width=old_width)
+        obs.instant("sharded.failover", reason=reason,
+                    survivors=len(survivors),
+                    quarantined=len(quarantined))
+
+    def _catalog_tensors(self, catalog, O_pad: int, device=None):
+        """(off_alloc, off_price, off_rank) on ``device`` (the service's
+        by default), cached by the catalog's generations; a bumped
+        generation of a catalog drops its older tensors, foreign catalogs
+        are capped by count.  A catalog's upload is noted once, however
+        many mesh slots take a copy."""
         key = (catalog.uid, catalog.generation,
                catalog.availability_generation, O_pad,
                getattr(catalog, "risk_generation", 0))
-        cached = self._device_catalog.get(key)
-        if cached is None:
+        entry = self._device_catalog.get(key)
+        if entry is None:
             for k in [k for k in self._device_catalog
                       if k[0] == catalog.uid and k != key]:
                 self._device_catalog.pop(k)
@@ -165,11 +259,16 @@ class ShardedSolveService:
                             O_pad),
                       _pad1(catalog.off_price.astype(np.float32), O_pad),
                       _pad1(catalog.offering_rank_price(), O_pad))
-            cached = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                           .to(self.device) for a in arrays)
-            self._device_catalog[key] = cached
+            entry = self._device_catalog[key] = (arrays, {})
             get_devtel().note_catalog_upload(
                 int(sum(a.nbytes for a in arrays)))
+        arrays, per_device = entry
+        dev = self.device if device is None else torch.device(device)
+        cached = per_device.get(dev)
+        if cached is None:
+            cached = per_device[dev] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays)
         return cached
 
     # -- admission front-end -----------------------------------------------
@@ -262,6 +361,7 @@ class ShardedSolveService:
         and decode.  A host-routed window returns its finished
         :class:`ShardedPlan` instead."""
         t0 = time.perf_counter()
+        self._refresh_mesh()
         if pods is None:
             pods = self.backlog_pods()
         self.router.bind_components(pods)
@@ -282,10 +382,12 @@ class ShardedSolveService:
         gen = (catalog.uid, catalog.generation,
                catalog.availability_generation)
         shapes = window.shapes
+        slots = list(self.mesh.devices.flat)
         with self._lock:
             reason, idx = self._plan_update(stacked, gen, shapes)
             if reason:
-                self._dev = new_state(stacked, self.device)
+                self._dev = [new_state(rows, dev)
+                             for rows, dev in _slot_rows(stacked, slots)]
                 self._mirror = stacked.copy()
                 self._generation = gen
                 self._shapes = shapes
@@ -311,8 +413,8 @@ class ShardedSolveService:
                     mode="delta" if words else "hit", words=words,
                     h2d_bytes=int(didx.nbytes + dval.nbytes))
             state = self._dev
-        off_alloc, off_price, off_rank = self._catalog_tensors(
-            catalog, window.O_pad)
+        cats = [self._catalog_tensors(catalog, window.O_pad, dev)
+                for dev in slots]
         get_devtel().note_dispatch(
             "sharded-solve",
             (S, window.G_pad, window.O_pad, window.U_pad, window.N,
@@ -322,13 +424,17 @@ class ShardedSolveService:
             with device_guard("sharded-solve", devices=self.device_ids):
                 with get_profiler().sampled("sharded-solve") as probe:
                     _, out = solve_shards(
-                        state, upload(didx, self.device),
-                        upload(dval, self.device), off_alloc, off_price,
-                        off_rank, G=window.G_pad, O=window.O_pad,
+                        state,
+                        [upload(r, dev) for r, dev in _slot_rows(didx,
+                                                                 slots)],
+                        [upload(r, dev) for r, dev in _slot_rows(dval,
+                                                                 slots)],
+                        *zip(*cats), G=window.G_pad, O=window.O_pad,
                         U=window.U_pad, N=window.N,
-                        right_size=self.right_size)
+                        right_size=self.right_size, mesh=self.mesh)
                     probe.dispatched(out)
-            host, event = start_fetch(out)
+            with on_slot(out.device):
+                host, event = start_fetch(out)
         except Exception:
             # the state took the scatter, or may have: it can no longer
             # be trusted; the host mirror can (on the CPU the caller
@@ -337,7 +443,7 @@ class ShardedSolveService:
             raise
         return ShardKick(window=window, delta=delta, host=host, event=event,
                          t0=t0, catalog=catalog, nodepool=nodepool,
-                         pods_count=len(pods))
+                         pods_count=len(pods), devices=device_ids(slots))
 
     def _fetch_window(self, kick: ShardKick) -> ShardedPlan:
         """Phase 2: wait for the copy, check and decode every shard, and
@@ -345,7 +451,7 @@ class ShardedSolveService:
         window, delta = kick.window, kick.delta
         try:
             with device_guard("sharded-fetch",
-                              devices=self.device_ids) as guard:
+                              devices=kick.devices) as guard:
                 out_np = guard.fetch(kick.host, event=kick.event)
             get_devtel().note_d2h(int(out_np.nbytes))
             plan = self._decode(window, out_np, delta_words=delta.words)
@@ -478,15 +584,20 @@ class ShardedSolveService:
         """Compute the decision on the device and apply it as
         group-ownership migrations (largest donor groups first, key
         ascending on ties)."""
+        self._refresh_mesh()
         if pods is None:
             pods = self.backlog_pods()
         mat = self.pressure(pods)
         get_devtel().note_dispatch("rebalance", (self.num_shards,
                                                  mat.shape[1]),
                                    h2d_bytes=int(mat.nbytes), donated=False)
-        with device_guard("rebalance", devices=self.device_ids) as guard:
+        mesh = self.mesh
+        with device_guard("rebalance",
+                          devices=device_ids(mesh.devices.flat)) as guard:
             with get_profiler().sampled("rebalance") as probe:
-                tile = rebalance_shards(torch.from_numpy(mat).to(self.device))
+                tile = rebalance_shards(
+                    torch.from_numpy(mat).to(mesh.devices.flat[0]),
+                    mesh=mesh)
                 probe.dispatched(tile)
             tile_np = guard.fetch(tile)
         get_devtel().note_d2h(int(tile_np.nbytes))
@@ -553,7 +664,8 @@ class ShardedSolveService:
             if self._mirror is None or self._dev is None:
                 return None
             return {"mirror": self._mirror,
-                    "device": self._dev[:, :-1].cpu().numpy(),
+                    "device": np.concatenate([d[:, :-1].cpu().numpy()
+                                              for d in self._dev]),
                     "generation": self._generation, "shapes": self._shapes,
                     "overrides": self.router.overrides()}
 
@@ -562,12 +674,14 @@ class ShardedSolveService:
             last = self.last_delta
             return {
                 "shards": self.num_shards,
-                "mesh_devices": 1,
+                "mesh_devices": int(self.mesh.shape[SHARD_AXIS]),
                 "windows": self.windows,
                 "rebuilds": self.rebuilds,
                 "invalidations": self.invalidations,
                 "rebalances": self.rebalances,
                 "migrations": self.migrations,
+                "failovers": self.failovers,
+                "quarantined_devices": sorted(self._quarantined_seen),
                 "backlog": len(self._backlog),
                 "router": self.router.stats(),
                 "last_mode": last.mode if last else "",
@@ -575,6 +689,24 @@ class ShardedSolveService:
                 "last_skew": self.last_decision.skew
                 if self.last_decision else 0,
             }
+
+
+def slot_pool(device) -> list[torch.device]:
+    """The slots a service on ``device`` spans and fails over within:
+    every card for a bare ``cuda``, that one slot for a device with an
+    index, the one CPU slot for ``cpu``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return default_devices()
+    return [resolve_device(dev)]
+
+
+def _slot_rows(rows: np.ndarray, slots):
+    """(block, device) per mesh slot: slot w's contiguous block of the
+    S rows, S / width of them."""
+    n = rows.shape[0] // len(slots)
+    return [(np.ascontiguousarray(rows[w * n:(w + 1) * n]), dev)
+            for w, dev in enumerate(slots)]
 
 
 def _shared_bucket(d_max: int) -> tuple[int]:

@@ -161,6 +161,10 @@ class EncodedProblem:
         self._prep_cache = None     # torch_backend packed-template cache
 
     @property
+    def has_preferences(self) -> bool:
+        return self.pref_rows is not None
+
+    @property
     def has_gangs(self) -> bool:
         return len(self.gang_names) > 0
 

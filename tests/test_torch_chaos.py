@@ -18,6 +18,8 @@ import types
 
 import pytest
 
+from tests.torch_native_pin import native_pin
+
 PKGS = ("karpenter_tpu", "karpenter_tpu_torch")
 
 
@@ -304,7 +306,9 @@ def test_unstable_solver_draws_the_reference_schedule():
     assert {o[0] for o in out} >= {"ok"} and len({o[0] for o in out}) == 2
 
 
-def test_validating_solver_accumulates_the_reference_violations():
+def validating_script(use_native):
+    """Both packages' ``ValidatingSolver`` on a garbage plan, then on the
+    greedy oracle with ``use_native``: the trace holds its backend."""
     def script(m):
         req = request_of(m, n_pods=2)
         garbage = m.types.Plan(nodes=[], unplaced_pods=[],
@@ -313,13 +317,34 @@ def test_validating_solver_accumulates_the_reference_violations():
         v = m.solver.ValidatingSolver(_Static(garbage, m), trace=trace)
         v.solve(req)
         good = m.solver.ValidatingSolver(m.greedy.GreedySolver(
-            m.types.SolverOptions(backend="greedy")), trace=trace)
+            m.types.SolverOptions(backend="greedy", use_native=use_native)),
+            trace=trace)
         plan = good.solve(req)
         return (list(v.violations), list(v.explain_violations),
-                list(good.violations), len(plan.nodes), trace.digest())
+                list(good.violations), len(plan.nodes), plan.backend,
+                trace.digest())
 
-    violations, *_ = both(script)
+    return script
+
+
+def test_validating_solver_accumulates_the_reference_violations():
+    violations, *_ = both(validating_script(native_pin()))
     assert violations
+
+
+def test_validating_solver_matches_with_the_reference_native_failed(
+        monkeypatch):
+    """A worker whose reference build raced holds ``_load_failed``: both
+    packages then take the python greedy and agree."""
+    import karpenter_tpu.native as j_native
+
+    j_native.load()
+    monkeypatch.setattr(j_native, "_lib", None)
+    monkeypatch.setattr(j_native, "_load_failed", True)
+    pin = native_pin()
+    assert pin == "off"
+    violations, *rest = both(validating_script(pin))
+    assert violations and rest[-2] == "greedy"
 
 
 # ---------------------------------------------------------------------------

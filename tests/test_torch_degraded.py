@@ -61,6 +61,7 @@ from karpenter_tpu_torch.solver.degraded import (
 from karpenter_tpu_torch.solver.greedy import GreedySolver
 from karpenter_tpu_torch.utils import metrics as t_metrics
 from tests import test_torch_affinity as aff_t
+from tests.torch_native_pin import native_pin
 from tests import test_torch_stochastic as sto_t
 from tests.test_torch_solver import (  # noqa: F401 (fixtures)
     both, build_pods, jcatalog, mixed_specs, node_view, tcatalog,
@@ -191,18 +192,23 @@ def test_plan_defects_and_invalid_plan_degrade_match_reference(
 
     jpods, tpods = _window()
     jreq, treq = JSolveRequest(jpods, jcatalog), SolveRequest(tpods, tcatalog)
-    jplan = JGreedySolver().solve(jreq)
-    tplan = GreedySolver().solve(treq)
+    pin = native_pin()
+    jopts, topts = SolverOptions(use_native=pin), TSolverOptions(
+        use_native=pin)
+    jgreedy = SolverOptions(backend="greedy", use_native=pin)
+    tgreedy = TSolverOptions(backend="greedy", use_native=pin)
+    jplan = JGreedySolver(jgreedy).solve(jreq)
+    tplan = GreedySolver(tgreedy).solve(treq)
     CORRUPTIONS[case](jplan)
     CORRUPTIONS[case](tplan)
     want = j_plan_defects(jplan, jreq)
     assert plan_defects(tplan, treq) == want
     assert bool(want) == (case != "clean")
     jb, tb = errors(j_metrics), errors(t_metrics)
-    jout = JResilientSolver(Lying(JGreedySolver(), CORRUPTIONS[case]),
-                            SolverOptions()).solve(jreq)
-    tout = ResilientSolver(Lying(GreedySolver(), CORRUPTIONS[case]),
-                           TSolverOptions()).solve(treq)
+    jout = JResilientSolver(Lying(JGreedySolver(jgreedy), CORRUPTIONS[case]),
+                            jopts).solve(jreq)
+    tout = ResilientSolver(Lying(GreedySolver(tgreedy), CORRUPTIONS[case]),
+                           topts).solve(treq)
     assert moved(tb, errors(t_metrics)) == moved(jb, errors(j_metrics)) == (
         {} if case == "clean" else {"degraded_invalid_plan": 1.0})
     assert tout.backend == jout.backend
@@ -235,9 +241,10 @@ def test_partial_gang_defect_matches_reference(jcatalog, tcatalog):
 def test_backend_failure_degrades_as_reference(jcatalog, tcatalog):
     jpods, tpods = _window(seed=8)
     jb, tb = errors(j_metrics), errors(t_metrics)
-    jout = JResilientSolver(Boom(), SolverOptions()).solve(
+    pin = native_pin()
+    jout = JResilientSolver(Boom(), SolverOptions(use_native=pin)).solve(
         JSolveRequest(jpods, jcatalog))
-    tout = ResilientSolver(Boom(), TSolverOptions()).solve(
+    tout = ResilientSolver(Boom(), TSolverOptions(use_native=pin)).solve(
         SolveRequest(tpods, tcatalog))
     assert moved(tb, errors(t_metrics)) == moved(jb, errors(j_metrics)) == {
         "degraded_backend_failure": 1.0}

@@ -55,8 +55,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # fault and profiling planes, the oracles, the degraded modes, the
     # catalog intake, the provisioning loop, the controllers, the
     # sidecar, the chaos harness, the what-if service, the IKS,
-    # load-balancer and HTTP cloud layer, the operator and the command
-    # lines)
+    # load-balancer and HTTP cloud layer, the operator, the command
+    # lines and the device mesh)
     for m in ("karpenter_tpu_torch.solver.ffd_kernel",
               "karpenter_tpu_torch.solver.packed",
               "karpenter_tpu_torch.cuda_build", "karpenter_tpu_torch.carry",
@@ -216,7 +216,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
               "karpenter_tpu_torch.operator.server",
               "karpenter_tpu_torch.operator.operator",
               "karpenter_tpu_torch.__main__",
-              "karpenter_tpu_torch.obs.__main__"):
+              "karpenter_tpu_torch.obs.__main__",
+              "karpenter_tpu_torch.parallel.mesh",
+              "karpenter_tpu_torch.parallel.collectives"):
         assert m in res["modules"]
 
 

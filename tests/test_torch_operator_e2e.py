@@ -233,8 +233,13 @@ def taints(m):
             "intolerant", requests=m.pod.ResourceRequests(500, 1024, 0, 1)))
 
         def tolerant_placed():
+            # the claim's state is part of the view: wait for it to be
+            # initialized, as the other scripts' settles do
             p = op.cluster.get("pods", "default/tolerant")
-            return p is not None and p.nominated_node
+            if p is None or not p.nominated_node:
+                return False
+            claim = op.cluster.get_nodeclaim(p.nominated_node)
+            return claim is not None and claim.initialized
         assert settle(op, kubelet, want=tolerant_placed)
         assert not op.cluster.get("pods", "default/intolerant").nominated_node
         claim = op.cluster.get_nodeclaim(
